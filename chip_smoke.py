@@ -1,0 +1,597 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+1. device: CUDA must be available; prints the card's name and power limit;
+2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``;
+3. the GEMM-Op kernel against its plain PyTorch version, on the card:
+   all seven Table-1 ops, ragged, batched, broadcast and transposed
+   operands, and the serving path's shapes;
+4. the paged flash-decode kernel against its plain version;
+5. slice parity: granite-3-8b at full width with 2 layers, one prefill of
+   two prompts and 4 decode steps, kernels ("cuda") against the plain path
+   ("torch") on the card, under fp32 and under redmule_hfp8;
+6. serve: granite-3-8b at full width and depth (40 layers) under
+   redmule_hfp8 with E4M3 weights and KV pages, 8 requests through the
+   port's ``Server``, with the kernels' launch counts read around the run;
+7. the kernel line: each kernel's launches, error, time, bound, plain time
+   and one library call's time at the serving shapes.
+
+The last line is ``{"ok": true, "device": {...}}``. The script imports
+neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+FP16_FLOP_S = 989e12  # H100 SXM dense fp16 tensor-core peak
+FP32_FLOP_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
+
+GEMM_TOL = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- phase 1 ---------------------------------------------------------------------
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; the port's smoke run needs a card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    return smi
+
+
+# -- phase 2 ---------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log("  " + line.strip())
+
+
+# -- phase 3 ---------------------------------------------------------------------
+
+
+def _gemm_check(label, x, w, y, gop, policy):
+    from repro_torch.kernels import ops
+
+    got = ops.gemm_op(x, w, y, gop=gop, policy=policy, backend="cuda")
+    want = ops.gemm_op(x, w, y, gop=gop, policy=policy, backend="torch")
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    if gop.is_gemm:
+        err = rel_err(got, want)
+        tol = GEMM_TOL[got.dtype]
+        if not err <= tol:
+            raise AssertionError(f"{label}: max|dz|/max|z| = {err:.3g} > {tol}")
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got.float(), want.float()):
+            raise AssertionError(f"{label}: min/max op not bitwise, max|dz| = {err}")
+    return err
+
+
+def phase_gemm() -> float:
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import get_policy
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    worst = 0.0
+    n = 0
+    for pol_name in ("fp32", "redmule_hfp8"):
+        pol = get_policy(pol_name)
+        for gop in semiring.TABLE1:
+            cases = {
+                "2d": (rand(37, 129), rand(129, 70), None),
+                "2d+y": (rand(37, 129), rand(129, 70), rand(37, 70)),
+                "batched-x shared-w": (rand(3, 37, 129), rand(129, 70), rand(37, 70)),
+                "broadcast-w": (rand(2, 3, 37, 129), rand(2, 1, 129, 70), None),
+                "transposed-w": (rand(2, 37, 129), rand(70, 129).T, None),
+            }
+            for label, (x, w, y) in cases.items():
+                e = _gemm_check(f"{pol_name}/{gop.name}/{label}", x, w, y, gop, pol)
+                n += 1
+                if gop.is_gemm and pol_name == "redmule_hfp8":
+                    worst = max(worst, e)
+    bf16 = get_policy("tpu_bf16")
+    for label, (x, w) in {"2d": (rand(37, 129), rand(129, 70)),
+                          "transposed-w": (rand(5, 37, 129), rand(70, 129).T)}.items():
+        _gemm_check(f"tpu_bf16/matmul/{label}", x, w, None, semiring.MATMUL, bf16)
+        n += 1
+    # The serving path's shapes under redmule_hfp8: decode and prefill rows
+    # of the widest layer, the tied logits on a transposed table, and the
+    # two attention products (GQA group folded into the rows).
+    hfp8 = get_policy("redmule_hfp8")
+    table = rand(49155, 4096, scale=0.02)
+    k = rand(1, 96, 8, 128).permute(0, 2, 3, 1)  # (B, Hkv, hd, T) strided view
+    main = {
+        "decode 4x4096x12800": (rand(4, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
+        "prefill 64x4096x12800": (rand(64, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
+        "logits 1x4096x49155 (table.T)": (rand(1, 4096), table.T),
+        "scores (1,8)x384x128x96": (rand(1, 8, 4 * 96, 128), k),
+        "values (1,8)x384x96x128": (torch.rand(1, 8, 4 * 96, 96, generator=gen, device=dev),
+                                    rand(1, 8, 96, 128)),
+    }
+    for label, (x, w) in main.items():
+        worst = max(worst, _gemm_check(f"redmule_hfp8/matmul/{label}", x, w, None,
+                                       semiring.MATMUL, hfp8))
+        n += 1
+    log(f"gemm: {n} cases agree (min/max bitwise; worst hfp8 matmul max|dz|/max|z| {worst:.3g})")
+    return worst
+
+
+# -- phase 4 ---------------------------------------------------------------------
+
+# (s, hq, hkv, hd, page_size, pages_per_slot, n_pages, page dtype, window,
+#  inactive): the non-slow cases of the JAX package's paged-decode parity grid.
+DECODE_GRID = [
+    (4, 4, 2, 16, 8, 6, 16, torch.float32, None, ()),
+    (4, 4, 2, 16, 8, 6, 16, torch.bfloat16, None, ()),
+    (4, 4, 2, 16, 8, 6, 16, torch.float8_e4m3fn, None, ()),
+    (4, 4, 2, 16, 8, 6, 16, torch.float32, 20, ()),
+    (4, 4, 2, 16, 8, 6, 16, torch.bfloat16, 12, ()),
+    (3, 8, 1, 32, 4, 8, 12, torch.float8_e4m3fn, 9, ()),
+    (4, 4, 2, 16, 8, 6, 16, torch.float32, None, (1, 3)),
+    (6, 6, 3, 8, 4, 5, 24, torch.bfloat16, 10, (0, 4)),
+    (1, 8, 8, 32, 16, 4, 8, torch.bfloat16, None, ()),
+    (16, 4, 2, 16, 4, 4, 48, torch.float32, None, (5, 11)),
+]
+
+# The kernel and its plain version read the same pages dequantized to fp32
+# and compute in fp32, so they differ only by the order of their sums and
+# the output's one rounding to q's dtype: a few ulps of that dtype, whatever
+# the page format (atol and rtol alike). A dropped or repeated token moves
+# an output of these cases by about |v| / length, 1e-2 or more.
+DECODE_TOL = {torch.float32: 1e-5, torch.float16: 2e-3}
+
+
+def make_decode_case(rng, *, s, hq, hkv, hd, page_size, pages_per_slot, n_pages,
+                     dtype, window=None, inactive=(), q_dtype=torch.float32,
+                     seq_lens=None):
+    """A random decode step: shuffled physical pages and ragged lengths;
+    pages wholly behind the window go back to NULL as the allocator does."""
+    q = torch.from_numpy(rng.standard_normal((s, hq, hd)).astype(np.float32)).to(q_dtype)
+    pools = [torch.from_numpy(rng.standard_normal((n_pages * page_size, hkv, hd))
+                              .astype(np.float32)).to(dtype) for _ in range(2)]
+    avail = list(range(1, n_pages))
+    rng.shuffle(avail)
+    pt = np.zeros((s, pages_per_slot), np.int32)
+    lens = np.zeros(s, np.int32)
+    active = np.ones(s, np.int32)
+    idx = 0
+    for si in range(s):
+        if seq_lens is None:
+            n_pg = int(rng.integers(1, pages_per_slot + 1))
+            lens[si] = int(rng.integers(0, n_pg * page_size))
+        else:
+            lens[si] = seq_lens[si]
+            n_pg = lens[si] // page_size + 1
+        for p in range(n_pg):
+            pt[si, p] = avail[idx % len(avail)]
+            idx += 1
+        if window is not None:
+            for p in range(n_pg):
+                if (p + 1) * page_size - 1 <= lens[si] - window:
+                    pt[si, p] = 0
+    active[list(inactive)] = 0
+    to = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return q.cuda(), pools[0].cuda(), pools[1].cuda(), to(pt), to(lens), to(active)
+
+
+def phase_decode() -> None:
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    cases = [(c, None) for c in DECODE_GRID]
+    cases.append(((3, 4, 2, 16, 8, 4, 12, torch.float32, None, ()), 30.0))  # softcap
+    cases.append(((4, 32, 8, 128, 16, 7, 29, torch.float8_e4m3fn, None, ()), None))
+    worst = {dt: 0.0 for dt in DECODE_TOL}
+    for (s, hq, hkv, hd, ps, pps, npg, dt, win, inact), cap in cases:
+        q, kp, vp, pt, lens, act = make_decode_case(
+            rng, s=s, hq=hq, hkv=hkv, hd=hd, page_size=ps, pages_per_slot=pps,
+            n_pages=npg, dtype=dt, window=win, inactive=inact,
+            q_dtype=torch.float16 if hd == 128 else torch.float32)
+        kw = dict(page_size=ps, window=win, softcap=cap)
+        got = ops.paged_decode_attention(q, kp, vp, pt, lens, act, backend="cuda", **kw)
+        want = ops.paged_decode_attention(q, kp, vp, pt, lens, act, backend="torch", **kw)
+        torch.cuda.synchronize()
+        live = act.bool()
+        err = float((got[live].float() - want[live].float()).abs().max())
+        tol = DECODE_TOL[got.dtype]
+        label = f"s{s} h{hq}/{hkv}x{hd} ps{ps} {dt} -> {got.dtype} w{win} cap{cap}"
+        if not torch.allclose(got[live].float(), want[live].float(), rtol=tol, atol=tol):
+            raise AssertionError(f"paged decode {label}: max|d| {err:.3g} > tol {tol}")
+        if (~live).any() and float(got[~live].float().abs().max()) != 0.0:
+            raise AssertionError(f"paged decode {label}: inactive slots are not exact zeros")
+        worst[got.dtype] = max(worst[got.dtype], err)
+    log(f"paged decode: {len(cases)} cases agree (worst max|d|: fp32 out "
+        f"{worst[torch.float32]:.3g} within {DECODE_TOL[torch.float32]}, fp16 out "
+        f"{worst[torch.float16]:.3g} within {DECODE_TOL[torch.float16]}; inactive slots zero)")
+
+
+# -- phase 5 ---------------------------------------------------------------------
+
+
+def _slice_run(model, params, prompts, page_table, forced=None, steps=4, ps=16):
+    """One prefill per prompt, then ``steps`` decode steps; decode inputs are
+    ``forced`` (the kernels' own choices) when given, so every path runs
+    one token sequence and only the numerics differ."""
+    pools = model.init_state_store(len(prompts), 17, ps)
+    out = []
+    for slot, p in enumerate(prompts):
+        toks = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
+        toks[0, :len(p)] = torch.from_numpy(p)
+        out.append(model.prefill_cb(params, toks, pools, page_table[slot], 0, len(p),
+                                    page_size=ps))
+    seq_lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    active = torch.ones(len(prompts), dtype=torch.bool, device="cuda")
+    tokens = torch.stack([o[0].argmax() for o in out])[:, None]
+    chosen = [tokens]
+    for i in range(steps):
+        if forced is not None:
+            tokens = forced[i]
+        out.append(model.decode_cb(params, tokens, pools, page_table, seq_lens, active,
+                                   page_size=ps))
+        tokens = out[-1].argmax(-1, keepdim=True)
+        chosen.append(tokens)
+        seq_lens = seq_lens + 1
+    torch.cuda.synchronize()
+    return out, chosen
+
+
+def phase_slice_parity() -> None:
+    """granite-3-8b at full width, 2 layers: the kernels' path against the
+    plain path on the card, fed the same tokens. The bound holds the plain
+    path with the paged attention's plain version (fp32 over dequantized
+    pages, the kernel's semantics). The plain gathered decode, which rounds
+    q and the probabilities to E4M3 in its engine GEMMs under an fp8
+    policy, is printed beside it; the JAX package's XLA and Pallas decode
+    paths differ the same way (tests/test_torch_model.py holds each of the
+    port's two paths against the reference's path of the same semantics).
+
+    Under redmule_hfp8 with E4M3 weights the two paths agree bit for bit:
+    every E4M3 product is exact in fp16, both sides sum in fp32 and round
+    once to fp16, and the run is deterministic. Its bound is therefore 0:
+    any difference means one side changed its arithmetic, and one E4M3
+    rounding flipped by it reaches the logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.models import build
+    from repro_torch.models.transformer import Transformer
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 49155, size=n) for n in (64, 32)]
+    page_table = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    page_table[0, :5] = torch.arange(1, 6)
+    page_table[1, :3] = torch.arange(6, 9)
+    for pol, kv, fp8p, bound in (("fp32", "fp32", False, 1e-4),
+                                 ("redmule_hfp8", "e4m3", True, 0.0)):
+        cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy=pol,
+                                  kv_cache_dtype=kv, fp8_params=fp8p)
+        cuda_model = build(cfg, device="cuda")
+        params = cuda_model.init(0)
+        plain = Engine(policy=pol, backend="torch")
+        fused = Transformer(cfg, engine=plain, device="cuda", fused_decode=True)
+        gather = Transformer(cfg, engine=plain, device="cuda")
+        got, chosen = _slice_run(cuda_model, params, prompts, page_table)
+        forced = chosen[:-1]  # decode step i was fed chosen[i]
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"slice parity {pol}: non-finite logits on the kernels' path")
+        errs = {}
+        for name, model in (("plain", fused), ("plain, gathered decode", gather)):
+            want, _ = _slice_run(model, params, prompts, page_table, forced=forced)
+            errs[name] = ([rel_err(a, b) for a, b in zip(got[:2], want[:2])],
+                          [rel_err(a, b) for a, b in zip(got[2:], want[2:])])
+        for name, (pre, dec) in errs.items():
+            log(f"slice parity {pol} vs {name}: max|dlogit|/max|logit| prefill "
+                f"{max(pre):.3g}, decode {max(dec):.3g}")
+        worst = max(max(errs["plain"][0]), max(errs["plain"][1]))
+        if pol == "fp32":
+            worst = max(worst, max(errs["plain, gathered decode"][1]))
+        if not worst <= bound:
+            raise AssertionError(f"slice parity {pol}: {worst:.3g} > {bound}")
+        log(f"slice parity {pol}: {worst:.3g} within {bound:g}")
+        del cuda_model, fused, gather, params
+        torch.cuda.empty_cache()
+
+
+# -- phase 6 ---------------------------------------------------------------------
+
+
+def _count_launches(engine, readings: dict) -> None:
+    """Record both kernels' launch counts over each prefill and each decode
+    step that ``engine`` dispatches: the difference of the counters around
+    the dispatch (the wrappers count on the host as they launch)."""
+    from repro_torch.kernels import flash_attention, redmule_gemm
+
+    def counted(kind, dispatch):
+        def run(**kw):
+            before = redmule_gemm.launches.n, flash_attention.launches.n
+            dispatch(**kw)
+            readings[kind].append((redmule_gemm.launches.n - before[0],
+                                   flash_attention.launches.n - before[1]))
+        return run
+
+    engine.dispatch_prefill = counted("prefill", engine.dispatch_prefill)
+    engine.dispatch_decode = counted("decode", engine.dispatch_decode)
+
+
+def _one_reading(kind: str, readings: list, expect: tuple) -> tuple:
+    """The launch counts (GEMM, paged decode) of every ``kind`` step, which
+    must all be ``expect``."""
+    seen = sorted(set(readings))
+    if seen != [expect]:
+        raise AssertionError(f"serve: (gemm, paged decode) launches per {kind}: {seen}, "
+                             f"expected {expect} every time")
+    return expect
+
+
+def phase_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, redmule_gemm
+    from repro_torch.launch.serve import mixed_prompt_lens
+    from repro_torch.models import build
+    from repro_torch.serving import SamplingParams, Server, ServerConfig
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), policy="redmule_hfp8",
+                              kv_cache_dtype="e4m3", fp8_params=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    log(f"serve: granite-3-8b {cfg.n_layers} layers d{cfg.d_model}, E4M3 weights made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in mixed_prompt_lens(64, 8)]
+    max_new = 16
+    server = Server(model, params, ServerConfig(
+        num_slots=4, page_size=16, max_seq_len=max(map(len, prompts)) + max_new,
+        prefill_bucket=32), seed=0)
+    for i, p in enumerate(prompts):
+        sampling = SamplingParams(temperature=0.8) if i == 5 else SamplingParams()
+        server.submit(p, max_new_tokens=max_new, sampling=sampling)
+    readings = {"prefill": [], "decode": []}
+    _count_launches(server.engine, readings)
+    redmule_gemm.launches.reset()
+    flash_attention.launches.reset()
+    t0 = time.perf_counter()
+    results = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gemm_n, decode_n = redmule_gemm.launches.n, flash_attention.launches.n
+    s = server.stats
+    if len(results) != len(prompts):
+        raise AssertionError(f"serve: {len(results)} of {len(prompts)} requests finished")
+    for rid, r in results.items():
+        if r.num_generated != max_new or r.finish_reason != "length":
+            raise AssertionError(f"serve: request {rid} gave {r.num_generated} tokens ({r.finish_reason})")
+        if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"serve: request {rid} sampled a token outside the vocabulary")
+    if s.nonfinite_steps:
+        raise AssertionError(f"serve: {s.nonfinite_steps} steps had non-finite logits")
+    # Every dense layer is one GEMM launch: 7 a layer (q, k, v, o, gate, up,
+    # down) plus the logits; a prefill adds its two attention products a
+    # layer, and a decode step its one paged-decode launch a layer.
+    n_layers = cfg.n_layers
+    if (len(readings["decode"]), len(readings["prefill"])) != (s.decode_steps, s.prefill_calls):
+        raise AssertionError(f"serve: {len(readings['decode'])} decode steps and "
+                             f"{len(readings['prefill'])} prefills read, {s.decode_steps} and "
+                             f"{s.prefill_calls} run")
+    per_decode = _one_reading("decode step", readings["decode"], (7 * n_layers + 1, n_layers))
+    per_prefill = _one_reading("prefill", readings["prefill"], (9 * n_layers + 1, 0))
+    if (gemm_n, decode_n) != (sum(r[0] for v in readings.values() for r in v),
+                              sum(r[1] for v in readings.values() for r in v)):
+        raise AssertionError(f"serve: launches gemm {gemm_n}, paged decode {decode_n} over the run "
+                             "differ from the sum over its steps")
+    mem = torch.cuda.max_memory_allocated()
+    log(f"serve: {len(results)} requests, {s.decode_tokens} decode tokens in {s.decode_steps} "
+        f"steps, {s.prefill_calls} prefills; decode {s.decode_tok_s:.1f} tok/s, "
+        f"prefill {s.prefill_s:.3f} s, decode {s.decode_s:.3f} s, wall {wall:.3f} s, "
+        f"utilization {s.utilization:.0%}, max memory {mem / 1e9:.2f} GB")
+    log(f"serve: launches gemm {gemm_n}, paged decode {decode_n}; measured at each of "
+        f"{s.decode_steps} decode steps: gemm {per_decode[0]}, paged decode {per_decode[1]}; "
+        f"at each of {s.prefill_calls} prefills: gemm {per_prefill[0]}, "
+        f"paged decode {per_prefill[1]}")
+    log(f"serve: request 0 tokens {results[0].out_tokens}")
+    del server, model, params
+    torch.cuda.empty_cache()
+    return {"gemm": gemm_n, "decode": decode_n,
+            "gemm_per_decode_step": per_decode[0], "gemm_per_prefill": per_prefill[0],
+            "decode_per_decode_step": per_decode[1], "decode_per_prefill": per_prefill[1]}
+
+
+# -- phase 7 ---------------------------------------------------------------------
+
+
+def _gemm_entry(label, m, counts, gop_name="matmul"):
+    """The GEMM-Op kernel at the widest serving layer (K=4096, N=12800)
+    under redmule_hfp8. (mul, add) is timed against torch.matmul on the
+    widened fp16 operands and bound by the fp16 tensor-core peak; a
+    semiring pair has no library call and runs on the CUDA cores, so its
+    2*M*K*N operations are bound by the fp32 peak outside the tensor cores."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import cast, get_policy
+    from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
+
+    pol = get_policy("redmule_hfp8")
+    gop = semiring.get(gop_name)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    k, n = 4096, 12800
+    xq = cast(torch.randn((m, k), generator=gen, device="cuda").half(), pol.storage_fwd)
+    wq = cast(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5, pol.storage_fwd)
+    kw = dict(gop=gop, policy=pol, out_dtype=pol.out)
+    got = redmule_gemm(xq, wq, None, **kw)
+    want = redmule_gemm_plain(xq, wq, None, **kw)
+    ms = time_ms(lambda: redmule_gemm(xq, wq, None, **kw))
+    plain_ms = time_ms(lambda: redmule_gemm_plain(xq, wq, None, **kw))
+    library_ms = None
+    if gop.is_gemm:
+        x16, w16 = xq.half(), wq.half()
+        library_ms = time_ms(lambda: torch.matmul(x16, w16))
+    nbytes = xq.numel() + wq.numel() + got.numel() * got.element_size()
+    ops = 2.0 * m * k * n
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / (FP16_FLOP_S if gop.is_gemm else FP32_FLOP_S) * 1e3
+    return {
+        "name": f"redmule_gemm[{label} {m}x{k}x{n}]", "route": "cuda",
+        "source": "src/repro_torch/csrc/redmule_gemm.cu",
+        "replaces": "src/repro/kernels/redmule_gemm.py:110",
+        "launches": counts["gemm"],
+        "launches_per_decode_step": counts["gemm_per_decode_step"],
+        "launches_per_prefill": counts["gemm_per_prefill"],
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def _decode_entry(counts):
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import take_rows
+    from repro_torch.kernels.flash_attention import paged_flash_decode, paged_flash_decode_plain
+
+    s, hq, hkv, hd, ps, pps, npg = 4, 32, 8, 128, 16, 7, 29
+    lens_list = [70, 40, 100, 65]
+    rng = np.random.default_rng(2)
+    q, kp, vp, pt, lens, act = make_decode_case(
+        rng, s=s, hq=hq, hkv=hkv, hd=hd, page_size=ps, pages_per_slot=pps, n_pages=npg,
+        dtype=torch.float8_e4m3fn, q_dtype=torch.float16, seq_lens=lens_list)
+    qg = q.reshape(s, hkv, hq // hkv, hd)
+    args = (qg, kp, vp, pt, lens, act)
+    got = paged_flash_decode(*args, page_size=ps)
+    want = paged_flash_decode_plain(*args, page_size=ps)
+    if not torch.allclose(got.float(), want.float(), rtol=DECODE_TOL[got.dtype],
+                          atol=DECODE_TOL[got.dtype]):
+        raise AssertionError("paged decode at the serving shape disagrees with its plain version")
+    ms = time_ms(lambda: paged_flash_decode(*args, page_size=ps), iters=100)
+    plain_ms = time_ms(lambda: paged_flash_decode_plain(*args, page_size=ps))
+
+    n_tok = pps * ps
+    read_idx = (pt.long()[:, :, None] * ps + torch.arange(ps, device="cuda")).reshape(s, n_tok)
+    mask = (torch.arange(n_tok, device="cuda")[None] <= lens.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]  # (S, Hq, 1, hd)
+
+    def gather_sdpa():
+        k = take_rows(kp, read_idx).half().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
+        v = take_rows(vp, read_idx).half().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+
+    library_ms = time_ms(gather_sdpa)
+    live_pages = sum(int(lens_list[i]) // ps + 1 for i in range(s))
+    nbytes = (2 * live_pages * ps * hkv * hd * kp.element_size()
+              + 2 * q.numel() * q.element_size() + pt.numel() * 4 + 2 * s * 4)
+    flops = sum(4.0 * hq * (int(n) + 1) * hd for n in lens_list)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return {
+        "name": "paged_flash_decode[S4 Hq32 Hkv8 hd128 ps16 e4m3]", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:163",
+        "launches": counts["decode"],
+        "launches_per_decode_step": counts["decode_per_decode_step"],
+        "launches_per_prefill": counts["decode_per_prefill"],
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def _log_entry(e) -> None:
+    lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+    log(f"{e['name']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
+        f"plain {e['plain_ms']:.4f} ms, library {lib}, max|d| {e['max_abs_err']:.3g})")
+
+
+def phase_kernel_line(counts) -> list:
+    entries = [_gemm_entry("decode", 4, counts), _gemm_entry("prefill", 64, counts),
+               _decode_entry(counts)]
+    for e in entries:
+        if e["launches"] <= 0:
+            raise AssertionError(f"{e['name']} was not launched on the serving path")
+        _log_entry(e)
+    # The semiring pairs share the kernel but are off the serving path, so
+    # they stay out of the kernel line; one pair is timed for PERF.md.
+    apsp = _gemm_entry("apsp prefill", 64, counts, gop_name="apsp")
+    if apsp["max_abs_err"] != 0.0:
+        raise AssertionError(f"{apsp['name']}: not bitwise against the plain version")
+    _log_entry(apsp)
+    return entries
+
+
+def main() -> int:
+    card = phase_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        phase_build()
+        phase_gemm()
+        phase_decode()
+        phase_slice_parity()
+        counts = phase_serve()
+        entries = phase_kernel_line(counts)
+    log(f"card: {card}")
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

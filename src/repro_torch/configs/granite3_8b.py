@@ -1,0 +1,17 @@
+"""granite-3-8b [dense]: 40L d4096 32H GQA kv=8 d_ff=12800 vocab=49155.
+
+Llama-style GQA. [hf:ibm-granite/granite-3.0-*-base]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b", family="dense", n_layers=40, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=12800, vocab_size=49155,
+    act="swiglu", tie_embeddings=True,
+    remat="block",
+)
+
+SMOKE = ModelConfig(
+    name="granite-3-8b-smoke", family="dense", n_layers=2, d_model=64,
+    n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256, act="swiglu",
+)
