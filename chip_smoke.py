@@ -6,19 +6,36 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``;
+2. build: compiles the port's three CUDA kernels from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together);
 3. the GEMM-Op kernel against its plain PyTorch version, on the card:
    all seven Table-1 ops, ragged, batched, broadcast and transposed
    operands, and the serving path's shapes;
 4. the paged flash-decode kernel against its plain version;
-5. slice parity: granite-3-8b at full width with 2 layers, one prefill of
+5. the dense flash-attention kernel against its plain version (granite's
+   and gemma2's shapes in fp32, fp16 and bf16, and a ragged non-causal
+   case; the error read row by row, and a planted dropped key must fail
+   each case), then its main path: one call of the entry point
+   ``ops.flash_attention``, read by its own launch counter;
+6. the GEMM-Op kernel on the training path's backward operand pairs
+   (E5M2 x E4M3^T and E4M3^T x E5M2, fp16 out, at the train run's shapes,
+   the tied unembedding's K = 49155 included), and the fp16 -> E5M2
+   cotangent cast on the card against the CPU;
+7. slice parity: granite-3-8b at full width with 2 layers, one prefill of
    two prompts and 4 decode steps, kernels ("cuda") against the plain path
    ("torch") on the card, under fp32 and under redmule_hfp8;
-6. serve: granite-3-8b at full width and depth (40 layers) under
+8. serve: granite-3-8b at full width and depth (40 layers) under
    redmule_hfp8 with E4M3 weights and KV pages, 8 requests through the
    port's ``Server``, with the kernels' launch counts read around the run;
-7. the kernel line: each kernel's launches, error, time, bound, plain time
-   and one library call's time at the serving shapes.
+9. train parity: granite-3-8b at full width with 2 layers, one step's loss
+   and gradients at the train run's batch (2 x 1024) on the kernels' path
+   against the plain path on the card, under fp32 and redmule_hfp8 (bound
+   0: the same bits);
+10. train: granite-3-8b at full width and 4 layers under redmule_hfp8,
+    remat "block", batch 2 x 1024, 4 steps through the train launcher,
+    with the GEMM and attention launches read per step;
+11. the kernel line: each kernel's launches, error, time, bound, plain time
+    and one library call's time at its main path's shapes.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither JAX nor the JAX package.
@@ -27,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -39,6 +57,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP16_FLOP_S = 989e12  # H100 SXM dense fp16 tensor-core peak
+FP8_FLOP_S = 1979e12  # H100 SXM dense fp8 tensor-core peak
 FP32_FLOP_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
 
 GEMM_TOL = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
@@ -51,6 +70,15 @@ def log(msg: str) -> None:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.float(), want.float()
     return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+
+def mma_peak(*operands: torch.Tensor) -> float:
+    """The tensor-core peak for these (mul, add) operands: fp8 when every
+    operand is fp8 (E4M3 or E5M2, exact products summed in fp32, as the
+    fp8 tensor cores do), else fp16."""
+    from repro_torch.core.precision import FP8_DTYPES
+
+    return FP8_FLOP_S if all(t.dtype in FP8_DTYPES for t in operands) else FP16_FLOP_S
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -264,6 +292,181 @@ def phase_decode() -> None:
 
 # -- phase 5 ---------------------------------------------------------------------
 
+# (label, B, Sq, Sk, Hq, Hkv, hd, causal, softcap, formats): granite-3-8b's
+# training shape, gemma2-2b's (hd 256, softcap 50) and a ragged
+# non-causal case with Sq != Sk.
+FLASH_CASES = [
+    ("granite", 1, 2048, 2048, 32, 8, 128, True, None,
+     (torch.float32, torch.float16, torch.bfloat16)),
+    ("gemma2", 1, 1024, 1024, 8, 4, 256, True, 50.0, (torch.float32, torch.bfloat16)),
+    ("ragged non-causal", 2, 77, 300, 4, 2, 64, False, None, (torch.float16,)),
+]
+
+# The kernel and its plain version compute scores, softmax and PV in fp32
+# on the same inputs and round p to v's format at the same point, so they
+# differ by the order of their sums (and exp/tanh within an ulp or two), the
+# output's one rounding, and, rarely, a p that lands on the other side of a
+# rounding boundary of v's format. The error is therefore read row by row
+# (one query position of one head): max|got - want| over the row's hd
+# outputs over max|want| there, so the limit scales with the row's outputs
+# (about 0.03 at 2048 keys, where an absolute limit would be loose). In fp16
+# and bf16 the limit is two ulps at the row's max (2^-9 and 2^-6); in fp32
+# it is 1e-4, for the order of sums over up to 2048 keys. A dropped key
+# moves a row by about 1 / sqrt(e * length) of it, 0.01-0.03 at 2048 keys:
+# each case also plants one and requires that its error exceed the limit.
+FLASH_TOL = {torch.float32: 1e-4, torch.float16: 2.0 ** -9, torch.bfloat16: 2.0 ** -6}
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst row's max|got - want| over its max|want| (rows on the last
+    axis but one)."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return float((d / want.float().abs().amax(-1).clamp(min=1e-30)).max())
+
+
+def dropped_key_delta(q, k, v, *, causal, softcap, key):
+    """How much dropping key ``key`` moves each output: fp32 attention with
+    an explicit mask without that key, less the same with it."""
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device)
+    if causal:
+        keep = keep.tril()
+    out = []
+    for m in (keep, keep.index_fill(1, torch.tensor([key], device=s.device), False)):
+        out.append(torch.matmul(torch.softmax(s.masked_fill(~m, float("-inf")), -1), vf))
+    return (out[1] - out[0]).transpose(1, 2)
+
+
+def _flash_inputs(gen, b, sq, sk, hq, hkv, hd, dtype):
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return rand(b, sq, hq, hd), rand(b, sk, hkv, hd), rand(b, sk, hkv, hd)
+
+
+def phase_flash() -> dict:
+    """The dense flash-attention kernel against its plain version, then its
+    main path: one call of the entry point ``ops.flash_attention`` on CUDA
+    tensors at granite's shape (no model path runs the dense kernel, in
+    the JAX package or here), read by its own launch counter."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {dt: 0.0 for dt in FLASH_TOL}
+    planted = {dt: math.inf for dt in FLASH_TOL}
+    n = 0
+    for label, b, sq, sk, hq, hkv, hd, causal, cap, formats in FLASH_CASES:
+        for dt in formats:
+            q, k, v = _flash_inputs(gen, b, sq, sk, hq, hkv, hd, dt)
+            got = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+            want = fa.flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+            torch.cuda.synchronize()
+            name = f"flash attention {label} B{b} S{sq}/{sk} H{hq}/{hkv}x{hd} {dt}"
+            if got.shape != want.shape or got.dtype != dt:
+                raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{dt}")
+            err, tol = row_err(got, want), FLASH_TOL[dt]
+            if not err <= tol:
+                raise AssertionError(f"{name}: worst row max|d|/max|want| {err:.3g} > tol {tol:.3g}")
+            delta = dropped_key_delta(q, k, v, causal=causal, softcap=cap, key=sk // 2)
+            fault = row_err(got, (want.float() + delta).to(dt))
+            if not fault > tol:
+                raise AssertionError(f"{name}: a dropped key reads {fault:.3g}, within tol {tol:.3g}")
+            worst[dt], planted[dt] = max(worst[dt], err), min(planted[dt], fault)
+            n += 1
+            del delta
+    log(f"flash attention: {n} cases agree (worst row max|d|/max|want|: " + ", ".join(
+        f"{str(dt).removeprefix('torch.')} {worst[dt]:.3g} within {FLASH_TOL[dt]:.3g}, "
+        f"a dropped key {planted[dt]:.3g}" for dt in FLASH_TOL) + ")")
+
+    q, k, v = _flash_inputs(gen, 1, 2048, 2048, 32, 8, 128, torch.float16)
+    fa.dense_launches.reset()
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launched = fa.dense_launches.n
+    if launched != 1 or not torch.isfinite(out).all():
+        raise AssertionError(f"flash attention entry point: {launched} launches, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    log(f"flash attention entry point: {launched} dense launch, output {tuple(out.shape)} finite")
+    return {"dense": launched}
+
+
+# -- phase 6 ---------------------------------------------------------------------
+
+
+def _backward_pairs(gen) -> dict:
+    """The backward GEMM pairs of the train run under redmule_hfp8
+    (d_model 4096, d_ff 12800, 2 x 1024 tokens; the tied unembedding per
+    cross-entropy chunk of 2 x 512 rows): E5M2 cotangents beside E4M3
+    residuals, transposed operands as views, fp16 outputs."""
+    from repro_torch.core.precision import E4M3, E5M2, FP16, cast
+
+    def rand(fmt, *shape, scale=1.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale
+        return cast(cast(t, FP16), fmt)
+
+    w_up = rand(E4M3, 4096, 12800, scale=4096 ** -0.5)
+    x = rand(E4M3, 2048, 4096)
+    g_up = rand(E5M2, 2048, 12800, scale=1e-2)
+    table = rand(E4M3, 49155, 4096, scale=0.02)
+    h = rand(E4M3, 1024, 4096)
+    g_logits = rand(E5M2, 1024, 49155, scale=1e-3)
+    return {
+        "dX = g.W^T, E5M2 x E4M3^T 2048x12800x4096": (g_up, w_up.T),
+        "dW = X^T.g, E4M3^T x E5M2 4096x2048x12800": (x.T, g_up),
+        "dh = g.table, E5M2 x E4M3 1024x49155x4096 (tied unembedding)": (g_logits, table),
+        "dtable = h^T.g, E4M3^T x E5M2 4096x1024x49155": (h.T, g_logits),
+    }
+
+
+def phase_backward_gemm() -> None:
+    """The GEMM-Op kernel on the training path's backward operand pairs,
+    against its plain version, at the train run's shapes."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
+
+    pol = get_policy("redmule_hfp8")
+    kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=pol.compute)
+    worst = 0.0
+    pairs = _backward_pairs(torch.Generator(device="cuda").manual_seed(4))
+    for label, (a, b) in pairs.items():
+        got = redmule_gemm(a, b, None, **kw)
+        want = redmule_gemm_plain(a, b, None, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        if got.dtype != pol.compute or not torch.isfinite(got).all() or not err <= GEMM_TOL[got.dtype]:
+            raise AssertionError(f"backward gemm {label}: max|dz|/max|z| = {err:.3g} "
+                                 f"(tol {GEMM_TOL[got.dtype]}, dtype {got.dtype})")
+        worst = max(worst, err)
+    log(f"backward gemm pairs: {len(pairs)} cases agree (worst max|dz|/max|z| {worst:.3g} "
+        f"within {GEMM_TOL[torch.float16]})")
+    _check_e5m2_cast()
+
+
+def _check_e5m2_cast() -> None:
+    """The cotangent cast (fp16 -> E5M2) of all 65,536 fp16 bit patterns on
+    the card against the same cast on the CPU (which the CPU tests hold
+    against ml_dtypes): the same bits, NaN as NaN."""
+    from repro_torch.core.precision import E5M2, FP16, cast
+
+    x = torch.from_numpy(np.arange(1 << 16, dtype=np.uint32).astype(np.uint16).view(np.int16))
+    x = x.view(FP16)
+    cpu = cast(x, E5M2)
+    card = cast(x.cuda(), E5M2).cpu()
+    nan_cpu, nan_card = torch.isnan(cpu.float()), torch.isnan(card.float())
+    same = torch.equal(cpu.view(torch.uint8)[~nan_cpu], card.view(torch.uint8)[~nan_cpu])
+    if not torch.equal(nan_cpu, nan_card) or not same:
+        raise AssertionError("the fp16 -> E5M2 cast differs between the card and the CPU")
+    log(f"E5M2 cast: 65536 fp16 patterns agree with the CPU ({int(nan_cpu.sum())} NaN)")
+
+
+# -- phase 7 ---------------------------------------------------------------------
+
 
 def _slice_run(model, params, prompts, page_table, forced=None, steps=4, ps=16):
     """One prefill per prompt, then ``steps`` decode steps; decode inputs are
@@ -348,7 +551,7 @@ def phase_slice_parity() -> None:
         torch.cuda.empty_cache()
 
 
-# -- phase 6 ---------------------------------------------------------------------
+# -- phase 8 ---------------------------------------------------------------------
 
 
 def _count_launches(engine, readings: dict) -> None:
@@ -454,13 +657,131 @@ def phase_serve() -> dict:
             "decode_per_decode_step": per_decode[1], "decode_per_prefill": per_prefill[1]}
 
 
-# -- phase 7 ---------------------------------------------------------------------
+# -- phase 9 ---------------------------------------------------------------------
+
+# The train run of phase 10; phase 9 holds one step at its batch.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 1024, 2, 4
+
+# Bounds of the train-parity phase, relative: (loss, grad norm, worst
+# per-tensor |dg| / |g| in norm). Under redmule_hfp8 both paths give the
+# same bits (PERF.md): every product is exact in fp32 and both round its
+# fp32 sum once to fp16, so any difference means one path changed its
+# arithmetic, and the bound is 0, as in serving parity.
+TRAIN_PARITY_BOUND = {"fp32": (1e-5, 1e-4, 1e-3), "redmule_hfp8": (0.0, 0.0, 0.0)}
+
+
+def _step_grads(model, params, tokens, backend):
+    """Loss and gradients of one train step's loss function on ``backend``."""
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.training import make_loss_fn
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = make_loss_fn(model, backend=backend)(live, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def phase_train_parity() -> None:
+    """granite-3-8b at full width, 2 layers, remat "block", one step's loss
+    and gradients on the train run's 2 x 1024 tokens (so every forward and
+    backward GEMM shape of phase 10 is compared): the kernels' path ("cuda": every
+    forward GEMM and both backward GEMMs of each on the GEMM-Op kernel)
+    against the plain path ("torch") on the card, from the same parameters
+    and batch, under fp32 and redmule_hfp8."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import for_model
+    from repro_torch.models import build
+    from repro_torch.optim import global_norm
+
+    for pol, (b_loss, b_gnorm, b_grad) in TRAIN_PARITY_BOUND.items():
+        cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy=pol,
+                                  remat="block")
+        model = build(cfg, device="cuda")
+        params = model.init(0)
+        tokens = for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch(0)["tokens"]
+        tokens = torch.from_numpy(tokens).cuda().long()
+        loss, grads = _step_grads(model, params, tokens, "cuda")
+        want_loss, want = _step_grads(model, params, tokens, "torch")
+        gnorm, want_gnorm = float(global_norm(grads)), float(global_norm(want))
+        per_tensor = [float((g.float() - w.float()).norm() / w.float().norm().clamp(min=1e-30))
+                      for g, w in zip(grads, want)]
+        worst_max = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                        for g, w in zip(grads, want))
+        d_loss = abs(loss - want_loss) / abs(want_loss)
+        d_gnorm = abs(gnorm - want_gnorm) / want_gnorm
+        log(f"train parity {pol}: loss {loss:.6f} vs {want_loss:.6f} (rel {d_loss:.3g}), "
+            f"grad norm {gnorm:.6f} vs {want_gnorm:.6f} (rel {d_gnorm:.3g}), worst per-tensor "
+            f"|dg|/|g| {max(per_tensor):.3g} (max|dg|/max|g| {worst_max:.3g}) over {len(grads)} "
+            f"tensors; bounds {b_loss:g} / {b_gnorm:g} / {b_grad:g}")
+        if not all(np.isfinite([loss, want_loss, gnorm, want_gnorm])):
+            raise AssertionError(f"train parity {pol}: non-finite loss or grad norm")
+        if not (d_loss <= b_loss and d_gnorm <= b_gnorm and max(per_tensor) <= b_grad):
+            raise AssertionError(f"train parity {pol}: outside its bounds")
+        del model, params, grads, want
+        torch.cuda.empty_cache()
+
+
+# -- phase 10 --------------------------------------------------------------------
+
+# GEMM launches a train step makes at 4 layers, 1024 tokens a row, remat
+# "block" and cross-entropy chunks of 512: the forward runs 11 GEMMs a
+# layer (q, k, v, o, gate, up, down, and the score and value products of
+# each of 2 key chunks) and one logits GEMM a chunk (2); the backward
+# recomputes all 46 (block and chunk remat) and runs 2 GEMMs for each.
+GEMM_PER_TRAIN_STEP = 4 * (11 * TRAIN_LAYERS + 2)
+
+
+def phase_train() -> dict:
+    """granite-3-8b at full width and 4 layers under redmule_hfp8 with remat
+    "block", batch 2 x 1024 tokens, 4 steps through the train launcher's
+    function, with both kernels' counters set to 0 before and read after."""
+    from repro_torch.kernels import flash_attention, redmule_gemm
+    from repro_torch.launch import train
+
+    args = train.parse_args([
+        "--arch", "granite-3-8b", "--layers", str(TRAIN_LAYERS), "--seq", str(TRAIN_SEQ),
+        "--batch", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--policy", "redmule_hfp8",
+        "--remat", "block", "--log-every", "1", "--seed", "0",
+    ])
+    redmule_gemm.launches.reset()
+    flash_attention.dense_launches.reset()
+    flash_attention.launches.reset()
+    out = train.train(args)
+    gemm_n = redmule_gemm.launches.n
+    dense_n, paged_n = flash_attention.dense_launches.n, flash_attention.launches.n
+    hist = out["history"]
+    if len(hist) != TRAIN_STEPS or out["state"].skipped != 0:
+        raise AssertionError(f"train: {len(hist)} steps, {out['state'].skipped} skipped")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"train: non-finite loss or grad norm: {hist}")
+    per_step = sorted({h["gemm_launches"] for h in hist})
+    if per_step != [GEMM_PER_TRAIN_STEP] or gemm_n != GEMM_PER_TRAIN_STEP * TRAIN_STEPS:
+        raise AssertionError(f"train: GEMM launches per step {per_step} (total {gemm_n}), "
+                             f"expected {GEMM_PER_TRAIN_STEP} each")
+    if dense_n or paged_n or any(h["dense_attention_launches"] for h in hist):
+        raise AssertionError(f"train: attention kernels launched ({dense_n} dense, {paged_n} paged); "
+                             "the training attention runs its products through the GEMM")
+    steady = [h["ms"] for h in hist[1:]]
+    ms = float(np.mean(steady))
+    tok_s = out["tokens_per_step"] / (ms / 1e3)
+    mem = out["max_memory_bytes"]
+    log(f"train: granite-3-8b {TRAIN_LAYERS} layers d4096, redmule_hfp8, remat block, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens; losses {[round(h['loss'], 4) for h in hist]}, "
+        f"grad norms {[round(h['grad_norm'], 4) for h in hist]}, skipped 0")
+    log(f"train: ms per step {[round(h['ms'], 1) for h in hist]} (steady mean {ms:.1f} ms, "
+        f"{tok_s:.1f} tokens/s); max memory {mem / 1e9:.2f} GB; launches per step: gemm "
+        f"{per_step[0]}, dense attention 0 (total gemm {gemm_n})")
+    return {"gemm": gemm_n, "gemm_per_step": per_step[0], "ms_per_step": ms}
+
+
+# -- phase 11 --------------------------------------------------------------------
 
 
 def _gemm_entry(label, m, counts, gop_name="matmul"):
     """The GEMM-Op kernel at the widest serving layer (K=4096, N=12800)
     under redmule_hfp8. (mul, add) is timed against torch.matmul on the
-    widened fp16 operands and bound by the fp16 tensor-core peak; a
+    widened fp16 operands and bound by the fp8 tensor-core peak; a
     semiring pair has no library call and runs on the CUDA cores, so its
     2*M*K*N operations are bound by the fp32 peak outside the tensor cores."""
     from repro_torch.core import semiring
@@ -485,7 +806,7 @@ def _gemm_entry(label, m, counts, gop_name="matmul"):
     nbytes = xq.numel() + wq.numel() + got.numel() * got.element_size()
     ops = 2.0 * m * k * n
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / (FP16_FLOP_S if gop.is_gemm else FP32_FLOP_S) * 1e3
+    t_ops = ops / (mma_peak(xq, wq) if gop.is_gemm else FP32_FLOP_S) * 1e3
     return {
         "name": f"redmule_gemm[{label} {m}x{k}x{n}]", "route": "cuda",
         "source": "src/repro_torch/csrc/redmule_gemm.cu",
@@ -552,6 +873,77 @@ def _decode_entry(counts):
     }
 
 
+def _flash_entry(counts):
+    """The dense flash attention at granite's training shape in fp16
+    (causal), bound by its operations at the fp16 tensor-core peak, beside
+    ``scaled_dot_product_attention`` on the same q and the KV heads
+    expanded for it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    b, s, hq, hkv, hd = 1, 2048, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = _flash_inputs(gen, b, s, s, hq, hkv, hd, torch.float16)
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), iters=5)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    flops = 4.0 * b * hq * hd * s * (s + 1) / 2  # two products over the causal half
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP16_FLOP_S * 1e3
+    return {
+        "name": f"flash_attention[B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal fp16]", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:254",
+        "launches": counts["dense"],
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def _backward_entries(counts) -> list:
+    """The GEMM-Op kernel on the train run's backward operand pairs, bound
+    by 2*M*K*N operations at the fp8 tensor-core peak or by each operand
+    byte read once and the fp16 output written once, beside torch.matmul on
+    the widened fp16 operands."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
+
+    pol = get_policy("redmule_hfp8")
+    kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=pol.compute)
+    entries = []
+    for label, (a, b) in _backward_pairs(torch.Generator(device="cuda").manual_seed(6)).items():
+        got = redmule_gemm(a, b, None, **kw)
+        want = redmule_gemm_plain(a, b, None, **kw)
+        ms = time_ms(lambda: redmule_gemm(a, b, None, **kw), iters=5)
+        plain_ms = time_ms(lambda: redmule_gemm_plain(a, b, None, **kw), iters=5)
+        a16, b16 = a.half(), b.half()
+        library_ms = time_ms(lambda: torch.matmul(a16, b16), iters=5)
+        (m, k), n = a.shape, b.shape[-1]
+        nbytes = a.numel() + b.numel() + got.numel() * got.element_size()
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, 2.0 * m * k * n / mma_peak(a, b) * 1e3
+        entries.append({
+            "name": f"redmule_gemm[backward {label}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/redmule_gemm.cu",
+            "replaces": "src/repro/kernels/redmule_gemm.py:110",
+            "launches": counts["train_gemm"],
+            "launches_per_train_step": counts["train_gemm_per_step"],
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        })
+    return entries
+
+
 def _log_entry(e) -> None:
     lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
     log(f"{e['name']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
@@ -560,13 +952,14 @@ def _log_entry(e) -> None:
 
 def phase_kernel_line(counts) -> list:
     entries = [_gemm_entry("decode", 4, counts), _gemm_entry("prefill", 64, counts),
-               _decode_entry(counts)]
+               _decode_entry(counts), _flash_entry(counts), *_backward_entries(counts)]
     for e in entries:
         if e["launches"] <= 0:
-            raise AssertionError(f"{e['name']} was not launched on the serving path")
+            raise AssertionError(f"{e['name']} was not launched on its main path")
         _log_entry(e)
-    # The semiring pairs share the kernel but are off the serving path, so
-    # they stay out of the kernel line; one pair is timed for PERF.md.
+    # The semiring pairs share the kernel but are off the serving and
+    # training paths, so they stay out of the kernel line; one pair is
+    # timed for PERF.md.
     apsp = _gemm_entry("apsp prefill", 64, counts, gop_name="apsp")
     if apsp["max_abs_err"] != 0.0:
         raise AssertionError(f"{apsp['name']}: not bitwise against the plain version")
@@ -582,8 +975,14 @@ def main() -> int:
         phase_build()
         phase_gemm()
         phase_decode()
+        counts = phase_flash()
+        phase_backward_gemm()
         phase_slice_parity()
-        counts = phase_serve()
+        counts |= phase_serve()
+    phase_train_parity()
+    train = phase_train()
+    counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"]}
+    with torch.inference_mode():
         entries = phase_kernel_line(counts)
     log(f"card: {card}")
     print(json.dumps({"kernels": entries}))

@@ -91,6 +91,10 @@ class PrecisionPolicy:
         """Input cast unit, forward path: storage -> compute."""
         return cast(cast(x, self.storage_fwd), self.compute)
 
+    def cast_in_bwd(self, g):
+        """Input cast unit, backward path (gradients): storage -> compute."""
+        return cast(cast(g, self.storage_bwd), self.compute)
+
     def cast_out(self, z):
         """Output cast unit: accumulator -> storage."""
         return cast(z, self.out)
@@ -140,7 +144,11 @@ def _bits_view(t: torch.Tensor) -> torch.Tensor:
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` along the leading axis. fp8 tables are read through a
-    bit-exact ``uint8`` view, so the gather needs no fp8 indexing kernel."""
+    bit-exact ``uint8`` view, so the gather needs no fp8 indexing kernel;
+    other tables are indexed directly, which keeps the gather
+    differentiable (the tied embedding's gradient)."""
+    if table.dtype not in FP8_DTYPES:
+        return table[idx]
     return _bits_view(table)[idx].view(table.dtype)
 
 

@@ -49,6 +49,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I] + [_L] * 12 + [_P],
     "paged_decode_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 

@@ -1,4 +1,5 @@
-"""Paged flash-decode attention on Hopper: launch wrapper and plain version.
+"""Flash attention on Hopper: the paged flash-decode kernel and the dense
+flash-attention kernel, each with its launch wrapper and plain version.
 
 :func:`paged_flash_decode` launches ``csrc/paged_decode.cu``, the port of
 the TPU kernel ``repro/kernels/flash_attention.py::paged_flash_decode_pallas``:
@@ -11,8 +12,15 @@ ops: it gathers every slot's pages through the page table in position
 order and runs the softmax over them in fp32. The CPU path and the tests use
 it, and ``chip_smoke.py`` holds the kernel against it on the card.
 
-The dense ``flash_attention_pallas`` of the JAX package is not ported yet
-(it is off the serving path; see ROADMAP.md).
+:func:`flash_attention` launches ``csrc/flash_attention.cu``, the port of
+``repro/kernels/flash_attention.py::flash_attention_pallas``: dense
+online-softmax attention over (B, S, H, hd) tensors with a top-left causal
+mask, softcap, GQA read in place and ragged lengths masked in the kernel.
+:func:`flash_attention_plain` runs the same online softmax over
+``block_k`` key chunks in fp32, with p rounded to v's format before the PV
+product as the kernel does, so the two differ only in the order of their
+sums. Only the entry point ``ops.flash_attention`` calls them: as in the
+JAX package, no model path runs the dense kernel.
 """
 from __future__ import annotations
 
@@ -25,8 +33,11 @@ from repro_torch.kernels import _build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-# Launches of the CUDA kernel since the last reset (chip_smoke.py reads it).
+# Launches of each CUDA kernel since the last reset (chip_smoke.py reads
+# them): ``launches`` counts the paged decode, ``dense_launches`` the dense
+# flash attention.
 launches = _build.LaunchCount()
+dense_launches = _build.LaunchCount()
 
 _MAX_GROUP = 16
 _MAX_HEAD_DIM = 256
@@ -106,3 +117,75 @@ def paged_flash_decode_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torc
     out = torch.matmul(p, v) / p.sum(-1, keepdim=True).clamp(min=1e-30)
     out = torch.where(active.bool()[:, None, None, None], out, 0.0)
     return out.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, softcap: float | None = None) -> torch.Tensor:
+    """Launch the CUDA dense flash-attention kernel.
+
+    q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd), one format among fp32, fp16
+    and bf16, Hq a multiple of Hkv, hd <= 256. Returns (B, Sq, Hq, hd) in
+    q's format. The kernel's tiles are its own (64 query rows, 32 keys).
+    """
+    tensors = (q, k, v)
+    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError("flash_attention launches the CUDA kernel: every input must be on one card")
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if k.shape != (b, sk, hkv, hd) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if hq % hkv or hd > _MAX_HEAD_DIM or not (k.dtype == v.dtype == q.dtype):
+        raise ValueError("the kernel takes Hq a multiple of Hkv, hd <= 256 and one format")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.dtype_code(q),
+        b, sq, sk, hq, hkv, hd, int(causal),
+        0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(hd),
+        _build.stream_handle(q),
+    )
+    _build.check_launch(err, "flash_attention")
+    dense_launches.n += 1
+    return out
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, softcap: float | None = None,
+                          block_k: int = 128) -> torch.Tensor:
+    """The dense flash attention with plain PyTorch ops, on any device: the
+    online softmax over ``block_k`` key chunks in fp32, p rounded to v's
+    format before the PV product. Same arguments and result as
+    :func:`flash_attention`, up to the order of fp32 sums. GQA folds the
+    query heads of one KV head together, with no repeated keys."""
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)  # (B, Hkv, G, Sq, hd)
+    kf = k.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, Sk, hd)
+    vf = v.permute(0, 2, 1, 3)[:, :, None]
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, hkv, g, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    k_end = min(sk, sq) if causal else sk  # later chunks are masked for every row
+    for k0 in range(0, k_end, block_k):
+        kc = kf[..., k0:k0 + block_k, :].float()
+        s = torch.matmul(qf, kc.transpose(-1, -2)) * scale  # (B, Hkv, G, Sq, C)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        if causal:
+            k_pos = torch.arange(k0, k0 + kc.shape[-2], device=q.device)[None, :]
+            s = torch.where(k_pos <= q_pos, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l_sum = l_sum * alpha + p.sum(-1, keepdim=True)
+        pv = torch.matmul(p.to(v.dtype).float(), vf[..., k0:k0 + block_k, :].float())
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / l_sum.clamp(min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)

@@ -16,7 +16,12 @@ import torch
 from repro_torch.core import semiring
 from repro_torch.core.precision import FP32_REF, PrecisionPolicy, cast
 from repro_torch.core.semiring import GemmOp
-from repro_torch.kernels.flash_attention import paged_flash_decode, paged_flash_decode_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention_plain,
+    paged_flash_decode,
+    paged_flash_decode_plain,
+)
+from repro_torch.kernels.flash_attention import flash_attention as flash_attention_cuda
 from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
 
 BACKENDS = ("cuda", "torch")
@@ -78,3 +83,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     out = fn(qg, k_pool, v_pool, page_table, seq_lens, active,
              page_size=page_size, window=window, softcap=softcap)
     return out.reshape(s, hq, hd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, softcap: float | None = None,
+                    block_q: int = 128, block_k: int = 128,
+                    backend: str | None = None) -> torch.Tensor:
+    """Fused dense attention. q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd).
+    Returns (B, Sq, Hq, hd) in q's format.
+
+    The causal mask is top-left aligned (key <= query position); ragged Sq
+    and Sk are masked inside the kernel, and each query head reads its KV
+    head (h // G) in place. ``block_q`` and ``block_k`` keep the reference's
+    signature: they are its TPU tiles, of which the plain version takes
+    ``block_k`` as its key chunk; the CUDA kernel uses its own tiles.
+    """
+    del block_q  # a TPU tile: neither the kernel nor the plain version has a query tile
+    if resolve_backend(backend, q) == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
+    return flash_attention_plain(q, k, v, causal=causal, softcap=softcap, block_k=block_k)

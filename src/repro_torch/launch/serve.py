@@ -54,9 +54,14 @@ def parse_args(argv=None):
 
 def print_device_time(prof, wall_s: float, top: int = 8) -> None:
     """Device time by kernel name from a torch.profiler trace, and the
-    card's busy share of the traced wall time."""
+    card's busy share of the traced wall time. Only the kernels' own rows
+    count: an operator that launches kernels (the forward of an autograd
+    Function, say) reports their device time as its own too."""
+    from torch.autograd import DeviceType
+
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
     busy_us = sum(r[0] for r in rows)
     print(f"profile: device busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
           f"({busy_us / 1e4 / wall_s:.1f}%)")

@@ -1,11 +1,14 @@
-"""GQA attention over the paged KV token pools (counterpart of
-``repro.models.attention`` for the serving slice).
+"""GQA attention (counterpart of ``repro.models.attention``): the training
+forward over a whole sequence, and the serving paths over the paged KV
+token pools.
 
-Two paths share the layer:
-
-- prefill (whole prompt, from position 0) attends over the fresh k/v with
-  the online softmax of :func:`_online_attention`, whose score and value
-  products go through the engine like every other GEMM;
+- the full-sequence path (no pool; the training forward) attends over the
+  fresh k/v with the online softmax of :func:`_online_attention` in
+  ``kv_chunk`` key chunks, both products through the engine (forward and
+  backward), as the reference's ``apply`` without a cache does. It writes
+  no pages: the pool writes are in place and stay off the autograd path;
+- prefill (whole prompt, from position 0) attends over the fresh k/v the
+  same way and writes them into the pool;
 - decode (one token per slot) reads the pool through the page table. On
   the ``"cuda"`` backend the paged flash-decode kernel walks each slot's
   pages itself; on ``"torch"`` the layer gathers the pages through
@@ -141,17 +144,23 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
 
 
 def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
-          engine: Engine, *, pool: dict, paged: PagedInfo) -> torch.Tensor:
-    """One attention layer over its KV pool. x: (B, S, D); positions:
-    (B, S) absolute positions. ``pool`` is the layer's {"kp", "vp"} flat
-    (n_tok, Hkv, hd) token pools, updated in place."""
+          engine: Engine, *, pool: dict | None = None,
+          paged: PagedInfo | None = None) -> torch.Tensor:
+    """One attention layer. x: (B, S, D); positions: (S,) or (B, S) absolute
+    positions. With ``pool`` (the layer's {"kp", "vp"} flat (n_tok, Hkv, hd)
+    token pools, updated in place) and ``paged``, the serving paths; with
+    neither, the causal full-sequence path of the training forward."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = common.dense_apply(params["q"], x, engine).reshape(b, s, hq, hd)
     k = common.dense_apply(params["k"], x, engine).reshape(b, s, hkv, hd)
     v = common.dense_apply(params["v"], x, engine).reshape(b, s, hkv, hd)
-    q = common.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = common.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    pos2d = positions if positions.dim() == 2 else positions[None]
+    q = common.apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_fraction)
+    k = common.apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_fraction)
+    if pool is None:
+        out = _online_attention(q, k, v, positions, positions, cfg, engine)
+        return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
 
     kp, vp = pool["kp"], pool["vp"]
     put_rows_(kp, paged.write_idx, cast(k.reshape(b * s, hkv, hd), kp.dtype))

@@ -1,10 +1,14 @@
-"""The dense decoder-only transformer of the port, for continuous-batching
-serving (counterpart of ``repro.models.transformer.Transformer``).
+"""The dense decoder-only transformer of the port, for training and for
+continuous-batching serving (counterpart of
+``repro.models.transformer.Transformer``).
 
 Parameters are a plain dict of tensors: ``embed.table``, one dict per
 layer under ``layers`` (the reference stacks them on a leading axis for
 ``lax.scan``; the port runs a Python loop over a list), and
-``final_norm.scale``. Other families (MoE, recurrent, sliding-window-only,
+``final_norm.scale``. With ``cfg.remat == "block"`` the training forward
+recomputes each block in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of its
+scan body does. Other families (MoE, recurrent, sliding-window-only,
 encoder-decoder, VLM) raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import E4M3, as_dtype
@@ -88,21 +93,42 @@ class Transformer:
         return params
 
     # -- blocks ---------------------------------------------------------------
+    def _block(self, lp, x, positions, engine: Engine, pool=None, paged=None):
+        h = common.norm_apply(lp["norm1"], x)
+        x = x + attention.apply(lp["attn"], h, positions, self.attn_cfg, engine,
+                                pool=pool, paged=paged)
+        h2 = common.norm_apply(lp["norm2"], x)
+        return x + ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
+
     def _run_stack(self, params, x, positions, pools, paged: PagedInfo):
-        cfg, eng = self.cfg, self.engine
         for lp, pool in zip(params["layers"], pools):
-            h = common.norm_apply(lp["norm1"], x)
-            x = x + attention.apply(lp["attn"], h, positions, self.attn_cfg, eng,
-                                    pool=pool, paged=paged)
-            h2 = common.norm_apply(lp["norm2"], x)
-            x = x + ffn.apply(lp["ffn"], h2, cfg.act, eng)
+            x = self._block(lp, x, positions, self.engine, pool, paged)
         return x
 
-    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return common.embed_apply(params["embed"], tokens).to(self.policy.compute)
+    def embed(self, params, tokens: torch.Tensor, engine: Engine | None = None) -> torch.Tensor:
+        compute = (engine or self.engine).policy.compute
+        return common.embed_apply(params["embed"], tokens).to(compute)
 
-    def logits(self, params, h: torch.Tensor) -> torch.Tensor:
-        return common.unembed_apply(params["embed"], h, self.engine).float()
+    def logits(self, params, h: torch.Tensor, engine: Engine | None = None) -> torch.Tensor:
+        return common.unembed_apply(params["embed"], h, engine or self.engine).float()
+
+    # -- training -------------------------------------------------------------
+    def forward(self, params, batch, *, engine: Engine | None = None):
+        """Teacher-forced forward. batch: {"tokens": (B, S) int64}. Returns
+        (hidden (B, S, d) after the final norm, aux loss); the dense decoder
+        has no auxiliary loss, so aux is an fp32 zero. ``engine`` overrides
+        the model's engine for this call (the step factories' plumbing)."""
+        eng = engine or self.engine
+        tokens = batch["tokens"]
+        x = self.embed(params, tokens, eng)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for lp in params["layers"]:
+            if self.cfg.remat == "block":
+                x = checkpoint(self._block, lp, x, positions, eng, use_reentrant=False)
+            else:
+                x = self._block(lp, x, positions, eng)
+        x = common.norm_apply(params["final_norm"], x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # -- serving state --------------------------------------------------------
     def cb_profile(self) -> CBProfile:

@@ -87,3 +87,18 @@ def test_fp8_rows_round_trip_through_uint8_views():
     fresh = tprec.cast(torch.randn(2, 3), tprec.E4M3)
     tprec.put_rows_(table, torch.tensor([1, 6]), fresh)
     assert torch.equal(table[[1, 6]].view(torch.uint8), fresh.view(torch.uint8))
+
+
+def test_every_fp16_casts_to_e5m2_like_the_reference():
+    """The cotangent cast of the backward GEMMs (fp16 -> E5M2, the
+    ``storage_bwd`` of the hybrid-FP8 policies) over all 65,536 fp16 bit
+    patterns, against ml_dtypes: the same bits for every non-NaN value, NaN
+    wherever the reference gives NaN (payloads are not compared)."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    with np.errstate(invalid="ignore"):  # the NaN patterns
+        want = bits.view(np.float16).astype(ml_dtypes.float8_e5m2)
+    x = torch.from_numpy(bits.view(np.int16).copy()).view(torch.float16)
+    got = tprec.cast(x, tprec.E5M2)
+    assert got.dtype == tprec.E5M2
+    _assert_same(want, got)
