@@ -6,11 +6,20 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles the port's three CUDA kernels from ``src/repro_torch/csrc``
+2. build: compiles the port's CUDA sources from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together);
 3. the GEMM-Op kernel against its plain PyTorch version, on the card:
    all seven Table-1 ops, ragged, batched, broadcast and transposed
-   operands, and the serving path's shapes;
+   operands, and the serving path's shapes, each with the schedule it
+   takes and the share of its outputs that differ from the plain version;
+   then each schedule (tensor cores, small rows, SIMT) at its edges: the
+   rows around the small-row threshold, K-major and strided operands (the
+   latter through the K-major copy), K not a multiple of 128, the E5M2
+   pairs, the 16-bit forms; two exact-sum cases that must be bitwise
+   equal, a planted dropped K tile per schedule that must fail, a decode
+   GEMM run twice that must give the same bits, and the two auxiliary
+   kernels (K-major copy, split-K combine) bitwise against their plain
+   versions;
 4. the paged flash-decode kernel against its plain version;
 5. the dense flash-attention kernel against its plain version (granite's
    and gemma2's shapes in fp32, fp16 and bf16, and a ragged non-causal
@@ -26,16 +35,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ("torch") on the card, under fp32 and under redmule_hfp8;
 8. serve: granite-3-8b at full width and depth (40 layers) under
    redmule_hfp8 with E4M3 weights and KV pages, 8 requests through the
-   port's ``Server``, with the kernels' launch counts read around the run;
+   port's ``Server``, with the kernels' launch counts read around every
+   prefill and decode step: each decode GEMM on the small-row schedule,
+   each prefill GEMM on the tensor cores but the last token's logits;
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
    0: the same bits);
 10. train: granite-3-8b at full width and 4 layers under redmule_hfp8,
     remat "block", batch 2 x 1024, 4 steps through the train launcher,
-    with the GEMM and attention launches read per step;
+    with the GEMM (by schedule) and attention launches read per step: every
+    GEMM on the tensor cores;
 11. the kernel line: each kernel's launches, error, time, bound, plain time
-    and one library call's time at its main path's shapes.
+    and one library call's time at its main path's shapes (the GEMM at
+    every (mul, add) shape of both paths, with ``torch._scaled_mm`` beside
+    ``torch.matmul`` where its shape rules allow, and its schedule).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither JAX nor the JAX package.
@@ -81,18 +95,45 @@ def mma_peak(*operands: torch.Tensor) -> float:
     return FP8_FLOP_S if all(t.dtype in FP8_DTYPES for t in operands) else FP16_FLOP_S
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
+    """Mean device time of one call, by CUDA events over ``iters`` calls.
+    With ``graph`` the calls are captured once in a CUDA graph and the
+    graph is replayed, so the time is the card's alone: the GEMM wrapper
+    plans on the host for longer than its small-row kernels run, which
+    eager calls would time instead."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del g
+        return start.elapsed_time(end) / iters
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ulp_spread(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
+    """(share of elements whose bits differ, worst distance in ulps) of two
+    16-bit float tensors: the bit patterns mapped to ordered integers."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(b >= 0x8000, -(b & 0x7FFF), b)
+    d = (ordered(got) - ordered(want)).abs()
+    return float((d != 0).float().mean()), int(d.max())
 
 
 # -- phase 1 ---------------------------------------------------------------------
@@ -196,9 +237,177 @@ def phase_gemm() -> float:
     for label, (x, w) in main.items():
         worst = max(worst, _gemm_check(f"redmule_hfp8/matmul/{label}", x, w, None,
                                        semiring.MATMUL, hfp8))
+        _log_spread(f"redmule_hfp8/matmul/{label}", x, w, hfp8)
         n += 1
     log(f"gemm: {n} cases agree (min/max bitwise; worst hfp8 matmul max|dz|/max|z| {worst:.3g})")
     return worst
+
+
+def _log_spread(label, x, w, policy, out_dtype=None) -> None:
+    """Print the schedule of a main-path shape and how its output bits
+    spread around the plain version's: the share of elements that differ
+    and the worst difference in output ulps."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import cast
+    from repro_torch.kernels.redmule_gemm import plan_call, redmule_gemm, redmule_gemm_plain
+
+    xq, wq = cast(x, policy.storage_fwd), cast(w, policy.storage_fwd)
+    kw = dict(gop=semiring.MATMUL, policy=policy, out_dtype=out_dtype or policy.out)
+    plan = plan_call(xq, wq, None, gop=semiring.MATMUL, policy=policy).plan
+    share, ulps = ulp_spread(redmule_gemm(xq, wq, None, **kw),
+                             redmule_gemm_plain(xq, wq, None, **kw))
+    log(f"  {label}: schedule {plan.schedule} (K-major copies x {plan.copy_x}, w {plan.copy_w}, "
+        f"split {plan.split}); {share:.2%} of outputs differ from the plain version, "
+        f"worst {ulps} ulp")
+
+
+# -- phase 3b --------------------------------------------------------------------
+
+
+def _exact_operand(gen, *shape):
+    """E4M3 values in {-1, 0, 1}: with K <= 2048 every partial sum is an
+    integer below 2^11, exact in any order and in any accumulator width the
+    tensor cores keep, so the kernel must give the plain version's bits."""
+    from repro_torch.core.precision import E4M3
+
+    return torch.randint(-1, 2, shape, generator=gen, device=gen.device).float().to(E4M3)
+
+
+def phase_gemm_schedules() -> None:
+    """Each GEMM schedule at its edges against the plain version: the rows
+    around the small-row threshold, K-major and strided weights (the
+    latter through the K-major copy), K that is not a multiple of 128 (and
+    one that is not of 16), the backward E5M2 pairs, the 16-bit wgmma
+    forms; two exact cases that must match bitwise; a planted dropped K
+    tile per schedule that must fail; and a decode GEMM run twice that must
+    give the same bits (the split-K partials are combined in a fixed order)."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import E4M3, E5M2, FP16, cast, get_policy
+    from repro_torch.kernels import redmule_gemm as rg
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hfp8 = get_policy("redmule_hfp8")
+
+    def q(fmt, *shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device=dev) * scale, FP16), fmt)
+
+    def run(x, w, policy, out_dtype=None):
+        kw = dict(gop=semiring.MATMUL, policy=policy, out_dtype=out_dtype or policy.out)
+        return rg.redmule_gemm(x, w, None, **kw), rg.redmule_gemm_plain(x, w, None, **kw)
+
+    def expect_plan(label, x, w, policy, schedule, copies):
+        plan = rg.plan_call(x, w, None, gop=semiring.MATMUL, policy=policy).plan
+        if (plan.schedule, (plan.copy_x, plan.copy_w)) != (schedule, copies):
+            raise AssertionError(f"{label}: planned {plan}, expected {schedule} "
+                                 f"with copies {copies}")
+        return plan
+
+    cases = []
+    for m in (1, 4, 16, 17, 64, 256):
+        sched = "small_row" if m <= rg.SMALL_M_MAX else "tc"
+        wide = m > rg.TC_TILE_M  # N = 1000: both operands widened to fp16 by the copy
+        cases += [
+            (f"M{m} K4096 K-major w", q(E4M3, m, 4096), q(E4M3, 1000, 4096, scale=0.02).T,
+             hfp8, None, sched, (wide, wide)),
+            (f"M{m} K4000 strided w", q(E4M3, m, 4000), q(E4M3, 4000, 1000, scale=0.02),
+             hfp8, None, sched, (wide, True)),
+            (f"M{m} K1000 strided w", q(E4M3, m, 1000), q(E4M3, 1000, 1000, scale=0.02),
+             hfp8, None, sched, (sched == "tc", True)),
+        ]
+    cases += [
+        ("E5M2 x E4M3^T M4 (small rows)", q(E5M2, 4, 4096, scale=0.01),
+         q(E4M3, 1024, 4096, scale=0.02).T, hfp8, FP16, "small_row", (False, False)),
+        ("E5M2 x E4M3^T 96x1000x1280", q(E5M2, 96, 1280, scale=0.01),
+         q(E4M3, 1000, 1280, scale=0.02).T, hfp8, FP16, "tc", (False, False)),
+        ("E5M2 x E4M3^T 256x1000x1280 (widened)", q(E5M2, 256, 1280, scale=0.01),
+         q(E4M3, 1000, 1280, scale=0.02).T, hfp8, FP16, "tc", (True, True)),
+        ("E4M3^T x E5M2 1000x256x1280", q(E4M3, 256, 1000).T, q(E5M2, 256, 1280, scale=0.01),
+         hfp8, FP16, "tc", (True, True)),
+        ("fp16 wgmma 200x1000x300", torch.randn(200, 1000, generator=gen, device=dev).half(),
+         torch.randn(1000, 300, generator=gen, device=dev).half(), get_policy("redmule_fp16"),
+         None, "tc", (False, True)),
+        ("bf16 wgmma 200x1000x300", torch.randn(200, 1000, generator=gen, device=dev).bfloat16(),
+         torch.randn(300, 1000, generator=gen, device=dev).bfloat16().T, get_policy("tpu_bf16"),
+         None, "tc", (False, False)),
+    ]
+    worst = 0.0
+    for label, x, w, pol, out, sched, copies in cases:
+        expect_plan(label, x, w, pol, sched, copies)
+        got, want = run(x, w, pol, out)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        if not torch.isfinite(got.float()).all() or not err <= GEMM_TOL[got.dtype]:
+            raise AssertionError(f"schedules {label}: max|dz|/max|z| = {err:.3g} > "
+                                 f"{GEMM_TOL[got.dtype]}")
+        worst = max(worst, err)
+    log(f"gemm schedules: {len(cases)} edge cases agree (worst max|dz|/max|z| {worst:.3g})")
+
+    # Exact sums: bitwise, one case per tensor-core schedule (and the
+    # widened operands of the tensor-core one).
+    for label, m, sched in (("tensor cores", 64, "tc"), ("tensor cores, widened", 256, "tc"),
+                            ("small rows", 4, "small_row")):
+        x, w = _exact_operand(gen, m, 2048), _exact_operand(gen, 1000, 2048).T
+        wide = sched == "tc" and m > rg.TC_TILE_M
+        expect_plan(f"exact {label}", x, w, hfp8, sched, (wide, wide))
+        got, want = run(x, w, hfp8)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"exact sums on the {label} schedule differ from "
+                                 "the plain version")
+    log("gemm schedules: the exact-sum cases (E4M3 in {-1, 0, 1}, K 2048) bitwise equal")
+
+    # A planted dropped K tile per schedule: the plain version without one
+    # 128-wide block of K must read outside GEMM_TOL.
+    fp32 = get_policy("fp32")
+    planted = {}
+    for sched, m, pol in (("small_row", 4, hfp8), ("tc", 64, hfp8), ("tc", 256, hfp8),
+                          ("simt", 37, fp32)):
+        x = q(E4M3, m, 4096) if pol is hfp8 else torch.randn(m, 4096, generator=gen, device=dev)
+        w = q(E4M3, 1000, 4096, scale=0.02).T if pol is hfp8 else \
+            torch.randn(4096, 1000, generator=gen, device=dev)
+        wide = sched == "tc" and m > rg.TC_TILE_M
+        expect_plan(f"planted {sched}", x, w, pol, sched, (wide, wide))
+        sched += " widened" if wide else ""
+        got = run(x, w, pol)[0]
+        x_drop = x.clone()
+        x_drop.view(torch.uint8 if x.element_size() == 1 else torch.int32)[:, 1024:1152] = 0
+        want = run(x_drop, w, pol)[1]
+        torch.cuda.synchronize()
+        planted[sched] = rel_err(got, want)
+        if not planted[sched] > GEMM_TOL[got.dtype]:
+            raise AssertionError(f"a dropped K tile on the {sched} schedule reads "
+                                 f"{planted[sched]:.3g}, within GEMM_TOL {GEMM_TOL[got.dtype]}")
+    log("gemm schedules: a planted dropped K tile fails every schedule ("
+        + ", ".join(f"{k} {v:.3g}" for k, v in planted.items()) + ")")
+
+    # Determinism: decode GEMMs with split K, twice, the same bits.
+    for n in (12800, 1024):
+        x, w = q(E4M3, 4, 4096), q(E4M3, n, 4096, scale=0.02).T
+        plan = expect_plan(f"repeat N{n}", x, w, hfp8, "small_row", (False, False))
+        a, b = run(x, w, hfp8)[0], run(x, w, hfp8)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            raise AssertionError(f"decode GEMM 4x4096x{n} gave different bits on two runs")
+        log(f"gemm schedules: decode 4x4096x{n} (split {plan.split}) gives the same bits twice")
+
+    # The auxiliary kernels against their plain versions, bitwise.
+    for fmt in (E4M3, E5M2):
+        w = q(fmt, 300, 1000)
+        for widen in (False, True):
+            args = (w, 1, 1, 1000, 300, [0, 0, 1, 1000], widen)
+            got, want = rg.kmajor_copy(*args)[0], rg.kmajor_copy_plain(*args)
+            bits = torch.int16 if widen else torch.uint8
+            if not torch.equal(got.view(bits), want.view(bits)):
+                raise AssertionError(f"the K-major copy of {fmt} (widen {widen}) differs from "
+                                     "its plain version")
+    ws = torch.randn(1, 16, 4, 1000, generator=gen, device=dev)
+    y = torch.randn(4, 1000, generator=gen, device=dev)
+    z = torch.empty(1, 4, 1000, dtype=FP16, device=dev)
+    rg.splitk_combine(ws, z, y, 1, [0, 0, 1000, 1])
+    if not torch.equal(z.view(torch.int16), rg.splitk_combine_plain(ws, y, FP16).view(torch.int16)):
+        raise AssertionError("the split-K combine differs from its plain version")
+    log("gemm schedules: K-major copy and split-K combine bitwise equal to their plain versions")
 
 
 # -- phase 4 ---------------------------------------------------------------------
@@ -554,18 +763,29 @@ def phase_slice_parity() -> None:
 # -- phase 8 ---------------------------------------------------------------------
 
 
-def _count_launches(engine, readings: dict) -> None:
-    """Record both kernels' launch counts over each prefill and each decode
-    step that ``engine`` dispatches: the difference of the counters around
-    the dispatch (the wrappers count on the host as they launch)."""
-    from repro_torch.kernels import flash_attention, redmule_gemm
+# What each serve step reading holds: GEMM-Op calls, paged-decode launches,
+# then the GEMM's launches by schedule and its auxiliary launches.
+READING = ("gemm", "paged decode", "simt", "tensor-core", "small-row", "aux")
 
+
+def _launch_counts() -> tuple:
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import redmule_gemm as rg
+
+    return (rg.launches.n, flash_attention.launches.n, rg.simt_launches.n, rg.tc_launches.n,
+            rg.small_row_launches.n, rg.aux_launches.n)
+
+
+def _count_launches(engine, readings: dict) -> None:
+    """Record the kernels' launch counts (``READING``) over each prefill and
+    each decode step that ``engine`` dispatches: the difference of the
+    counters around the dispatch (the wrappers count on the host as they
+    launch)."""
     def counted(kind, dispatch):
         def run(**kw):
-            before = redmule_gemm.launches.n, flash_attention.launches.n
+            before = _launch_counts()
             dispatch(**kw)
-            readings[kind].append((redmule_gemm.launches.n - before[0],
-                                   flash_attention.launches.n - before[1]))
+            readings[kind].append(tuple(a - b for a, b in zip(_launch_counts(), before)))
         return run
 
     engine.dispatch_prefill = counted("prefill", engine.dispatch_prefill)
@@ -573,11 +793,11 @@ def _count_launches(engine, readings: dict) -> None:
 
 
 def _one_reading(kind: str, readings: list, expect: tuple) -> tuple:
-    """The launch counts (GEMM, paged decode) of every ``kind`` step, which
-    must all be ``expect``."""
-    seen = sorted(set(readings))
+    """The launch counts of every ``kind`` step, all of which must be
+    ``expect`` (every entry of ``READING`` but the auxiliary launches)."""
+    seen = sorted({r[:-1] for r in readings})
     if seen != [expect]:
-        raise AssertionError(f"serve: (gemm, paged decode) launches per {kind}: {seen}, "
+        raise AssertionError(f"serve: {READING[:-1]} launches per {kind}: {seen}, "
                              f"expected {expect} every time")
     return expect
 
@@ -609,8 +829,10 @@ def phase_serve() -> dict:
         server.submit(p, max_new_tokens=max_new, sampling=sampling)
     readings = {"prefill": [], "decode": []}
     _count_launches(server.engine, readings)
-    redmule_gemm.launches.reset()
-    flash_attention.launches.reset()
+    for counter in (redmule_gemm.launches, flash_attention.launches, redmule_gemm.simt_launches,
+                    redmule_gemm.tc_launches, redmule_gemm.small_row_launches,
+                    redmule_gemm.aux_launches):
+        counter.reset()
     t0 = time.perf_counter()
     results = server.run()
     torch.cuda.synchronize()
@@ -628,18 +850,24 @@ def phase_serve() -> dict:
         raise AssertionError(f"serve: {s.nonfinite_steps} steps had non-finite logits")
     # Every dense layer is one GEMM launch: 7 a layer (q, k, v, o, gate, up,
     # down) plus the logits; a prefill adds its two attention products a
-    # layer, and a decode step its one paged-decode launch a layer.
+    # layer, and a decode step its one paged-decode launch a layer. Every
+    # decode GEMM has 4 rows (the slots) and runs on the small-row schedule;
+    # every prefill GEMM runs on the tensor cores but the logits of the
+    # prompt's last token, one row, which takes the small-row schedule.
     n_layers = cfg.n_layers
     if (len(readings["decode"]), len(readings["prefill"])) != (s.decode_steps, s.prefill_calls):
         raise AssertionError(f"serve: {len(readings['decode'])} decode steps and "
                              f"{len(readings['prefill'])} prefills read, {s.decode_steps} and "
                              f"{s.prefill_calls} run")
-    per_decode = _one_reading("decode step", readings["decode"], (7 * n_layers + 1, n_layers))
-    per_prefill = _one_reading("prefill", readings["prefill"], (9 * n_layers + 1, 0))
-    if (gemm_n, decode_n) != (sum(r[0] for v in readings.values() for r in v),
-                              sum(r[1] for v in readings.values() for r in v)):
+    per_decode = _one_reading("decode step", readings["decode"],
+                              (7 * n_layers + 1, n_layers, 0, 0, 7 * n_layers + 1))
+    per_prefill = _one_reading("prefill", readings["prefill"],
+                               (9 * n_layers + 1, 0, 0, 9 * n_layers, 1))
+    totals = tuple(sum(r[i] for v in readings.values() for r in v) for i in range(len(READING)))
+    if (gemm_n, decode_n) != totals[:2]:
         raise AssertionError(f"serve: launches gemm {gemm_n}, paged decode {decode_n} over the run "
                              "differ from the sum over its steps")
+    aux = {kind: sorted({r[-1] for r in readings[kind]}) for kind in readings}
     mem = torch.cuda.max_memory_allocated()
     log(f"serve: {len(results)} requests, {s.decode_tokens} decode tokens in {s.decode_steps} "
         f"steps, {s.prefill_calls} prefills; decode {s.decode_tok_s:.1f} tok/s, "
@@ -649,12 +877,17 @@ def phase_serve() -> dict:
         f"{s.decode_steps} decode steps: gemm {per_decode[0]}, paged decode {per_decode[1]}; "
         f"at each of {s.prefill_calls} prefills: gemm {per_prefill[0]}, "
         f"paged decode {per_prefill[1]}")
+    log(f"serve: gemm schedules (simt, tensor-core, small-row) at each decode step "
+        f"{per_decode[2:]}, at each prefill {per_prefill[2:]}; auxiliary launches per decode "
+        f"step {aux['decode']} (split-K combines), per prefill {aux['prefill']} (K-major copies)")
     log(f"serve: request 0 tokens {results[0].out_tokens}")
     del server, model, params
     torch.cuda.empty_cache()
     return {"gemm": gemm_n, "decode": decode_n,
             "gemm_per_decode_step": per_decode[0], "gemm_per_prefill": per_prefill[0],
-            "decode_per_decode_step": per_decode[1], "decode_per_prefill": per_prefill[1]}
+            "decode_per_decode_step": per_decode[1], "decode_per_prefill": per_prefill[1],
+            "serve_tc": totals[3], "serve_small_row": totals[4],
+            "serve_combines": sum(r[-1] for r in readings["decode"])}
 
 
 # -- phase 9 ---------------------------------------------------------------------
@@ -759,6 +992,13 @@ def phase_train() -> dict:
     if per_step != [GEMM_PER_TRAIN_STEP] or gemm_n != GEMM_PER_TRAIN_STEP * TRAIN_STEPS:
         raise AssertionError(f"train: GEMM launches per step {per_step} (total {gemm_n}), "
                              f"expected {GEMM_PER_TRAIN_STEP} each")
+    # Every training GEMM has 1024 rows or more: all on the tensor cores.
+    schedules = sorted({(h["gemm_simt_launches"], h["gemm_tc_launches"],
+                         h["gemm_small_row_launches"]) for h in hist})
+    if schedules != [(0, GEMM_PER_TRAIN_STEP, 0)]:
+        raise AssertionError(f"train: GEMM launches per step by schedule (simt, tensor-core, "
+                             f"small-row) {schedules}, expected (0, {GEMM_PER_TRAIN_STEP}, 0)")
+    aux = sorted({h["gemm_aux_launches"] for h in hist})
     if dense_n or paged_n or any(h["dense_attention_launches"] for h in hist):
         raise AssertionError(f"train: attention kernels launched ({dense_n} dense, {paged_n} paged); "
                              "the training attention runs its products through the GEMM")
@@ -771,53 +1011,211 @@ def phase_train() -> dict:
         f"grad norms {[round(h['grad_norm'], 4) for h in hist]}, skipped 0")
     log(f"train: ms per step {[round(h['ms'], 1) for h in hist]} (steady mean {ms:.1f} ms, "
         f"{tok_s:.1f} tokens/s); max memory {mem / 1e9:.2f} GB; launches per step: gemm "
-        f"{per_step[0]}, dense attention 0 (total gemm {gemm_n})")
-    return {"gemm": gemm_n, "gemm_per_step": per_step[0], "ms_per_step": ms}
+        f"{per_step[0]}, dense attention 0 (total gemm {gemm_n}); by schedule (simt, "
+        f"tensor-core, small-row) {schedules[0]}; K-major copies {aux}")
+    return {"gemm": gemm_n, "gemm_per_step": per_step[0], "ms_per_step": ms,
+            "copies": sum(h["gemm_aux_launches"] for h in hist)}
 
 
 # -- phase 11 --------------------------------------------------------------------
 
 
-def _gemm_entry(label, m, counts, gop_name="matmul"):
-    """The GEMM-Op kernel at the widest serving layer (K=4096, N=12800)
-    under redmule_hfp8. (mul, add) is timed against torch.matmul on the
-    widened fp16 operands and bound by the fp8 tensor-core peak; a
-    semiring pair has no library call and runs on the CUDA cores, so its
-    2*M*K*N operations are bound by the fp32 peak outside the tensor cores."""
+GEMM_SOURCE = {"tc": "src/repro_torch/csrc/redmule_gemm_tc.cu",
+               "small_row": "src/repro_torch/csrc/redmule_gemm_sr.cu",
+               "simt": "src/repro_torch/csrc/redmule_gemm.cu"}
+
+
+def _scaled_mm_ms(x, w, out_dtype):
+    """``torch._scaled_mm`` (unit scales) on the same fp8 operands, laid out
+    as it requires outside the timed call (row-major A with M padded to 16,
+    column-major B), or None where its shape rules refuse the GEMM: 2D
+    only, K and N multiples of 16, not E5M2 x E5M2."""
+    from repro_torch.core.precision import E5M2, FP8_DTYPES
+
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    if (x.dim() != 2 or w.dim() != 2 or k % 16 or n % 16 or x.dtype not in FP8_DTYPES
+            or w.dtype not in FP8_DTYPES or x.dtype == w.dtype == E5M2):
+        return None
+    mp = -(-m // 16) * 16
+    a = torch.zeros((mp, k), dtype=x.dtype, device=x.device)
+    a[:m] = x
+    b = w if w.stride(0) == 1 else w.t().contiguous().t()
+    one = torch.ones((), device=x.device)
+    return time_ms(lambda: torch._scaled_mm(a, b, one, one, out_dtype=out_dtype), graph=True)
+
+
+def _gemm_row(label, x, w, out_dtype, launches, **extra):
+    """One (mul, add) row of the kernel line under redmule_hfp8: the kernel
+    on its planned schedule (device time from a CUDA-graph replay), the
+    plain version, torch.matmul on the widened fp16 operands and
+    torch._scaled_mm on the fp8 ones. Bound: each operand byte read once
+    and the output written once at 3.35 TB/s, against 2*M*K*N operations
+    (per batch) at the fp8 tensor-core peak."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import redmule_gemm as rg
+
+    pol = get_policy("redmule_hfp8")
+    kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=out_dtype)
+    plan = rg.plan_call(x, w, None, gop=semiring.MATMUL, policy=pol).plan
+    aux0 = rg.aux_launches.n
+    got = rg.redmule_gemm(x, w, None, **kw)
+    aux = rg.aux_launches.n - aux0
+    want = rg.redmule_gemm_plain(x, w, None, **kw)
+    big = x.numel() * w.shape[-1] > 1 << 32
+    ms = time_ms(lambda: rg.redmule_gemm(x, w, None, **kw), iters=5 if big else 20, graph=True)
+    # Eager calls, timed the same way: where this exceeds ``ms`` the wrapper's
+    # host work (planning, allocation, the ctypes launch) paces the calls.
+    eager_ms = time_ms(lambda: rg.redmule_gemm(x, w, None, **kw), iters=5 if big else 20)
+    plain_ms = time_ms(lambda: rg.redmule_gemm_plain(x, w, None, **kw), iters=5)
+    x16, w16 = x.half(), w.half()
+    library_ms = time_ms(lambda: torch.matmul(x16, w16), iters=5 if big else 20, graph=True)
+    scaled_ms = _scaled_mm_ms(x, w, out_dtype)
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    batch = got.numel() // (m * n)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, got))
+    ops = 2.0 * batch * m * k * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / mma_peak(x, w) * 1e3
+    share, ulps = ulp_spread(got, want)
+    return {
+        "name": f"redmule_gemm[{label}]", "route": "cuda", "source": GEMM_SOURCE[plan.schedule],
+        "replaces": "src/repro/kernels/redmule_gemm.py:110",
+        "launches": launches, **extra, "schedule": plan.schedule, "split": plan.split,
+        "aux_launches_per_call": aux,
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "share_differ": share, "worst_ulps": ulps,
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "scaled_mm_ms": scaled_ms,
+        "tflop_s": ops / ms / 1e9,
+    }
+
+
+def _gemm_entries(counts) -> list:
+    """The GEMM-Op kernel at every (mul, add) shape of the serving and
+    training paths, each on the schedule the planner gives it there, and the
+    two auxiliary kernels (K-major copy, split-K combine)."""
+    from repro_torch.core.precision import E4M3, E5M2, FP16, cast
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def q(fmt, *shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device="cuda") * scale, FP16), fmt)
+
+    sr, tc, train = counts["serve_small_row"], counts["serve_tc"], counts["train_gemm"]
+    per_decode = {"launches_per_decode_step": counts["gemm_per_decode_step"]}
+    per_prefill = {"launches_per_prefill": counts["gemm_per_prefill"]}
+    per_step = {"launches_per_train_step": counts["train_gemm_per_step"]}
+    table = q(E4M3, 49155, 4096, scale=0.02)
+    k_pages = q(E4M3, 1, 96, 8, 128).permute(0, 2, 3, 1)  # (B, Hkv, hd, T) strided view
+    entries = [
+        _gemm_row("decode 4x4096x12800", q(E4M3, 4, 4096), q(E4M3, 12800, 4096, scale=0.02).T,
+                  FP16, sr, **per_decode),
+        _gemm_row("decode 4x4096x1024 (k, v)", q(E4M3, 4, 4096),
+                  q(E4M3, 1024, 4096, scale=0.02).T, FP16, sr, **per_decode),
+        _gemm_row("decode logits 4x4096x49155 (table.T)", q(E4M3, 4, 4096), table.T, FP16, sr,
+                  **per_decode),
+        _gemm_row("prefill 64x4096x12800", q(E4M3, 64, 4096),
+                  q(E4M3, 12800, 4096, scale=0.02).T, FP16, tc, **per_prefill),
+        _gemm_row("prefill scores (1,8)x384x128x96", q(E4M3, 1, 8, 384, 128), k_pages, FP16, tc,
+                  **per_prefill),
+        _gemm_row("prefill values (1,8)x384x96x128", q(E4M3, 1, 8, 384, 96),
+                  k_pages.transpose(-1, -2), FP16, tc, **per_prefill),
+        _gemm_row("train forward 2048x4096x12800", q(E4M3, 2048, 4096),
+                  q(E4M3, 4096, 12800, scale=4096 ** -0.5), FP16, train, **per_step),
+    ]
+    for label, (a, b) in _backward_pairs(torch.Generator(device="cuda").manual_seed(6)).items():
+        entries.append(_gemm_row(f"backward {label}", a, b, FP16, train, **per_step))
+    del table
+    entries += [_copy_entry(counts), _combine_entry(counts)]
+    return entries
+
+
+def _copy_entry(counts):
+    """The K-major copy at the train run's forward weight (4096 x 12800
+    E4M3, N contiguous), widened to a (12800, 4096) fp16 buffer as the
+    tensor-core schedule takes it above one row tile; bound by its bytes
+    read and written once, beside ``t().contiguous()`` after ``half()``."""
+    from repro_torch.core.precision import E4M3
+    from repro_torch.kernels import redmule_gemm as rg
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    w = torch.randn((4096, 12800), generator=gen, device="cuda").to(E4M3)
+    args = (w, 1, 1, 12800, 4096, [0, 0, 1, 12800], True)
+    got = rg.kmajor_copy(*args)[0]
+    want = rg.kmajor_copy_plain(*args)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("the K-major copy differs from its plain version at the train shape")
+    ms = time_ms(lambda: rg.kmajor_copy(*args), graph=True)
+    plain_ms = time_ms(lambda: rg.kmajor_copy_plain(*args), iters=5)
+    library_ms = time_ms(lambda: w.half().t().contiguous(), graph=True)
+    t_bytes = 3 * w.numel() / HBM_BYTES_S * 1e3
+    return {
+        "name": "kmajor_copy[4096x12800 e4m3 -> K-major fp16]", "route": "cuda",
+        "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
+        "replaces": "src/repro/kernels/redmule_gemm.py:110",
+        "launches": counts["train_copies"], "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes, "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def _combine_entry(counts):
+    """The split-K combine at the decode step's q projection (4 x 4096, 8
+    splits of fp32 partials, fp16 out), bound by its bytes, beside
+    ``sum`` over the split axis."""
+    from repro_torch.core.precision import FP16
+    from repro_torch.kernels import redmule_gemm as rg
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ws = torch.randn((1, 8, 4, 4096), generator=gen, device="cuda")
+    out = torch.empty((1, 4, 4096), dtype=FP16, device="cuda")
+    rg.splitk_combine(ws, out)
+    want = rg.splitk_combine_plain(ws, None, FP16)
+    if not torch.equal(out.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("the split-K combine differs from its plain version")
+    ms = time_ms(lambda: rg.splitk_combine(ws, out), graph=True)
+    plain_ms = time_ms(lambda: rg.splitk_combine_plain(ws, None, FP16))
+    library_ms = time_ms(lambda: ws.sum(1), graph=True)
+    t_bytes = (ws.numel() * 4 + out.numel() * 2) / HBM_BYTES_S * 1e3
+    return {
+        "name": "splitk_combine[8 x 4x4096 fp32 -> fp16]", "route": "cuda",
+        "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
+        "replaces": "src/repro/kernels/redmule_gemm.py:110",
+        "launches": counts["serve_combines"], "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes, "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def _apsp_entry():
+    """One semiring pair on the SIMT schedule, off every model path, timed
+    for PERF.md: apsp at 64x4096x12800 on E4M3, bitwise against the plain
+    version, bound by its operations at the CUDA cores' fp32 peak."""
     from repro_torch.core import semiring
     from repro_torch.core.precision import cast, get_policy
     from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
 
     pol = get_policy("redmule_hfp8")
-    gop = semiring.get(gop_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    k, n = 4096, 12800
+    m, k, n = 64, 4096, 12800
     xq = cast(torch.randn((m, k), generator=gen, device="cuda").half(), pol.storage_fwd)
     wq = cast(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5, pol.storage_fwd)
-    kw = dict(gop=gop, policy=pol, out_dtype=pol.out)
+    kw = dict(gop=semiring.get("apsp"), policy=pol, out_dtype=pol.out)
     got = redmule_gemm(xq, wq, None, **kw)
     want = redmule_gemm_plain(xq, wq, None, **kw)
-    ms = time_ms(lambda: redmule_gemm(xq, wq, None, **kw))
-    plain_ms = time_ms(lambda: redmule_gemm_plain(xq, wq, None, **kw))
-    library_ms = None
-    if gop.is_gemm:
-        x16, w16 = xq.half(), wq.half()
-        library_ms = time_ms(lambda: torch.matmul(x16, w16))
+    ms = time_ms(lambda: redmule_gemm(xq, wq, None, **kw), graph=True)
+    plain_ms = time_ms(lambda: redmule_gemm_plain(xq, wq, None, **kw), iters=5)
     nbytes = xq.numel() + wq.numel() + got.numel() * got.element_size()
-    ops = 2.0 * m * k * n
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / (mma_peak(xq, wq) if gop.is_gemm else FP32_FLOP_S) * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, 2.0 * m * k * n / FP32_FLOP_S * 1e3
     return {
-        "name": f"redmule_gemm[{label} {m}x{k}x{n}]", "route": "cuda",
-        "source": "src/repro_torch/csrc/redmule_gemm.cu",
-        "replaces": "src/repro/kernels/redmule_gemm.py:110",
-        "launches": counts["gemm"],
-        "launches_per_decode_step": counts["gemm_per_decode_step"],
-        "launches_per_prefill": counts["gemm_per_prefill"],
-        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "name": f"redmule_gemm[apsp {m}x{k}x{n}]", "route": "cuda",
+        "source": GEMM_SOURCE["simt"], "replaces": "src/repro/kernels/redmule_gemm.py:110",
+        "launches": 0, "max_abs_err": float((got.float() - want.float()).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
     }
 
 
@@ -908,51 +1306,21 @@ def _flash_entry(counts):
     }
 
 
-def _backward_entries(counts) -> list:
-    """The GEMM-Op kernel on the train run's backward operand pairs, bound
-    by 2*M*K*N operations at the fp8 tensor-core peak or by each operand
-    byte read once and the fp16 output written once, beside torch.matmul on
-    the widened fp16 operands."""
-    from repro_torch.core import semiring
-    from repro_torch.core.precision import get_policy
-    from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
-
-    pol = get_policy("redmule_hfp8")
-    kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=pol.compute)
-    entries = []
-    for label, (a, b) in _backward_pairs(torch.Generator(device="cuda").manual_seed(6)).items():
-        got = redmule_gemm(a, b, None, **kw)
-        want = redmule_gemm_plain(a, b, None, **kw)
-        ms = time_ms(lambda: redmule_gemm(a, b, None, **kw), iters=5)
-        plain_ms = time_ms(lambda: redmule_gemm_plain(a, b, None, **kw), iters=5)
-        a16, b16 = a.half(), b.half()
-        library_ms = time_ms(lambda: torch.matmul(a16, b16), iters=5)
-        (m, k), n = a.shape, b.shape[-1]
-        nbytes = a.numel() + b.numel() + got.numel() * got.element_size()
-        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, 2.0 * m * k * n / mma_peak(a, b) * 1e3
-        entries.append({
-            "name": f"redmule_gemm[backward {label}]", "route": "cuda",
-            "source": "src/repro_torch/csrc/redmule_gemm.cu",
-            "replaces": "src/repro/kernels/redmule_gemm.py:110",
-            "launches": counts["train_gemm"],
-            "launches_per_train_step": counts["train_gemm_per_step"],
-            "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        })
-    return entries
-
-
 def _log_entry(e) -> None:
     lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+    extra = ""
+    if "schedule" in e:
+        smm = "none" if e["scaled_mm_ms"] is None else f"{e['scaled_mm_ms']:.4f} ms"
+        extra = (f"; schedule {e['schedule']} (split {e['split']}, {e['aux_launches_per_call']} "
+                 f"auxiliary launches a call), eager calls {e['eager_ms']:.4f} ms, "
+                 f"_scaled_mm {smm}, {e['tflop_s']:.1f} TFLOP/s, "
+                 f"{e['share_differ']:.2%} of outputs differ, worst {e['worst_ulps']} ulp")
     log(f"{e['name']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
-        f"plain {e['plain_ms']:.4f} ms, library {lib}, max|d| {e['max_abs_err']:.3g})")
+        f"plain {e['plain_ms']:.4f} ms, library {lib}, max|d| {e['max_abs_err']:.3g}{extra})")
 
 
 def phase_kernel_line(counts) -> list:
-    entries = [_gemm_entry("decode", 4, counts), _gemm_entry("prefill", 64, counts),
-               _decode_entry(counts), _flash_entry(counts), *_backward_entries(counts)]
+    entries = [*_gemm_entries(counts), _decode_entry(counts), _flash_entry(counts)]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
@@ -960,7 +1328,7 @@ def phase_kernel_line(counts) -> list:
     # The semiring pairs share the kernel but are off the serving and
     # training paths, so they stay out of the kernel line; one pair is
     # timed for PERF.md.
-    apsp = _gemm_entry("apsp prefill", 64, counts, gop_name="apsp")
+    apsp = _apsp_entry()
     if apsp["max_abs_err"] != 0.0:
         raise AssertionError(f"{apsp['name']}: not bitwise against the plain version")
     _log_entry(apsp)
@@ -974,6 +1342,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_build()
         phase_gemm()
+        phase_gemm_schedules()
         phase_decode()
         counts = phase_flash()
         phase_backward_gemm()
@@ -981,7 +1350,8 @@ def main() -> int:
         counts |= phase_serve()
     phase_train_parity()
     train = phase_train()
-    counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"]}
+    counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
+               "train_copies": train["copies"]}
     with torch.inference_mode():
         entries = phase_kernel_line(counts)
     log(f"card: {card}")

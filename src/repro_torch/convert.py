@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import kmajor_weight
 
 # ml_dtypes' names for the formats numpy has no native type for.
 _BIT_VIEWS = {
@@ -43,12 +44,15 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     def t(a):
         return tensor_from_numpy(a, device)
 
+    def weight(a):
+        return {"w": kmajor_weight(t(a))}
+
     def layer(i):
         return {
             "norm1": {"scale": t(unit["norm1"]["scale"][i])},
-            "attn": {n: {"w": t(unit["attn"][n]["w"][i])} for n in ("q", "k", "v", "o")},
+            "attn": {n: weight(unit["attn"][n]["w"][i]) for n in ("q", "k", "v", "o")},
             "norm2": {"scale": t(unit["norm2"]["scale"][i])},
-            "ffn": {n: {"w": t(unit["ffn"][n]["w"][i])} for n in ("up", "gate", "down")},
+            "ffn": {n: weight(unit["ffn"][n]["w"][i]) for n in ("up", "gate", "down")},
         }
 
     return {

@@ -2,32 +2,75 @@
 //
 // Replaces the TPU kernel repro/kernels/redmule_gemm.py::redmule_gemm_pallas
 // (body _kernel): the same function for all seven Table-1 (circ, star)
-// pairs, one template instantiated per pair and compute format.
+// pairs. Three schedules compute it; the wrapper's planner
+// (repro_torch.kernels.redmule_gemm.plan_gemm) picks one from the shapes,
+// the formats and the strides alone, never as a retry:
 //
-// Design, and what it does about this card:
-//  - A shared-memory-tiled SIMT kernel: a 64x64 output tile per block of
-//    256 threads, each thread a 4x4 register micro-tile, K in steps of 16.
-//    The fp32 accumulator lives in registers and starts from Y or from the
-//    star identity. Pallas' sequential K grid axis becomes the K loop
-//    inside the block: blocks on Hopper run in no order, so nothing
-//    carries between them.
-//  - Operands are loaded in their storage format (fp8 crosses device
-//    memory at one byte an element), widened to fp32 and rounded to the
-//    compute format in the tile: the paper's input cast unit. For the
-//    (mul, add) pair the products of compute-format values are exact in
-//    fp32 and summed there, as the reference's dot_general with an fp32
-//    preferred type does. For the semiring pairs circ is rounded to the
-//    compute format before star, as the reference's VPU path does.
-//  - Every operand has explicit batch, row and column strides (two batch
-//    levels). A batch stride of 0 shares the weight across the batch, and
-//    transposed views (attention's swapped keys, the tied unembedding's
-//    table.T) need no copy: the tile loader walks the unit-stride axis
-//    fastest to keep loads coalesced. The ragged edge is masked here, so
-//    the reference's padding step has no counterpart.
-//  - What bounds it: decode rows (M = the slot count) are bound by the
-//    weight bytes; prefill rows (M = the prompt bucket) by the operations.
-//    This first kernel runs on the CUDA cores; wgmma, TMA and fp8 tensor
-//    cores are later work, recorded in PERF.md.
+//  - tensor cores (redmule_gemm_tc.cu), for (mul, add) with more than 16
+//    rows: prefill, every training GEMM, the attention products. Bound by
+//    operations once M reaches a few hundred rows, by the weight bytes
+//    below that. A producer warp keeps TMA loads of X and W tiles in flight
+//    through a ring of shared-memory stages; two consumer warpgroups run
+//    wgmma.mma_async (m64n128k16, fp16 or bf16 operands) on a 128 x 128
+//    output tile. fp8 operands are widened to fp16 first (exact): in
+//    shared memory when Z is one tile high or wide, else once for the whole
+//    operand by the K-major copy (so that no tile is widened once per tile
+//    of the other operand). The schedule runs at the fp16 tensor-core
+//    rate: see the numerics below for why not at the fp8 one.
+//  - small rows (redmule_gemm_sr.cu), for (mul, add) on fp8 operands with
+//    at most 16 rows: the decode step. Bound by the weight bytes (8
+//    operations a byte at M = 4, far below the card's ridge), so each
+//    weight byte is read once with 16-byte loads, by enough blocks to fill
+//    the 132 SMs (K split across blocks, partials combined in a fixed
+//    order), and multiplied on the tensor cores (mma.sync m16n8k32 on the
+//    fp8 bytes, W as the 16-row operand).
+//  - SIMT (this file), for the six semiring pairs and every (mul, add)
+//    whose operands the tensor cores cannot take exactly: an fp32 compute
+//    format (the tensor cores have no fp32 products) or operands that the
+//    compute cast would round. Bound by the fp32 peak of the CUDA cores.
+//
+// Numerics of the tensor-core schedules. The reference rounds the operands
+// to the compute format and sums their products in fp32
+// (dot_general(..., preferred_element_type=f32)). For the operands routed
+// to them that cast is the identity (E4M3/E5M2 -> fp16/bf16, or fp16/bf16
+// already in the compute format), and the products of those values are
+// exact. The sum must stay an fp32 sum. fp8 wgmma does not keep one: it
+// holds only about 14 bits of the running sum (DeepSeek-V3 technical
+// report, "Increasing Accumulation Precision"), and measured on the H100 it
+// moved a fifth of the fp16 outputs of a 64 x 4096 x 12800 E4M3 GEMM off
+// the fp32 sum, even with every k32 instruction promoted on its own; two
+// layers of E4M3/E5M2 requantisation grew that into 9% of the logits and
+// whole gradients. fp16 wgmma on the same (widened) values and the fp8
+// mma.sync of the small-row schedule gave the fp32 sum's bits in every
+// case measured. Each schedule still adds its MMA results into separate
+// fp32 registers: every 128 of K in the tensor-core schedule (one TMA
+// stage: 128 fp8 or 64 16-bit elements), every 32 of K in the small-row
+// schedule. Y is added in fp32 in the epilogue and Z rounds once, at the
+// output cast unit, with the reference's E4M3 NaN rule
+// (store_from_float). Zero fill at the ragged edges is exact only for
+// (mul, add), the one pair these schedules take.
+//
+// Non-K-major operands. wgmma reads fp8 operands K-major only (the
+// transpose operand exists for 16-bit types alone), the small-row loads
+// read 16-byte rows of K, and TMA wants 16-byte-aligned rows. The planner
+// names every operand whose view is not K-major with rows of whole
+// 16-byte groups; the wrapper copies it once per call with
+// kmajor_copy_kernel (redmule_gemm_sr.cu: bytes copied exactly, rows
+// padded to 16 bytes with zeros), an auxiliary launch with its own
+// counter. On the serving path no weight is copied: E4M3 weights are made
+// once as (N, K) tensors presented as their (K, N) views.
+//
+// The SIMT design: a shared-memory-tiled kernel, a 64x64 output tile per
+// block of 256 threads, each thread a 4x4 register micro-tile, K in steps
+// of 16. The fp32 accumulator lives in registers and starts from Y or from
+// the star identity. Operands are loaded in their storage format, widened
+// to fp32 and rounded to the compute format in the tile (the paper's
+// input cast unit); for the semiring pairs circ is rounded to the compute
+// format before star, as the reference's VPU path does. Every operand has
+// explicit batch, row and column strides (two batch levels); a batch
+// stride of 0 shares the weight across the batch, and transposed views
+// need no copy: the tile loader walks the unit-stride axis fastest. The
+// ragged edge is masked here.
 #include "common.cuh"
 
 namespace {

@@ -6,7 +6,10 @@ plain C interface under ``build/repro_torch_kernels/`` at the repository
 root, and loaded with ``ctypes``. The library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Nothing is built at import: the first kernel launch (or
-an explicit :func:`library` call) builds.
+an explicit :func:`library` call) builds. The library links against the
+CUDA runtime alone: the tensor-core GEMM gets ``cuTensorMapEncodeTiled``
+(its TMA descriptors) from the driver through ``cudaGetDriverEntryPoint``,
+so no ``-lcuda`` is needed.
 
 There is no fallback: without ``nvcc`` or a card, or when a build fails,
 :func:`library` raises.
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -47,6 +51,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "redmule_gemm_launch": [_I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                             _I, _I, _I, _I, _I] + [_L] * 12 + [_P],
+    "redmule_gemm_tc_launch": [_I, _I, _P, _P, _P, _I, _P, _I,
+                               _I, _I, _I, _I, _I] + [_L] * 10 + [_P],
+    "redmule_gemm_sr_launch": [_I, _I, _P, _P, _P, _I, _P, _I, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 11 + [_P],
+    "redmule_splitk_combine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I]
+                                     + [_L] * 4 + [_P],
+    "kmajor_copy_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 4 + [_P],
     "paged_decode_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -88,9 +99,10 @@ def library() -> ctypes.CDLL:
             )
             for src, obj in zip(sources, objs)
         ]
+        t0 = time.perf_counter()
         for src, proc in zip(sources, procs):
             out, _ = proc.communicate()
-            build_log += f"== {src.name}\n{out}"
+            build_log += f"== {src.name} (done at {time.perf_counter() - t0:.1f} s)\n{out}"
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")

@@ -53,10 +53,11 @@ def parse_args(argv=None):
 
 
 def print_device_time(prof, wall_s: float, top: int = 8) -> None:
-    """Device time by kernel name from a torch.profiler trace, and the
-    card's busy share of the traced wall time. Only the kernels' own rows
-    count: an operator that launches kernels (the forward of an autograd
-    Function, say) reports their device time as its own too."""
+    """Device time by kernel name from a torch.profiler trace, the card's
+    busy share of the traced wall time, and host time by operator. Only
+    the kernels' own rows count as device time: an operator that launches
+    kernels (the forward of an autograd Function, say) reports their device
+    time as its own too."""
     from torch.autograd import DeviceType
 
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
@@ -67,6 +68,15 @@ def print_device_time(prof, wall_s: float, top: int = 8) -> None:
           f"({busy_us / 1e4 / wall_s:.1f}%)")
     for us, count, name in rows[:top]:
         print(f"  {us / 1e3:10.2f} ms {100 * us / max(busy_us, 1e-9):5.1f}% {count:7d}x  {name[:90]}")
+    # The host side: operators by their own CPU time (the profiler's
+    # bookkeeping inflates every one of them alike).
+    host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)
+    host_us = sum(r[0] for r in host)
+    print(f"profile: host operators {host_us / 1e3:.1f} ms of self CPU time")
+    for us, count, name in host[:top]:
+        print(f"  {us / 1e3:10.2f} ms {100 * us / max(host_us, 1e-9):5.1f}% {count:7d}x  "
+              f"{name[:90]}")
 
 
 def main(argv=None):

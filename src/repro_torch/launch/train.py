@@ -104,11 +104,22 @@ def train(args) -> dict:
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
         prof = profile(activities=activities)
         prof.start()
+    # Launches per step: GEMM-Op calls, each GEMM schedule's kernel, the
+    # GEMM's auxiliary launches (K-major copies, split-K combines) and the
+    # dense flash attention.
+    counters = {
+        "gemm_launches": redmule_gemm.launches,
+        "gemm_tc_launches": redmule_gemm.tc_launches,
+        "gemm_small_row_launches": redmule_gemm.small_row_launches,
+        "gemm_simt_launches": redmule_gemm.simt_launches,
+        "gemm_aux_launches": redmule_gemm.aux_launches,
+        "dense_attention_launches": flash_attention.dense_launches,
+    }
     t_run = time.perf_counter()
     try:
         for i in range(state.step, args.steps):
             batch = next(it)
-            before = redmule_gemm.launches.n, flash_attention.dense_launches.n
+            before = {name: c.n for name, c in counters.items()}
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])  # waits for the card
@@ -116,8 +127,7 @@ def train(args) -> dict:
             history.append({
                 "step": i + 1, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
                 "skipped": state.skipped, "ms": ms,
-                "gemm_launches": redmule_gemm.launches.n - before[0],
-                "dense_attention_launches": flash_attention.dense_launches.n - before[1],
+                **{name: c.n - before[name] for name, c in counters.items()},
             })
             if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
                 h = history[-1]

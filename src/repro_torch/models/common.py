@@ -8,17 +8,28 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.precision import cast, take_rows
+from repro_torch.core.precision import FP8_DTYPES, cast, take_rows
 from repro_torch.engine import Engine
 
 Params = dict[str, Any]
+
+
+def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) weight stored in fp8 for good (``cfg.fp8_params``) as the
+    (K, N) view of a contiguous (N, K) tensor: the K-major layout that the
+    GEMM kernel's tensor-core and small-row schedules read, made once so
+    that no serving step copies a weight. Other weights keep their layout;
+    the values and the (K, N) shape are the same either way."""
+    if w.dtype not in FP8_DTYPES or w.stride(0) == 1:
+        return w
+    return w.T.contiguous().T
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
                device, scale: float | None = None) -> Params:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, device=device) * scale
-    return {"w": cast(w, dtype)}
+    return {"w": kmajor_weight(cast(w, dtype))}
 
 
 def dense_apply(p: Params, x: torch.Tensor, engine: Engine) -> torch.Tensor:
