@@ -20,12 +20,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GEMM run twice that must give the same bits, and the two auxiliary
    kernels (K-major copy, split-K combine) bitwise against their plain
    versions;
-4. the paged flash-decode kernel against its plain version;
+4. the paged flash-decode kernel against its plain version, then its split
+   page walk at its edges: 64-page tables with lengths ending in the first
+   split, on a split boundary and in the last, whole splits dead by
+   length, by NULL pages and by the window, an inactive slot and softcap
+   with splits, the long-context shape (16 slots of 4096 tokens), and one
+   case run twice, which must give the same bits;
 5. the dense flash-attention kernel against its plain version (granite's
-   and gemma2's shapes in fp32, fp16 and bf16, and a ragged non-causal
-   case; the error read row by row, and a planted dropped key must fail
-   each case), then its main path: one call of the entry point
-   ``ops.flash_attention``, read by its own launch counter;
+   and gemma2's shapes in fp32, fp16 and bf16, a ragged non-causal case,
+   and the tensor-core kernel's edges: Sq not a multiple of 128,
+   non-causal with Sk != Sq, hd 64, softcap), each case on the route
+   ``plan_flash`` names (granite's fp16 and bf16 on the tensor cores, fp32
+   on the SIMT kernel), read by the two kernels' launch counters; the
+   error read row by row, and a planted dropped key must fail each case;
+   then its main path: one call of the entry point ``ops.flash_attention``
+   on the tensor cores;
 6. the GEMM-Op kernel on the training path's backward operand pairs
    (E5M2 x E4M3^T and E4M3^T x E5M2, fp16 out, at the train run's shapes,
    the tied unembedding's K = 49155 included), and the fp16 -> E5M2
@@ -37,7 +46,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    redmule_hfp8 with E4M3 weights and KV pages, 8 requests through the
    port's ``Server``, with the kernels' launch counts read around every
    prefill and decode step: each decode GEMM on the small-row schedule,
-   each prefill GEMM on the tensor cores but the last token's logits;
+   each prefill GEMM on the tensor cores but the last token's logits, one
+   paged-decode launch a layer a decode step (and its split count);
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -49,7 +59,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 11. the kernel line: each kernel's launches, error, time, bound, plain time
     and one library call's time at its main path's shapes (the GEMM at
     every (mul, add) shape of both paths, with ``torch._scaled_mm`` beside
-    ``torch.matmul`` where its shape rules allow, and its schedule).
+    ``torch.matmul`` where its shape rules allow, and its schedule; the
+    paged decode at the serving and the long-context shape, as CUDA-graph
+    replays with eager calls beside; the dense attention with its route).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither JAX nor the JAX package.
@@ -57,6 +69,7 @@ neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -497,6 +510,99 @@ def phase_decode() -> None:
     log(f"paged decode: {len(cases)} cases agree (worst max|d|: fp32 out "
         f"{worst[torch.float32]:.3g} within {DECODE_TOL[torch.float32]}, fp16 out "
         f"{worst[torch.float16]:.3g} within {DECODE_TOL[torch.float16]}; inactive slots zero)")
+    _decode_split_cases(rng)
+
+
+def _decode_check(label, case, *, splits, plain, window=None, softcap=None):
+    """The paged decode kernel with ``splits`` (None: the planner's) against
+    ``plain`` on one case; returns the kernel's output."""
+    q, kp, vp, pt, lens, act = case
+    s, hq, hd = q.shape
+    qg = q.reshape(s, kp.shape[1], hq // kp.shape[1], hd)
+    kw = dict(page_size=16, window=window, softcap=softcap)
+    from repro_torch.kernels import flash_attention as fa
+
+    got = fa.paged_flash_decode(qg, kp, vp, pt, lens, act, splits=splits, **kw)
+    want = plain(qg, kp, vp, pt, lens, act, **kw)
+    torch.cuda.synchronize()
+    live = act.bool()
+    err = float((got[live].float() - want[live].float()).abs().max())
+    tol = DECODE_TOL[got.dtype]
+    if not torch.allclose(got[live].float(), want[live].float(), rtol=tol, atol=tol):
+        raise AssertionError(f"paged decode {label}, splits {splits}: max|d| {err:.3g} > tol {tol}")
+    if (~live).any() and float(got[~live].float().abs().max()) != 0.0:
+        raise AssertionError(f"paged decode {label}, splits {splits}: inactive slots are not zeros")
+    return got, err
+
+
+def _long_decode_case(seed=3, s=16, tokens=4096):
+    """The long-context decode step on the card: ``s`` slots of ``tokens``
+    tokens each (page 16, Hq 32 / Hkv 8, hd 128, E4M3 pages, fp16 queries,
+    shuffled physical pages; 134 MB of pages at the defaults)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pps = tokens // 16
+    n_pages = s * pps + 1
+    q = torch.randn((s, 32, 128), generator=gen, device="cuda").half()
+    kp, vp = (torch.randn((n_pages * 16, 8, 128), generator=gen, device="cuda")
+              .to(torch.float8_e4m3fn) for _ in range(2))
+    pt = (torch.randperm(n_pages - 1, generator=gen, device="cuda").int() + 1).reshape(s, pps)
+    lens = torch.full((s,), tokens - 1, dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, lens, torch.ones(s, dtype=torch.int32, device="cuda")
+
+
+def _decode_split_cases(rng) -> None:
+    """The split page walk at its edges: page 16, Hq 32 / Hkv 8, hd 128,
+    E4M3 pages, fp16 queries, 64-page tables split in four (16 pages, 256
+    tokens a split), with the planner's count and one page a split beside."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gather = fa.paged_flash_decode_plain
+
+    def case(lens, inactive=()):
+        return make_decode_case(rng, s=len(lens), hq=32, hkv=8, hd=128, page_size=16,
+                                pages_per_slot=64, n_pages=64 * len(lens) + 1,
+                                dtype=torch.float8_e4m3fn, inactive=inactive,
+                                q_dtype=torch.float16, seq_lens=lens)
+
+    worst, n = 0.0, 0
+    # Lengths ending in the first split, on its last and the next one's first
+    # token, and in the last split: slot 0's splits 1-3 are dead by length.
+    bounds = case([10, 255, 256, 1023])
+    for splits in (None, 4, 64):
+        got, err = _decode_check("split boundaries", bounds, splits=splits, plain=gather)
+        worst, n = max(worst, err), n + 1
+    first, _ = _decode_check("split boundaries", bounds, splits=4, plain=gather)
+    second, _ = _decode_check("split boundaries", bounds, splits=4, plain=gather)
+    if not torch.equal(first, second):
+        raise AssertionError("paged decode: two runs of one split case differ in their bits")
+    # A whole split of NULL pages (slot 0's pages 16-31), held against the
+    # plain split walk, which drops NULL pages as the kernel does.
+    nulls = case([1023, 700])
+    nulls[3][0, 16:32] = 0
+    walk = functools.partial(fa.paged_flash_decode_split_plain, splits=4)
+    for splits in (None, 4):
+        _, err = _decode_check("a split of NULL pages", nulls, splits=splits, plain=walk)
+        worst, n = max(worst, err), n + 1
+    # Whole splits outside the window (slot 0: splits 0 and 1), pages kept.
+    for splits in (None, 4):
+        _, err = _decode_check("splits outside the window", case([1023, 900]), splits=splits,
+                               plain=gather, window=300)
+        worst, n = max(worst, err), n + 1
+    # An inactive slot with several splits; softcap with splits.
+    _, err = _decode_check("an inactive slot", case([1023, 600, 1000, 40], inactive=(2,)),
+                           splits=4, plain=gather)
+    worst, n = max(worst, err), n + 1
+    _, err = _decode_check("softcap", case([1000, 500]), splits=4, plain=gather, softcap=30.0)
+    worst, n = max(worst, err), n + 1
+    # The long-context shape, with the planner's split count.
+    long = _long_decode_case()
+    _, err = _decode_check("long context", long, splits=None, plain=gather)
+    worst, n = max(worst, err), n + 1
+    planned = fa.decode_splits(16, 8, 256)
+    log(f"paged decode splits: {n} cases agree (worst max|d| {worst:.3g} within "
+        f"{DECODE_TOL[torch.float16]}; a split case twice gives the same bits; the planner "
+        f"splits the 64-page tables of 4 and 2 slots {fa.decode_splits(4, 8, 64)} and "
+        f"{fa.decode_splits(2, 8, 64)} ways, the long context {planned} ways)")
 
 
 # -- phase 5 ---------------------------------------------------------------------
@@ -509,6 +615,12 @@ FLASH_CASES = [
      (torch.float32, torch.float16, torch.bfloat16)),
     ("gemma2", 1, 1024, 1024, 8, 4, 256, True, 50.0, (torch.float32, torch.bfloat16)),
     ("ragged non-causal", 2, 77, 300, 4, 2, 64, False, None, (torch.float16,)),
+    # The tensor-core kernel's edges: Sq not a multiple of its 128-row
+    # tiles, non-causal with Sk != Sq at hd 128, hd 64, softcap.
+    ("ragged Sq", 1, 300, 300, 32, 8, 128, True, None, (torch.float16, torch.bfloat16)),
+    ("non-causal Sk != Sq", 2, 77, 300, 4, 2, 128, False, None, (torch.float16, torch.bfloat16)),
+    ("hd 64", 1, 1000, 1000, 8, 8, 64, True, None, (torch.float16, torch.bfloat16)),
+    ("softcap", 1, 300, 300, 8, 2, 128, True, 30.0, (torch.float16, torch.bfloat16)),
 ]
 
 # The kernel and its plain version compute scores, softmax and PV in fp32
@@ -568,14 +680,23 @@ def phase_flash() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {dt: 0.0 for dt in FLASH_TOL}
     planted = {dt: math.inf for dt in FLASH_TOL}
+    routes = {"tc": 0, "simt": 0}
     n = 0
     for label, b, sq, sk, hq, hkv, hd, causal, cap, formats in FLASH_CASES:
         for dt in formats:
             q, k, v = _flash_inputs(gen, b, sq, sk, hq, hkv, hd, dt)
+            before = (fa.dense_tc_launches.n, fa.dense_launches.n)
             got = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+            ran = (fa.dense_tc_launches.n - before[0], fa.dense_launches.n - before[1])
             want = fa.flash_attention_plain(q, k, v, causal=causal, softcap=cap)
             torch.cuda.synchronize()
             name = f"flash attention {label} B{b} S{sq}/{sk} H{hq}/{hkv}x{hd} {dt}"
+            route = fa.plan_flash(q, k, v)
+            if ran != ((1, 0) if route == "tc" else (0, 1)):
+                raise AssertionError(f"{name}: planned route {route}, launches (tc, simt) {ran}")
+            if label == "granite" and route != ("simt" if dt == torch.float32 else "tc"):
+                raise AssertionError(f"{name}: granite's {dt} case is planned on {route}")
+            routes[route] += 1
             if got.shape != want.shape or got.dtype != dt:
                 raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{dt}")
             err, tol = row_err(got, want), FLASH_TOL[dt]
@@ -588,20 +709,23 @@ def phase_flash() -> dict:
             worst[dt], planted[dt] = max(worst[dt], err), min(planted[dt], fault)
             n += 1
             del delta
-    log(f"flash attention: {n} cases agree (worst row max|d|/max|want|: " + ", ".join(
-        f"{str(dt).removeprefix('torch.')} {worst[dt]:.3g} within {FLASH_TOL[dt]:.3g}, "
-        f"a dropped key {planted[dt]:.3g}" for dt in FLASH_TOL) + ")")
+    log(f"flash attention: {n} cases agree, {routes['tc']} on the tensor cores and "
+        f"{routes['simt']} on the SIMT kernel as planned (worst row max|d|/max|want|: " + ", ".join(
+            f"{str(dt).removeprefix('torch.')} {worst[dt]:.3g} within {FLASH_TOL[dt]:.3g}, "
+            f"a dropped key {planted[dt]:.3g}" for dt in FLASH_TOL) + ")")
 
     q, k, v = _flash_inputs(gen, 1, 2048, 2048, 32, 8, 128, torch.float16)
     fa.dense_launches.reset()
+    fa.dense_tc_launches.reset()
     out = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    launched = fa.dense_launches.n
-    if launched != 1 or not torch.isfinite(out).all():
-        raise AssertionError(f"flash attention entry point: {launched} launches, "
+    launched = (fa.dense_tc_launches.n, fa.dense_launches.n)
+    if launched != (1, 0) or not torch.isfinite(out).all():
+        raise AssertionError(f"flash attention entry point: launches (tc, simt) {launched}, "
                              f"finite {bool(torch.isfinite(out).all())}")
-    log(f"flash attention entry point: {launched} dense launch, output {tuple(out.shape)} finite")
-    return {"dense": launched}
+    log(f"flash attention entry point: 1 launch on the tensor cores, output "
+        f"{tuple(out.shape)} finite")
+    return {"dense": launched[0]}
 
 
 # -- phase 6 ---------------------------------------------------------------------
@@ -880,6 +1004,11 @@ def phase_serve() -> dict:
     log(f"serve: gemm schedules (simt, tensor-core, small-row) at each decode step "
         f"{per_decode[2:]}, at each prefill {per_prefill[2:]}; auxiliary launches per decode "
         f"step {aux['decode']} (split-K combines), per prefill {aux['prefill']} (K-major copies)")
+    slots, pages = server.engine.cache.page_table.shape
+    g = cfg.n_heads // cfg.n_kv_heads
+    splits = flash_attention.decode_splits(slots, cfg.n_kv_heads, pages, groups=-(-g // 4))
+    log(f"serve: paged decode page walk split {splits} way(s) ({slots} slots x "
+        f"{cfg.n_kv_heads} KV heads, {pages}-page tables)")
     log(f"serve: request 0 tokens {results[0].out_tokens}")
     del server, model, params
     torch.cuda.empty_cache()
@@ -979,10 +1108,12 @@ def phase_train() -> dict:
     ])
     redmule_gemm.launches.reset()
     flash_attention.dense_launches.reset()
+    flash_attention.dense_tc_launches.reset()
     flash_attention.launches.reset()
     out = train.train(args)
     gemm_n = redmule_gemm.launches.n
-    dense_n, paged_n = flash_attention.dense_launches.n, flash_attention.launches.n
+    dense_n = flash_attention.dense_launches.n + flash_attention.dense_tc_launches.n
+    paged_n = flash_attention.launches.n
     hist = out["history"]
     if len(hist) != TRAIN_STEPS or out["state"].skipped != 0:
         raise AssertionError(f"train: {len(hist)} steps, {out['state'].skipped} skipped")
@@ -999,7 +1130,8 @@ def phase_train() -> dict:
         raise AssertionError(f"train: GEMM launches per step by schedule (simt, tensor-core, "
                              f"small-row) {schedules}, expected (0, {GEMM_PER_TRAIN_STEP}, 0)")
     aux = sorted({h["gemm_aux_launches"] for h in hist})
-    if dense_n or paged_n or any(h["dense_attention_launches"] for h in hist):
+    if dense_n or paged_n or any(h["dense_attention_launches"] or h["dense_attention_tc_launches"]
+                                 for h in hist):
         raise AssertionError(f"train: attention kernels launched ({dense_n} dense, {paged_n} paged); "
                              "the training attention runs its products through the GEMM")
     steady = [h["ms"] for h in hist[1:]]
@@ -1219,73 +1351,104 @@ def _apsp_entry():
     }
 
 
-def _decode_entry(counts):
+def _decode_row(counts, label, case, seed_note):
+    """One paged-decode row: the kernel on the planner's split count, as a
+    CUDA-graph replay (the card's time) and eager calls (the wrapper's host
+    work included), beside the plain version and a gather of the pages plus
+    ``scaled_dot_product_attention``. Bound: the live pages' K and V bytes,
+    q, out, the page table and the lengths, each moved once, at 3.35 TB/s,
+    against 4 * Hq * (len + 1) * hd operations a slot at the fp32 peak."""
     import torch.nn.functional as F
 
     from repro_torch.core.precision import take_rows
-    from repro_torch.kernels.flash_attention import paged_flash_decode, paged_flash_decode_plain
+    from repro_torch.kernels.flash_attention import (
+        decode_splits,
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
 
-    s, hq, hkv, hd, ps, pps, npg = 4, 32, 8, 128, 16, 7, 29
-    lens_list = [70, 40, 100, 65]
-    rng = np.random.default_rng(2)
-    q, kp, vp, pt, lens, act = make_decode_case(
-        rng, s=s, hq=hq, hkv=hkv, hd=hd, page_size=ps, pages_per_slot=pps, n_pages=npg,
-        dtype=torch.float8_e4m3fn, q_dtype=torch.float16, seq_lens=lens_list)
+    q, kp, vp, pt, lens, act = case
+    s, hq, hd = q.shape
+    hkv, ps = kp.shape[1], 16
     qg = q.reshape(s, hkv, hq // hkv, hd)
     args = (qg, kp, vp, pt, lens, act)
     got = paged_flash_decode(*args, page_size=ps)
     want = paged_flash_decode_plain(*args, page_size=ps)
     if not torch.allclose(got.float(), want.float(), rtol=DECODE_TOL[got.dtype],
                           atol=DECODE_TOL[got.dtype]):
-        raise AssertionError("paged decode at the serving shape disagrees with its plain version")
-    ms = time_ms(lambda: paged_flash_decode(*args, page_size=ps), iters=100)
-    plain_ms = time_ms(lambda: paged_flash_decode_plain(*args, page_size=ps))
+        raise AssertionError(f"paged decode at {label} disagrees with its plain version")
+    ms = time_ms(lambda: paged_flash_decode(*args, page_size=ps), iters=100, graph=True)
+    eager_ms = time_ms(lambda: paged_flash_decode(*args, page_size=ps), iters=100)
+    plain_ms = time_ms(lambda: paged_flash_decode_plain(*args, page_size=ps), iters=5)
 
-    n_tok = pps * ps
+    n_tok = pt.shape[1] * ps
     read_idx = (pt.long()[:, :, None] * ps + torch.arange(ps, device="cuda")).reshape(s, n_tok)
     mask = (torch.arange(n_tok, device="cuda")[None] <= lens.long()[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]  # (S, Hq, 1, hd)
 
     def gather_sdpa():
         k = take_rows(kp, read_idx).half().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
         v = take_rows(vp, read_idx).half().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
-        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+        return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask)
 
-    library_ms = time_ms(gather_sdpa)
-    live_pages = sum(int(lens_list[i]) // ps + 1 for i in range(s))
+    library_ms = time_ms(gather_sdpa, iters=5)
+    lens_list = lens.tolist()
+    live_pages = sum(int(n) // ps + 1 for n in lens_list)
     nbytes = (2 * live_pages * ps * hkv * hd * kp.element_size()
               + 2 * q.numel() * q.element_size() + pt.numel() * 4 + 2 * s * 4)
     flops = sum(4.0 * hq * (int(n) + 1) * hd for n in lens_list)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
     return {
-        "name": "paged_flash_decode[S4 Hq32 Hkv8 hd128 ps16 e4m3]", "route": "cuda",
+        "name": f"paged_flash_decode[{label}]", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/flash_attention.py:163",
         "launches": counts["decode"],
         "launches_per_decode_step": counts["decode_per_decode_step"],
-        "launches_per_prefill": counts["decode_per_prefill"],
+        "launches_per_prefill": counts["decode_per_prefill"], "shape_note": seed_note,
+        "splits": decode_splits(s, hkv, pt.shape[1], groups=-(-(hq // hkv) // 4)),
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
 
 
+def _decode_entries(counts) -> list:
+    """The paged decode at the serving shape (phase 8's: 4 slots, lengths
+    70/40/100/65, a 7-page table) and at the long-context shape (16 slots
+    of 4096 tokens, 134 MB of E4M3 pages, beyond the 50 MB L2)."""
+    rng = np.random.default_rng(2)
+    serve = make_decode_case(
+        rng, s=4, hq=32, hkv=8, hd=128, page_size=16, pages_per_slot=7, n_pages=29,
+        dtype=torch.float8_e4m3fn, q_dtype=torch.float16, seq_lens=[70, 40, 100, 65])
+    return [
+        _decode_row(counts, "S4 Hq32 Hkv8 hd128 ps16 e4m3", serve, "the serve run's shape"),
+        _decode_row(counts, "S16x4096 Hq32 Hkv8 hd128 ps16 e4m3", _long_decode_case(),
+                    "long context, off the serve run"),
+    ]
+
+
 def _flash_entry(counts):
     """The dense flash attention at granite's training shape in fp16
-    (causal), bound by its operations at the fp16 tensor-core peak, beside
-    ``scaled_dot_product_attention`` on the same q and the KV heads
-    expanded for it."""
+    (causal), on the route ``plan_flash`` names (the tensor cores), as a
+    CUDA-graph replay with eager calls beside, bound by its operations at
+    the fp16 tensor-core peak, beside ``scaled_dot_product_attention`` on
+    the same q and the KV heads expanded for it."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        plan_flash,
+    )
 
     b, s, hq, hkv, hd = 1, 2048, 32, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = _flash_inputs(gen, b, s, s, hq, hkv, hd, torch.float16)
+    route = plan_flash(q, k, v)
     got = flash_attention(q, k, v)
     want = flash_attention_plain(q, k, v)
-    ms = time_ms(lambda: flash_attention(q, k, v))
+    ms = time_ms(lambda: flash_attention(q, k, v), graph=True)
+    eager_ms = time_ms(lambda: flash_attention(q, k, v))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), iters=5)
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
@@ -1294,33 +1457,40 @@ def _flash_entry(counts):
     flops = 4.0 * b * hq * hd * s * (s + 1) / 2  # two products over the causal half
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP16_FLOP_S * 1e3
+    source = {"tc": "flash_attention_tc.cu", "simt": "flash_attention.cu"}[route]
     return {
         "name": f"flash_attention[B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal fp16]", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": f"src/repro_torch/csrc/{source}", "schedule": route,
         "replaces": "src/repro/kernels/flash_attention.py:254",
         "launches": counts["dense"],
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "tflop_s": flops / ms / 1e9,
     }
 
 
 def _log_entry(e) -> None:
     lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
     extra = ""
-    if "schedule" in e:
+    if "split" in e:
         smm = "none" if e["scaled_mm_ms"] is None else f"{e['scaled_mm_ms']:.4f} ms"
         extra = (f"; schedule {e['schedule']} (split {e['split']}, {e['aux_launches_per_call']} "
                  f"auxiliary launches a call), eager calls {e['eager_ms']:.4f} ms, "
                  f"_scaled_mm {smm}, {e['tflop_s']:.1f} TFLOP/s, "
                  f"{e['share_differ']:.2%} of outputs differ, worst {e['worst_ulps']} ulp")
+    elif "eager_ms" in e:
+        extra = f"; eager calls {e['eager_ms']:.4f} ms"
+        if "splits" in e:
+            extra += f", {e['splits']} split(s), {e['shape_note']}"
+        if "schedule" in e:
+            extra += f", route {e['schedule']}, {e['tflop_s']:.1f} TFLOP/s"
     log(f"{e['name']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
         f"plain {e['plain_ms']:.4f} ms, library {lib}, max|d| {e['max_abs_err']:.3g}{extra})")
 
 
 def phase_kernel_line(counts) -> list:
-    entries = [*_gemm_entries(counts), _decode_entry(counts), _flash_entry(counts)]
+    entries = [*_gemm_entries(counts), *_decode_entries(counts), _flash_entry(counts)]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")

@@ -28,9 +28,8 @@
 // Both operands are K-major (the wrapper copies an operand first where its
 // strides are not). TMA fills the ragged M, N and K edges and the rows
 // past each batch's M with zeros, the identity of (mul, add).
-#include <cuda.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -50,93 +49,7 @@ constexpr int smem_bytes(bool fp8) {
 // Operand kinds of the tensor-core schedules (repro_torch.kernels.redmule_gemm.MMA_KIND).
 enum Kind { K_E4M3 = 0, K_E5M2 = 1, K_F16 = 2, K_BF16 = 3 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;             // leading byte offset (unused when swizzled)
-  d |= (uint64_t)(1024 >> 4) << 32;   // stride byte offset: next 8-row group
-  d |= (uint64_t)1 << 62;             // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define WGMMA_D64                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "    \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "     \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define WGMMA_OUT64                                                                     \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
-  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
-  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
-  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
-  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
-  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),         \
-  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),         \
-  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),         \
-  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
-  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-// The two transpose operands are 0: both tiles are K-major.
-#define WGMMA(SHAPE_TYPES)                                                              \
-  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                           \
-               " wgmma.mma_async.sync.aligned." SHAPE_TYPES " " WGMMA_D64               \
-               ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                        \
-               : WGMMA_OUT64 : "l"(da), "l"(db), "r"(scale_d))
-
-// d (+)= A.B for one 64 x 128 x 16 step; scale_d = 0 starts d afresh.
-template <int WK>
-__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (WK == K_F16) {
-    WGMMA("m64n128k16.f32.f16.f16");
-  } else {
-    static_assert(WK == K_BF16, "the tensor-core schedule runs fp16 or bf16 wgmma");
-    WGMMA("m64n128k16.f32.bf16.bf16");
-  }
-}
+using namespace hopper;
 
 struct TcArgs {
   const void* y;  // null: Z = X.W
@@ -223,7 +136,7 @@ __device__ __forceinline__ void mma_tile(float (&d)[64], uint32_t a_tile, uint32
   for (int kk = 0; kk < 8; ++kk) {
     if (kk < steps) {
       const uint32_t off = (kk / 4) * half_bytes + 32 * (kk % 4);
-      wgmma_step<WK>(d, make_desc(a_tile + off), make_desc(b_tile + off), kk > 0);
+      wgmma_ss_n128<WK == K_BF16>(d, make_desc(a_tile + off), make_desc(b_tile + off), kk > 0);
     }
   }
 }
@@ -261,7 +174,7 @@ redmule_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_init(full_bar + 8 * s, 1);
       mbar_init(empty_bar + 8 * s, 256);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -298,9 +211,9 @@ redmule_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int kt = 0; kt < nk; ++kt) {
       const uint32_t tile = f16_tiles + (kt & 1) * F16_TILE;
       fence_operands(d);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
       mma_tile<WK>(d, tile + wg * 64 * BK_BYTES, tile + 2 * A_BYTES, A_BYTES, 8);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_commit();
       if (kt + 1 < nk) {
         const int s = (kt + 1) % STAGES;
         mbar_wait(full_bar + 8 * s, ((kt + 1) / STAGES) & 1);
@@ -308,7 +221,7 @@ redmule_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                             tid);
         mbar_arrive(empty_bar + 8 * s);
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_wait_all();
       promote(acc, d);
       consumer_sync();  // tile kt + 1 is written and tile kt is free
     }
@@ -318,10 +231,10 @@ redmule_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
       const uint32_t st = stages + s * (A_BYTES + B_BYTES);
       mbar_wait(full_bar + 8 * s, (kt / STAGES) & 1);
       fence_operands(d);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
       mma_tile<WK>(d, st + wg * 64 * BK_BYTES, st + A_BYTES, 0, 4);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_commit();
+      wgmma_wait_all();
       mbar_arrive(empty_bar + 8 * s);
       promote(acc, d);
     }
@@ -353,29 +266,6 @@ redmule_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                 ((long long)bz * a.m + m) * a.n + n, a.z_dt);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime's entry-point
-// query, so the library links against neither libcuda nor a stub.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 4D map {K, rows, b2, b1} of a K-major operand, box 128 bytes x 128

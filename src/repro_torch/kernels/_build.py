@@ -7,8 +7,8 @@ root, and loaded with ``ctypes``. The library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Nothing is built at import: the first kernel launch (or
 an explicit :func:`library` call) builds. The library links against the
-CUDA runtime alone: the tensor-core GEMM gets ``cuTensorMapEncodeTiled``
-(its TMA descriptors) from the driver through ``cudaGetDriverEntryPoint``,
+CUDA runtime alone: the tensor-core kernels get ``cuTensorMapEncodeTiled``
+(their TMA descriptors) from the driver through ``cudaGetDriverEntryPoint``,
 so no ``-lcuda`` is needed.
 
 There is no fallback: without ``nvcc`` or a card, or when a build fails,
@@ -58,9 +58,10 @@ _SIGNATURES = {
     "redmule_splitk_combine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I]
                                      + [_L] * 4 + [_P],
     "kmajor_copy_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 4 + [_P],
-    "paged_decode_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "paged_decode_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "flash_attention_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 

@@ -52,6 +52,11 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+# Name fragments of the port's own CUDA kernels (csrc/*.cu).
+_PORT_KERNELS = ("redmule_gemm", "kmajor_", "splitk_combine", "paged_decode",
+                 "flash_attention")
+
+
 def print_device_time(prof, wall_s: float, top: int = 8) -> None:
     """Device time by kernel name from a torch.profiler trace, the card's
     busy share of the traced wall time, and host time by operator. Only
@@ -66,8 +71,11 @@ def print_device_time(prof, wall_s: float, top: int = 8) -> None:
     busy_us = sum(r[0] for r in rows)
     print(f"profile: device busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
           f"({busy_us / 1e4 / wall_s:.1f}%)")
-    for us, count, name in rows[:top]:
-        print(f"  {us / 1e3:10.2f} ms {100 * us / max(busy_us, 1e-9):5.1f}% {count:7d}x  {name[:90]}")
+    # The top rows, then the port's own kernels that fall below them.
+    for i, (us, count, name) in enumerate(rows):
+        if i < top or any(k in name for k in _PORT_KERNELS):
+            print(f"  {us / 1e3:10.2f} ms {100 * us / max(busy_us, 1e-9):5.1f}% {count:7d}x  "
+                  f"{name[:90]}")
     # The host side: operators by their own CPU time (the profiler's
     # bookkeeping inflates every one of them alike).
     host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()

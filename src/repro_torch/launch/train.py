@@ -106,7 +106,7 @@ def train(args) -> dict:
         prof.start()
     # Launches per step: GEMM-Op calls, each GEMM schedule's kernel, the
     # GEMM's auxiliary launches (K-major copies, split-K combines) and the
-    # dense flash attention.
+    # dense flash attention (SIMT and tensor-core kernels).
     counters = {
         "gemm_launches": redmule_gemm.launches,
         "gemm_tc_launches": redmule_gemm.tc_launches,
@@ -114,6 +114,7 @@ def train(args) -> dict:
         "gemm_simt_launches": redmule_gemm.simt_launches,
         "gemm_aux_launches": redmule_gemm.aux_launches,
         "dense_attention_launches": flash_attention.dense_launches,
+        "dense_attention_tc_launches": flash_attention.dense_tc_launches,
     }
     t_run = time.perf_counter()
     try:

@@ -113,3 +113,29 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     before = tfa.dense_launches.n
     tops.flash_attention(q, k, k)  # CPU tensors: the plain version, no launch
     assert tfa.dense_launches.n == before
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_plan_flash_routes(dtype, hd):
+    """fp16 and bf16 at hd 64 and 128 take the tensor-core kernel; fp32 and
+    hd 256 (gemma2) stay on the SIMT kernel."""
+    q = torch.zeros(1, 8, 4, hd, dtype=dtype)
+    k = torch.zeros(1, 8, 2, hd, dtype=dtype)
+    want = "tc" if dtype != torch.float32 and hd != 256 else "simt"
+    assert tfa.plan_flash(q, k, k) == want
+
+
+def test_tensor_core_route_refuses_cpu_tensors():
+    """Inputs the planner sends to the tensor cores, on the CPU: the CUDA
+    wrapper raises, and the entry point takes the plain version without a
+    launch on either route."""
+    q = torch.zeros(1, 8, 2, 128, dtype=torch.float16)
+    k = torch.zeros(1, 8, 1, 128, dtype=torch.float16)
+    assert tfa.plan_flash(q, k, k) == "tc"
+    with pytest.raises(ValueError, match="on one card"):
+        tfa.flash_attention(q, k, k)
+    before = (tfa.dense_tc_launches.n, tfa.dense_launches.n)
+    out = tops.flash_attention(q, k, k)
+    assert out.shape == q.shape and out.dtype == torch.float16
+    assert (tfa.dense_tc_launches.n, tfa.dense_launches.n) == before
