@@ -44,10 +44,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ("torch") on the card, under fp32 and under redmule_hfp8;
 8. serve: granite-3-8b at full width and depth (40 layers) under
    redmule_hfp8 with E4M3 weights and KV pages, 8 requests through the
-   port's ``Server``, with the kernels' launch counts read around every
-   prefill and decode step: each decode GEMM on the small-row schedule,
-   each prefill GEMM on the tensor cores but the last token's logits, one
-   paged-decode launch a layer a decode step (and its split count);
+   port's ``Server`` with the decode step as a CUDA graph, with the
+   kernels' launch counts read around every prefill and around the decode
+   step's eager warm-up and its capture (a replay ticks no counter; the
+   replays must equal the decode steps): each decode GEMM on the
+   small-row schedule, each prefill GEMM on the tensor cores but the last
+   token's logits, one paged-decode launch a layer a decode step (and its
+   split count);
+12. serving features, right after phase 8 on its model: (a) the decode
+    graph against the eager decode step at dispatch depths 0, 1 and 2,
+    tokens and every decode step's logits bitwise; (b) chunked prefill at
+    32, serial and batched (P, 32), bitwise, every chunk step read on the
+    launch counters (dense layers and attention products on the tensor
+    cores, the logits on small rows) and the schedule of each GEMM shape
+    printed; (c) the prefix cache behind a 48-token system prompt (hits
+    and a copy on write counted); (d) a 512-token low-priority prompt
+    preempted mid-prefill and resumed through the prefix cache to the
+    tokens it gives alone; (e) at 2 layers under fp32, chunked, batched
+    and prefix-hit prefill within 1e-4 of the whole prompt and the same
+    greedy tokens from four servers. Each run prints decode tok/s,
+    prefill s, wall, peak memory and the decode graph's busy share;
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -58,7 +74,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
     GEMM on the tensor cores;
 11. the kernel line: each kernel's launches, error, time, bound, plain time
     and one library call's time at its main path's shapes (the GEMM at
-    every (mul, add) shape of both paths, with ``torch._scaled_mm`` beside
+    every (mul, add) shape of both paths, phase 12's chunked and batched
+    prefill included, with ``torch._scaled_mm`` beside
     ``torch.matmul`` where its shape rules allow, and its schedule; the
     paged decode at the serving and the long-context shape, as CUDA-graph
     replays with eager calls beside; the dense attention with its route).
@@ -68,6 +85,7 @@ neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -239,6 +257,10 @@ def phase_gemm() -> float:
     hfp8 = get_policy("redmule_hfp8")
     table = rand(49155, 4096, scale=0.02)
     k = rand(1, 96, 8, 128).permute(0, 2, 3, 1)  # (B, Hkv, hd, T) strided view
+    # A chunk step at chunk 32 over a 7-page row attends over [112 gathered
+    # | 32 fresh] keys, concatenated and permuted as the layer does.
+    chunk_k = torch.cat([rand(1, 112, 8, 128), rand(1, 32, 8, 128)], 1).permute(0, 2, 3, 1)
+    chunk_v = torch.cat([rand(1, 112, 8, 128), rand(1, 32, 8, 128)], 1).permute(0, 2, 1, 3)
     main = {
         "decode 4x4096x12800": (rand(4, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
         "prefill 64x4096x12800": (rand(64, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
@@ -246,6 +268,11 @@ def phase_gemm() -> float:
         "scores (1,8)x384x128x96": (rand(1, 8, 4 * 96, 128), k),
         "values (1,8)x384x96x128": (torch.rand(1, 8, 4 * 96, 96, generator=gen, device=dev),
                                     rand(1, 8, 96, 128)),
+        "chunk scores (1,8)x128x128x144": (rand(1, 8, 4 * 32, 128), chunk_k),
+        "chunk values (1,8)x128x144x128": (
+            torch.rand(1, 8, 4 * 32, 144, generator=gen, device=dev), chunk_v),
+        "batched prefill (4,32)x4096x12800": (rand(4, 32, 4096),
+                                              rand(4096, 12800, scale=4096 ** -0.5)),
     }
     for label, (x, w) in main.items():
         worst = max(worst, _gemm_check(f"redmule_hfp8/matmul/{label}", x, w, None,
@@ -810,7 +837,7 @@ def _slice_run(model, params, prompts, page_table, forced=None, steps=4, ps=16):
     for slot, p in enumerate(prompts):
         toks = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
         toks[0, :len(p)] = torch.from_numpy(p)
-        out.append(model.prefill_cb(params, toks, pools, page_table[slot], 0, len(p),
+        out.append(model.prefill_cb(params, toks, pools, page_table[slot], slot, 0, len(p),
                                     page_size=ps))
     seq_lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
     active = torch.ones(len(prompts), dtype=torch.bool, device="cuda")
@@ -828,9 +855,38 @@ def _slice_run(model, params, prompts, page_table, forced=None, steps=4, ps=16):
     return out, chosen
 
 
+def _chunk_run(model, params, prompts, page_table, ps=16) -> list:
+    """The prompts of :func:`_slice_run` prefilled in chunks of 32: prompt
+    0 alone (its second chunk attends over the pages its first wrote), then
+    both prompts on fresh pools in (2, 32) steps, the shorter one a pad row
+    once it is done. Returns the real rows' logits of every step."""
+    out = []
+    pools = model.init_state_store(len(prompts), 17, ps)
+    first = torch.from_numpy(prompts[0]).to("cuda")[None]
+    for c in range(0, first.shape[1], 32):
+        n = min(32, first.shape[1] - c)
+        out.append(model.prefill_cb(params, first[:, c:c + 32], pools, page_table[0], 0, c, n,
+                                    page_size=ps, chunked=True))
+    pools = model.init_state_store(len(prompts), 17, ps)
+    lay = lambda *v: torch.tensor(v, dtype=torch.int32, device="cuda")  # noqa: E731
+    for c in range(0, max(map(len, prompts)), 32):
+        toks = torch.zeros((len(prompts), 32), dtype=torch.int64, device="cuda")
+        lens = [max(0, min(32, len(p) - c)) for p in prompts]
+        for i, p in enumerate(prompts):
+            toks[i, :lens[i]] = torch.from_numpy(p[c:c + lens[i]])
+        active = lay(*lens) > 0
+        logits = model.prefill_cb(params, toks, pools, page_table, lay(*range(len(prompts))),
+                                  lay(*[c] * len(prompts)), lay(*lens), page_size=ps,
+                                  chunked=True, active=active)
+        out.append(logits[active])
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_slice_parity() -> None:
     """granite-3-8b at full width, 2 layers: the kernels' path against the
-    plain path on the card, fed the same tokens. The bound holds the plain
+    plain path on the card, fed the same tokens, over whole-prompt prefill
+    and decode and over chunked and batched prefill. The bound holds the plain
     path with the paged attention's plain version (fp32 over dequantized
     pages, the kernel's semantics). The plain gathered decode, which rounds
     q and the probabilities to E4M3 in its engine GEMMs under an fp8
@@ -875,6 +931,17 @@ def phase_slice_parity() -> None:
             log(f"slice parity {pol} vs {name}: max|dlogit|/max|logit| prefill "
                 f"{max(pre):.3g}, decode {max(dec):.3g}")
         worst = max(max(errs["plain"][0]), max(errs["plain"][1]))
+        # Chunked and batched prefill: both attention products over
+        # [gathered pages | fresh chunk] through the GEMM-Op kernel, and the
+        # (2, 32)-row dense layers, against the plain path.
+        got_c = _chunk_run(cuda_model, params, prompts, page_table)
+        if not all(torch.isfinite(g).all() for g in got_c):
+            raise AssertionError(f"slice parity {pol}: non-finite chunked-prefill logits")
+        chunk_err = max(rel_err(a, b) for a, b in
+                        zip(got_c, _chunk_run(fused, params, prompts, page_table)))
+        log(f"slice parity {pol} vs plain, chunked and batched prefill (chunk 32): "
+            f"max|dlogit|/max|logit| {chunk_err:.3g}")
+        worst = max(worst, chunk_err)
         if pol == "fp32":
             worst = max(worst, max(errs["plain, gathered decode"][1]))
         if not worst <= bound:
@@ -890,6 +957,9 @@ def phase_slice_parity() -> None:
 # What each serve step reading holds: GEMM-Op calls, paged-decode launches,
 # then the GEMM's launches by schedule and its auxiliary launches.
 READING = ("gemm", "paged decode", "simt", "tensor-core", "small-row", "aux")
+# The serve run's server, beside its prompts' longest length + MAX_NEW.
+SERVE_CONFIG = dict(num_slots=4, page_size=16, prefill_bucket=32)
+MAX_NEW = 16
 
 
 def _launch_counts() -> tuple:
@@ -900,24 +970,36 @@ def _launch_counts() -> tuple:
             rg.small_row_launches.n, rg.aux_launches.n)
 
 
+def _reset_launch_counts() -> None:
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import redmule_gemm as rg
+
+    for counter in (rg.launches, flash_attention.launches, rg.simt_launches, rg.tc_launches,
+                    rg.small_row_launches, rg.aux_launches):
+        counter.reset()
+
+
 def _count_launches(engine, readings: dict) -> None:
-    """Record the kernels' launch counts (``READING``) over each prefill and
-    each decode step that ``engine`` dispatches: the difference of the
-    counters around the dispatch (the wrappers count on the host as they
-    launch)."""
-    def counted(kind, dispatch):
-        def run(**kw):
+    """Record the kernels' launch counts (``READING``) over each prefill that
+    ``engine`` dispatches and each eager run of its decode step: the
+    difference of the counters around the call (the wrappers count on the
+    host as they launch). With the decode graph the eager runs are the
+    warm-up and the capture; a replay launches the captured kernels without
+    their wrappers and ticks no counter, so replays are counted apart."""
+    def counted(kind, fn):
+        def run(*args, **kw):
             before = _launch_counts()
-            dispatch(**kw)
+            out = fn(*args, **kw)
             readings[kind].append(tuple(a - b for a, b in zip(_launch_counts(), before)))
+            return out
         return run
 
     engine.dispatch_prefill = counted("prefill", engine.dispatch_prefill)
-    engine.dispatch_decode = counted("decode", engine.dispatch_decode)
+    engine._decode_forward = counted("decode", engine._decode_forward)
 
 
 def _one_reading(kind: str, readings: list, expect: tuple) -> tuple:
-    """The launch counts of every ``kind`` step, all of which must be
+    """The launch counts of every ``kind`` reading, all of which must be
     ``expect`` (every entry of ``READING`` but the auxiliary launches)."""
     seen = sorted({r[:-1] for r in readings})
     if seen != [expect]:
@@ -926,37 +1008,46 @@ def _one_reading(kind: str, readings: list, expect: tuple) -> tuple:
     return expect
 
 
-def phase_serve() -> dict:
+def _serve_model():
+    """granite-3-8b at full width and depth under redmule_hfp8 with E4M3
+    weights and KV pages: phases 8 and 12 share it (about 8 GB)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, redmule_gemm
-    from repro_torch.launch.serve import mixed_prompt_lens
     from repro_torch.models import build
-    from repro_torch.serving import SamplingParams, Server, ServerConfig
 
     cfg = dataclasses.replace(get_config("granite-3-8b"), policy="redmule_hfp8",
                               kv_cache_dtype="e4m3", fp8_params=True)
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build(cfg, device="cuda")
     params = model.init(0)
     torch.cuda.synchronize()
     log(f"serve: granite-3-8b {cfg.n_layers} layers d{cfg.d_model}, E4M3 weights made "
         f"in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def _serve_prompts(cfg) -> list:
+    from repro_torch.launch.serve import mixed_prompt_lens
+
     rng = np.random.default_rng(0)
-    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in mixed_prompt_lens(64, 8)]
-    max_new = 16
+    return [list(rng.integers(0, cfg.vocab_size, size=n)) for n in mixed_prompt_lens(64, 8)]
+
+
+def phase_serve(cfg, model, params) -> dict:
+    from repro_torch.kernels import flash_attention, redmule_gemm
+    from repro_torch.serving import SamplingParams, Server, ServerConfig
+
+    prompts = _serve_prompts(cfg)
+    max_new = MAX_NEW
+    torch.cuda.reset_peak_memory_stats()
     server = Server(model, params, ServerConfig(
-        num_slots=4, page_size=16, max_seq_len=max(map(len, prompts)) + max_new,
-        prefill_bucket=32), seed=0)
+        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + max_new), seed=0)
     for i, p in enumerate(prompts):
         sampling = SamplingParams(temperature=0.8) if i == 5 else SamplingParams()
         server.submit(p, max_new_tokens=max_new, sampling=sampling)
     readings = {"prefill": [], "decode": []}
-    _count_launches(server.engine, readings)
-    for counter in (redmule_gemm.launches, flash_attention.launches, redmule_gemm.simt_launches,
-                    redmule_gemm.tc_launches, redmule_gemm.small_row_launches,
-                    redmule_gemm.aux_launches):
-        counter.reset()
+    eng = server.engine
+    _count_launches(eng, readings)
+    _reset_launch_counts()
     t0 = time.perf_counter()
     results = server.run()
     torch.cuda.synchronize()
@@ -972,6 +1063,14 @@ def phase_serve() -> dict:
             raise AssertionError(f"serve: request {rid} sampled a token outside the vocabulary")
     if s.nonfinite_steps:
         raise AssertionError(f"serve: {s.nonfinite_steps} steps had non-finite logits")
+    # The decode step is captured once, at the first decode step, after an
+    # eager warm-up: two eager runs of it, then one replay a step.
+    if (eng.graph_captures, len(readings["decode"])) != (1, 2):
+        raise AssertionError(f"serve: {eng.graph_captures} decode-graph captures and "
+                             f"{len(readings['decode'])} eager decode runs, expected 1 and 2")
+    if eng.graph_replays != s.decode_steps:
+        raise AssertionError(f"serve: {eng.graph_replays} graph replays for {s.decode_steps} "
+                             "decode steps")
     # Every dense layer is one GEMM launch: 7 a layer (q, k, v, o, gate, up,
     # down) plus the logits; a prefill adds its two attention products a
     # layer, and a decode step its one paged-decode launch a layer. Every
@@ -979,27 +1078,27 @@ def phase_serve() -> dict:
     # every prefill GEMM runs on the tensor cores but the logits of the
     # prompt's last token, one row, which takes the small-row schedule.
     n_layers = cfg.n_layers
-    if (len(readings["decode"]), len(readings["prefill"])) != (s.decode_steps, s.prefill_calls):
-        raise AssertionError(f"serve: {len(readings['decode'])} decode steps and "
-                             f"{len(readings['prefill'])} prefills read, {s.decode_steps} and "
+    if len(readings["prefill"]) != s.prefill_calls:
+        raise AssertionError(f"serve: {len(readings['prefill'])} prefills read, "
                              f"{s.prefill_calls} run")
-    per_decode = _one_reading("decode step", readings["decode"],
+    per_decode = _one_reading("decode step (warm-up and capture)", readings["decode"],
                               (7 * n_layers + 1, n_layers, 0, 0, 7 * n_layers + 1))
     per_prefill = _one_reading("prefill", readings["prefill"],
                                (9 * n_layers + 1, 0, 0, 9 * n_layers, 1))
     totals = tuple(sum(r[i] for v in readings.values() for r in v) for i in range(len(READING)))
     if (gemm_n, decode_n) != totals[:2]:
         raise AssertionError(f"serve: launches gemm {gemm_n}, paged decode {decode_n} over the run "
-                             "differ from the sum over its steps")
+                             "differ from the sum over its readings")
     aux = {kind: sorted({r[-1] for r in readings[kind]}) for kind in readings}
     mem = torch.cuda.max_memory_allocated()
     log(f"serve: {len(results)} requests, {s.decode_tokens} decode tokens in {s.decode_steps} "
         f"steps, {s.prefill_calls} prefills; decode {s.decode_tok_s:.1f} tok/s, "
-        f"prefill {s.prefill_s:.3f} s, decode {s.decode_s:.3f} s, wall {wall:.3f} s, "
-        f"utilization {s.utilization:.0%}, max memory {mem / 1e9:.2f} GB")
-    log(f"serve: launches gemm {gemm_n}, paged decode {decode_n}; measured at each of "
-        f"{s.decode_steps} decode steps: gemm {per_decode[0]}, paged decode {per_decode[1]}; "
-        f"at each of {s.prefill_calls} prefills: gemm {per_prefill[0]}, "
+        f"prefill {s.prefill_s:.3f} s, decode {s.decode_s:.3f} s (capture included), "
+        f"wall {wall:.3f} s, utilization {s.utilization:.0%}, max memory {mem / 1e9:.2f} GB")
+    log(f"serve: decode graph captured once, replayed {eng.graph_replays} times "
+        f"(= {s.decode_steps} decode steps); launches gemm {gemm_n}, paged decode {decode_n}; "
+        f"read at the decode step's warm-up and capture: gemm {per_decode[0]}, paged decode "
+        f"{per_decode[1]}; at each of {s.prefill_calls} prefills: gemm {per_prefill[0]}, "
         f"paged decode {per_prefill[1]}")
     log(f"serve: gemm schedules (simt, tensor-core, small-row) at each decode step "
         f"{per_decode[2:]}, at each prefill {per_prefill[2:]}; auxiliary launches per decode "
@@ -1010,13 +1109,350 @@ def phase_serve() -> dict:
     log(f"serve: paged decode page walk split {splits} way(s) ({slots} slots x "
         f"{cfg.n_kv_heads} KV heads, {pages}-page tables)")
     log(f"serve: request 0 tokens {results[0].out_tokens}")
-    del server, model, params
+    del server
     torch.cuda.empty_cache()
-    return {"gemm": gemm_n, "decode": decode_n,
+    return {"gemm": gemm_n, "decode": decode_n, "graph_replays": eng.graph_replays,
             "gemm_per_decode_step": per_decode[0], "gemm_per_prefill": per_prefill[0],
             "decode_per_decode_step": per_decode[1], "decode_per_prefill": per_prefill[1],
             "serve_tc": totals[3], "serve_small_row": totals[4],
             "serve_combines": sum(r[-1] for r in readings["decode"])}
+
+
+# -- phase 12 --------------------------------------------------------------------
+
+
+def _record_decode_rows(server, rows: dict) -> None:
+    """Keep each decode step's logits row of each active request, keyed by
+    (rid, index of the token it samples), by wrapping the engine's decode
+    dispatch and its sampling."""
+    eng = server.engine
+    dispatch, sample, current = eng.dispatch_decode, eng._sample, []
+
+    def dispatch_decode(**kw):
+        current[:] = [(slot, req.rid, server._disp[req.rid].generated)
+                      for slot, req, _ in kw["payload"]]
+        try:
+            dispatch(**kw)
+        finally:
+            current.clear()
+
+    def sample_rows(logits, dev):
+        for slot, rid, i in current:
+            rows[(rid, i)] = logits[slot].clone()
+        return sample(logits, dev)
+
+    eng.dispatch_decode, eng._sample = dispatch_decode, sample_rows
+
+
+def _time_replays(server, spans: list) -> None:
+    """CUDA events around each replay of the decode graph: its device time."""
+    eng = server.engine
+    capture = eng._capture_decode
+
+    def capture_timed():
+        capture()
+        replay = eng._graph.replay
+
+        def timed():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            replay()
+            end.record()
+            spans.append((start, end))
+        eng._graph.replay = timed
+
+    eng._capture_decode = capture_timed
+
+
+def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup=None,
+                 **cfg_kw):
+    """One warmed-up greedy run of ``prompts`` (``drive`` submits and runs
+    them instead when given) through a Server with the serve run's sizing
+    and ``cfg_kw``. The launch counters are zeroed after the warm-up, and
+    ``setup`` sees the server then, just before the timed run. Prints
+    decode tok/s, prefill s, wall, peak memory and, with the graph, the
+    device's busy share of the decode steps (the replays' device time over
+    the decode seconds; the eager sampling after each replay is left out,
+    so it is a lower bound)."""
+    from repro_torch.serving import Server, ServerConfig
+
+    kw = {**SERVE_CONFIG, "max_seq_len": max(map(len, prompts)) + MAX_NEW, **cfg_kw}
+    server = Server(model, params, ServerConfig(**kw), seed=0)
+    server.engine.graph_decode = graph
+    rows, spans = {}, []
+    _record_decode_rows(server, rows)
+    _time_replays(server, spans)
+    server.warmup(sorted({len(p) for p in prompts}))
+    rows.clear()
+    spans.clear()
+    replays0 = server.engine.graph_replays
+    _reset_launch_counts()
+    if setup is not None:
+        setup(server)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if drive is not None:
+        drive(server)
+    else:
+        for p in prompts:
+            server.submit(p, max_new_tokens=MAX_NEW)
+        server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = server.stats
+    results = dict(server.results)
+    if s.nonfinite_steps:
+        raise AssertionError(f"{label}: {s.nonfinite_steps} steps had non-finite logits")
+    busy = ""
+    if graph:
+        if server.engine.graph_replays - replays0 != s.decode_steps:
+            raise AssertionError(f"{label}: {server.engine.graph_replays - replays0} replays for "
+                                 f"{s.decode_steps} decode steps")
+        dev_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        busy = f", decode graph busy {dev_s / s.decode_s:.1%} of the decode steps"
+    log(f"{label}: decode {s.decode_tok_s:.1f} tok/s, prefill {s.prefill_s:.3f} s, "
+        f"wall {wall:.3f} s, max memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"{s.decode_steps} decode steps, {s.prefill_calls} prefill steps{busy}")
+    return server, results, rows
+
+
+def _tokens(results) -> dict:
+    return {rid: r.out_tokens for rid, r in results.items()}
+
+
+def _same_tokens(label, got: dict, want: dict) -> None:
+    if got != want:
+        bad = sorted(rid for rid in want if got.get(rid) != want[rid])
+        raise AssertionError(f"{label}: tokens differ from the reference run at requests {bad}")
+
+
+def _same_rows(label, rows, want) -> None:
+    if rows.keys() != want.keys():
+        raise AssertionError(f"{label}: decode steps sampled other (request, token) pairs")
+    bad = [k for k in want if not torch.equal(rows[k], want[k])]
+    if bad:
+        raise AssertionError(f"{label}: decode logits differ in bits at {len(bad)} of "
+                             f"{len(want)} (request, token) rows, first {bad[0]}")
+
+
+def _graph_against_eager(model, params, prompts) -> None:
+    """(a) The decode graph against the eager decode step at depths 0-2."""
+    _, eager, eager_rows = _feature_run("features (a) eager, depth 0", model, params, prompts,
+                                        graph=False)
+    for depth in (0, 1, 2):
+        label = f"features (a) graph, depth {depth}"
+        _, res, rows = _feature_run(label, model, params, prompts, async_depth=depth)
+        _same_tokens(label, _tokens(res), _tokens(eager))
+        _same_rows(label, rows, eager_rows)
+    log(f"features (a): graph at depths 0-2 gives the eager run's tokens and decode logits bit "
+        f"for bit ({len(eager_rows)} rows)")
+
+
+def _chunked_and_batched(model, params, prompts) -> dict:
+    """(b) Chunked prefill (chunk 32), serial and batched: the same tokens
+    and decode logits. Every chunk step of the two timed runs, serial or
+    (P, 32), must run its dense layers and both attention products on the
+    tensor cores and its logits on small rows, read from the launch
+    counters around it. Prints the schedule and calls of each GEMM shape of
+    each timed run, whose tensor-core calls must add up to the run's
+    tensor-core launches. Returns the calls of the kernel line's chunk
+    shapes over both timed runs and the tensor-core launches a chunk step."""
+    from repro_torch.kernels import redmule_gemm as rg
+
+    n_layers = model.cfg.n_layers
+    readings, seen = [], collections.Counter()
+    plan_call = rg.plan_call
+
+    def timed_run(label, **kw):
+        calls = collections.Counter()
+
+        def recording(x, w, y, **pkw):
+            c = plan_call(x, w, y, **pkw)
+            p = c.plan
+            calls[(tuple(x.shape), tuple(w.shape), p.schedule, p.split, p.copy_x, p.copy_w)] += 1
+            return c
+
+        def setup(server):  # after the warm-up, with the counters at 0
+            eng = server.engine
+            for name in ("dispatch_prefill", "dispatch_prefill_batch"):
+                def counted(*args, _fn=getattr(eng, name), **ckw):
+                    before = _launch_counts()
+                    _fn(*args, **ckw)
+                    readings.append(tuple(a - b for a, b in zip(_launch_counts(), before)))
+                setattr(eng, name, counted)
+            rg.plan_call = recording
+
+        try:
+            _, res, rows = _feature_run(label, model, params, prompts, setup=setup,
+                                        prefill_chunk=32, **kw)
+        finally:
+            rg.plan_call = plan_call
+        tc_calls = sum(n for key, n in calls.items() if key[2] == "tc")
+        if tc_calls != rg.tc_launches.n:
+            raise AssertionError(f"{label}: {tc_calls} tensor-core calls planned, "
+                                 f"{rg.tc_launches.n} launched")
+        for (xs, ws, sched, split, cx, cw), n in sorted(calls.items()):
+            log(f"{label}: GEMM x{list(xs)} w{list(ws)}: {sched}, split {split}, copies "
+                f"x {cx} w {cw}; {n} calls")
+        for key, n in calls.items():
+            seen[key[:2]] += n
+        return res, rows, len(readings)
+
+    serial, serial_rows, n_serial = timed_run("features (b) chunk 32, serial")
+    batched, batched_rows, n_steps = timed_run("features (b) chunk 32, batched",
+                                               prefill_batch=True)
+    _same_tokens("features (b) batched", _tokens(batched), _tokens(serial))
+    _same_rows("features (b) batched", batched_rows, serial_rows)
+    per_step = _one_reading("chunk step", readings, (9 * n_layers + 1, 0, 0, 9 * n_layers, 1))
+    log(f"features (b): batched prefill gives serial chunked prefill's tokens and decode logits "
+        f"bit for bit; each of {n_serial} serial and {n_steps - n_serial} batched chunk steps "
+        f"ran gemm {per_step[0]} (tensor cores {per_step[3]}, small rows {per_step[4]})")
+    return {"chunk_scores": seen[((1, 8, 128, 128), (1, 8, 128, 144))],
+            "chunk_values": seen[((1, 8, 128, 144), (1, 8, 144, 128))],
+            "chunk_dense": seen[((4, 32, 4096), (4096, 12800))],
+            "tc_per_chunk_step": per_step[3]}
+
+
+def _prefix_cache(model, params, cfg) -> None:
+    """(c) 8 requests behind one 48-token system prompt."""
+    rng = np.random.default_rng(3)
+    system = list(rng.integers(0, cfg.vocab_size, size=48))
+    first = system + list(rng.integers(0, cfg.vocab_size, size=16))  # page-aligned, 4 pages
+    others = [system + list(rng.integers(0, cfg.vocab_size, size=n))
+              for n in (5, 20, 33, 7, 40, 12)] + [first]
+
+    def drive(server):
+        server.submit(first, max_new_tokens=MAX_NEW)
+        server.run()
+        for p in others:
+            server.submit(p, max_new_tokens=MAX_NEW)
+        server.run()
+
+    server, res, _ = _feature_run("features (c) prefix cache", model, params, [first, *others],
+                                  drive=drive, prefix_cache=True)
+    s = server.stats
+    if len(res) != 8 or any(r.num_generated != MAX_NEW for r in res.values()):
+        raise AssertionError("features (c): not every request finished")
+    if s.prefix_hit_tokens < 7 * 48 or s.cow_copies < 1:
+        raise AssertionError(f"features (c): {s.prefix_hit_tokens} prefix-hit tokens, "
+                             f"{s.cow_copies} copies on write")
+    log(f"features (c): prefix hits {s.prefix_hit_tokens} of {s.prefix_prompt_tokens} prompt "
+        f"tokens ({s.prefix_hit_rate:.0%}), {s.cow_copies} copy on write; the page-aligned "
+        f"repeat gave {'the same' if res[7].out_tokens == res[0].out_tokens else 'other'} tokens "
+        "as its first run (E4M3 pages against fresh fp16 keys)")
+
+
+def _preemption(model, params, cfg) -> None:
+    """(d) A low-priority 512-token prompt preempted mid-prefill by a
+    high-priority arrival, resumed through the prefix cache."""
+    rng = np.random.default_rng(4)
+    victim = list(rng.integers(0, cfg.vocab_size, size=512))
+    shorts = [list(rng.integers(0, cfg.vocab_size, size=32)) for _ in range(3)]
+    urgent = list(rng.integers(0, cfg.vocab_size, size=40))
+    state = {}
+
+    def drive(server):
+        for p in shorts:
+            server.submit(p, max_new_tokens=48)
+        state["victim"] = server.submit(victim, max_new_tokens=MAX_NEW)
+        for _ in range(3):
+            server.step()
+        if not state["victim"].prefilling or server.scheduler.num_free_slots:
+            raise AssertionError("features (d): the victim is not prefilling with every slot busy")
+        server.submit(urgent, max_new_tokens=8, priority=5)
+        server.run()
+
+    kw = dict(prefill_chunk=32, prefix_cache=True, preemption=True)
+    server, res, _ = _feature_run("features (d) preemption", model, params,
+                                  [victim, *shorts, urgent], drive=drive, **kw)
+    v = state["victim"]
+    if server.stats.preemptions < 1 or v.preemptions < 1 or v.cached_tokens <= 0:
+        raise AssertionError(f"features (d): {server.stats.preemptions} preemptions, the victim "
+                             f"{v.preemptions}, resumed with {v.cached_tokens} cached tokens")
+    server.reset()
+    alone = server.submit(victim, max_new_tokens=MAX_NEW)
+    server.run()
+    if server.results[alone.rid].out_tokens != res[v.rid].out_tokens:
+        raise AssertionError("features (d): the resumed victim's tokens differ from its run alone")
+    log(f"features (d): {v.preemptions} preemption(s); the victim resumed with "
+        f"{v.cached_tokens} cached tokens and gave its tokens alone")
+
+
+def _fp32_parity() -> None:
+    """(e) granite-3-8b at full width with 2 layers under fp32 with fp32
+    pages: chunked, batched and prefix-hit prefill against the whole-prompt
+    prefill on the kernels' path (last-token logits within phase 7's fp32
+    bound of 1e-4), and the greedy tokens of four servers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy="fp32",
+                              kv_cache_dtype="fp32")
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    dev = model.device
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 96))).to(dev)
+    pools = model.init_state_store(4, 22, 16)
+    rows = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    rows[0, :6] = torch.arange(1, 7)
+    rows[1, :6] = torch.arange(7, 13)
+    rows[2, :6] = torch.arange(13, 19)
+    rows[3, :6] = torch.tensor([1, 2, 3, 19, 20, 21])  # shares slot 0's first 48 tokens
+    want = model.prefill_cb(params, prompt, pools, rows[0], 0, 0, 96, page_size=16)
+    got = {}
+    for c in range(3):
+        chunk = prompt[:, 32 * c:32 * c + 32]
+        got["chunked"] = model.prefill_cb(params, chunk, pools, rows[1], 1, 32 * c, 32,
+                                          page_size=16, chunked=True)
+        pair = torch.cat([chunk, torch.zeros_like(chunk)])
+        lay = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+        got["batched"] = model.prefill_cb(
+            params, pair, pools, torch.stack([rows[2], rows[0]]), lay(2, 3), lay(32 * c, 0),
+            lay(32, 0), page_size=16, chunked=True, active=lay(1, 0).bool())[:1]
+    got["prefix hit"] = model.prefill_cb(params, prompt[:, 48:], pools, rows[3], 3, 48, 48,
+                                         page_size=16, chunked=True)
+    errs = {k: rel_err(v, want) for k, v in got.items()}
+    log("features (e) fp32, 2 layers: last-token logits against the whole prompt: "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"features (e): {errs} beyond 1e-4")
+    system = list(rng.integers(0, cfg.vocab_size, size=48))
+    prompts = [system + list(rng.integers(0, cfg.vocab_size, size=n)) for n in (40, 17, 48, 3)]
+    runs = {"whole prompt": {}, "chunk 32": dict(prefill_chunk=32),
+            "chunk 32, batched": dict(prefill_chunk=32, prefill_batch=True),
+            "prefix cache": dict(prefix_cache=True)}
+    tokens = {}
+    for label, kw in runs.items():
+        def drive(server):
+            server.submit(prompts[0], max_new_tokens=MAX_NEW)
+            server.run()
+            for p in prompts[1:]:
+                server.submit(p, max_new_tokens=MAX_NEW)
+            server.run()
+        server, res, _ = _feature_run(f"features (e) fp32 {label}", model, params, prompts,
+                                      drive=drive, **kw)
+        tokens[label] = _tokens(res)
+        if label == "prefix cache" and server.stats.prefix_hit_tokens < 3 * 48:
+            raise AssertionError("features (e): the prefix cache was not hit")
+    for label, t in tokens.items():
+        _same_tokens(f"features (e) fp32 {label}", t, tokens["whole prompt"])
+    log("features (e): chunked, batched and prefix-hit runs give the whole-prompt run's tokens")
+    del model, params, pools
+    torch.cuda.empty_cache()
+
+
+def phase_serving_features(cfg, model, params) -> dict:
+    """Phase 12: the rest of serving at full width and depth (phase 8's
+    model), then fp32 parity at 2 layers."""
+    prompts = _serve_prompts(cfg)
+    _graph_against_eager(model, params, prompts)
+    counts = _chunked_and_batched(model, params, prompts)
+    _prefix_cache(model, params, cfg)
+    _preemption(model, params, cfg)
+    _fp32_parity()
+    return counts
 
 
 # -- phase 9 ---------------------------------------------------------------------
@@ -1179,7 +1615,8 @@ def _scaled_mm_ms(x, w, out_dtype):
 
 def _gemm_row(label, x, w, out_dtype, launches, **extra):
     """One (mul, add) row of the kernel line under redmule_hfp8: the kernel
-    on its planned schedule (device time from a CUDA-graph replay), the
+    on its planned schedule (held within GEMM_TOL of the plain version;
+    device time from a CUDA-graph replay), the
     plain version, torch.matmul on the widened fp16 operands and
     torch._scaled_mm on the fp8 ones. Bound: each operand byte read once
     and the output written once at 3.35 TB/s, against 2*M*K*N operations
@@ -1195,6 +1632,10 @@ def _gemm_row(label, x, w, out_dtype, launches, **extra):
     got = rg.redmule_gemm(x, w, None, **kw)
     aux = rg.aux_launches.n - aux0
     want = rg.redmule_gemm_plain(x, w, None, **kw)
+    err = rel_err(got, want)
+    if not err <= GEMM_TOL[got.dtype]:
+        raise AssertionError(f"redmule_gemm[{label}]: max|dz|/max|z| = {err:.3g} > "
+                             f"{GEMM_TOL[got.dtype]}")
     big = x.numel() * w.shape[-1] > 1 << 32
     ms = time_ms(lambda: rg.redmule_gemm(x, w, None, **kw), iters=5 if big else 20, graph=True)
     # Eager calls, timed the same way: where this exceeds ``ms`` the wrapper's
@@ -1242,6 +1683,8 @@ def _gemm_entries(counts) -> list:
     per_step = {"launches_per_train_step": counts["train_gemm_per_step"]}
     table = q(E4M3, 49155, 4096, scale=0.02)
     k_pages = q(E4M3, 1, 96, 8, 128).permute(0, 2, 3, 1)  # (B, Hkv, hd, T) strided view
+    chunk_keys = q(E4M3, 1, 144, 8, 128).permute(0, 2, 3, 1)
+    per_chunk = {"tc_launches_per_chunk_step": counts["tc_per_chunk_step"]}
     entries = [
         _gemm_row("decode 4x4096x12800", q(E4M3, 4, 4096), q(E4M3, 12800, 4096, scale=0.02).T,
                   FP16, sr, **per_decode),
@@ -1255,6 +1698,16 @@ def _gemm_entries(counts) -> list:
                   **per_prefill),
         _gemm_row("prefill values (1,8)x384x96x128", q(E4M3, 1, 8, 384, 96),
                   k_pages.transpose(-1, -2), FP16, tc, **per_prefill),
+        # Chunked prefill at chunk 32 over phase 12's 7-page rows: 112
+        # gathered keys and the chunk's 32, and a batched step's dense layer
+        # at P = 4 ((4, 32) rows fold into 128). Launches: the shape's calls
+        # in phase 12(b)'s two timed runs.
+        _gemm_row("chunk scores (1,8)x128x128x144", q(E4M3, 1, 8, 128, 128), chunk_keys,
+                  FP16, counts["chunk_scores"], **per_chunk),
+        _gemm_row("chunk values (1,8)x128x144x128", q(E4M3, 1, 8, 128, 144),
+                  chunk_keys.transpose(-1, -2), FP16, counts["chunk_values"], **per_chunk),
+        _gemm_row("batched prefill 128x4096x12800 (P=4 x 32)", q(E4M3, 128, 4096),
+                  q(E4M3, 12800, 4096, scale=0.02).T, FP16, counts["chunk_dense"], **per_chunk),
         _gemm_row("train forward 2048x4096x12800", q(E4M3, 2048, 4096),
                   q(E4M3, 4096, 12800, scale=4096 ** -0.5), FP16, train, **per_step),
     ]
@@ -1517,7 +1970,11 @@ def main() -> int:
         counts = phase_flash()
         phase_backward_gemm()
         phase_slice_parity()
-        counts |= phase_serve()
+        cfg, model, params = _serve_model()
+        counts |= phase_serve(cfg, model, params)
+        counts |= phase_serving_features(cfg, model, params)
+        del model, params
+        torch.cuda.empty_cache()
     phase_train_parity()
     train = phase_train()
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],

@@ -1,11 +1,18 @@
-"""Serving launcher of the port: continuous batching over the paged KV pools.
+"""Serving launcher of the port: continuous batching over the paged KV pools
+(the default), or ``--mode static``, the ring-buffer static-batch baseline.
 
 Runs on the card by default (the hand-written kernels on every GEMM and
-the decode attention); ``--device cpu`` runs the plain PyTorch path.
+the decode attention, the decode step replayed as a CUDA graph);
+``--device cpu`` runs the plain PyTorch path. The continuous path warms up
+every step shape first (on the card: builds the kernels and captures the
+decode graph), so its tok/s is the steady state; the static path times its
+first decode step apart.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --fp8-kv --fp8-params --policy redmule_hfp8 --prompt-len 64 [--profile]
-  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --chunked-prefill 4 --prefill-batch --prefix-cache --async-depth 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --mode static
 """
 from __future__ import annotations
 
@@ -14,12 +21,13 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import POLICIES
 from repro_torch.kernels import _build
 from repro_torch.models import build
-from repro_torch.serving import SamplingParams, Server, ServerConfig
+from repro_torch.serving import SamplingParams, Server, ServerConfig, generate_static
 
 
 def mixed_prompt_lens(base: int, n: int) -> list[int]:
@@ -33,6 +41,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="granite-3-8b")
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced CPU-test config")
+    ap.add_argument("--mode", choices=("continuous", "static"), default="continuous")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -44,7 +53,28 @@ def parse_args(argv=None):
                     help="precision policy (default: the config's)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = the config's)")
+    ap.add_argument("--chunked-prefill", type=int, default=0, metavar="N",
+                    help="split prompts into N-token chunks interleaved with decode steps "
+                         "(0 = whole-prompt prefill)")
+    ap.add_argument("--async-depth", type=int, default=0, metavar="D",
+                    help="dispatch up to D device steps ahead before the host waits for the "
+                         "oldest (0 = synchronous; greedy outputs are the same at every depth)")
+    ap.add_argument("--prefill-batch", action="store_true",
+                    help="pack all prefilling slots into one (P, chunk) step, P bucketed to "
+                         "{1,2,4,8}; requires --chunked-prefill")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share published prompt pages across requests (refcounted, "
+                         "copy-on-write); every prompt then opens with one shared system "
+                         "prefix, so the cache has something to hit")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="priority of the submitted requests (higher runs first)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="let higher-priority requests evict lower-priority ones that are "
+                         "still prefilling; the second half of the requests then arrives at "
+                         "priority+5 after the first half has started prefilling")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -88,7 +118,8 @@ def print_device_time(prof, wall_s: float, top: int = 8) -> None:
 
 
 def main(argv=None):
-    """Serve ``--requests`` random prompts; returns (server, results)."""
+    """Serve ``--requests`` random prompts; returns (server, results), or
+    (None, generated tokens) under ``--mode static``."""
     args = parse_args(argv)
     cfg = get_config(args.arch, smoke=args.smoke)
     cfg = dataclasses.replace(
@@ -109,19 +140,59 @@ def main(argv=None):
           f"fp8_params={cfg.fp8_params} layers={cfg.n_layers}")
 
     rng = np.random.default_rng(args.seed)
-    prompts = [list(rng.integers(0, cfg.vocab_size, size=n))
-               for n in mixed_prompt_lens(args.prompt_len, args.requests)]
+    sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
+    if args.mode == "static":
+        tokens = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
+        seqs, stats = generate_static(
+            model, params, {"tokens": torch.from_numpy(tokens).to(model.device)},
+            max_new_tokens=args.max_new, sampling=sampling, seed=args.seed)
+        print(f"static: {args.requests} seqs x {args.max_new} tokens (prefill "
+              f"{stats.prefill_s:.3f} s, first decode {stats.first_decode_s:.3f} s)")
+        print(f"steady-state decode: {stats.decode_tok_s:.1f} tok/s over "
+              f"{stats.steady_steps} steps")
+        print(seqs)
+        return None, seqs
+
+    lens = mixed_prompt_lens(args.prompt_len, args.requests)
+    if args.prefix_cache:
+        # Shared-system-prompt shape: one common prefix and unique tails.
+        sys_prompt = list(rng.integers(0, cfg.vocab_size, size=args.prompt_len))
+        prompts = [sys_prompt + list(rng.integers(0, cfg.vocab_size, size=n)) for n in lens]
+    else:
+        prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in lens]
     server = Server(model, params, ServerConfig(
         num_slots=args.num_slots, page_size=args.page_size,
         max_seq_len=max(len(p) for p in prompts) + args.max_new,
         prefill_bucket=min(32, max(8, args.prompt_len)),
+        prefill_chunk=args.chunked_prefill or None, prefix_cache=args.prefix_cache,
+        preemption=args.preempt, async_depth=args.async_depth,
+        prefill_batch=args.prefill_batch,
     ), seed=args.seed, device=args.device)
     print(f"state store: {server.cache.allocator.num_pages} pages x {args.page_size} "
           f"tokens ({server.cache.kv_bytes() / 1e6:.2f} MB kv)")
-    sampling = SamplingParams(args.temperature)
-    for p in prompts:
-        server.submit(p, max_new_tokens=args.max_new, sampling=sampling)
-    t0 = time.perf_counter()
+    if args.preempt and not args.chunked_prefill:
+        print("note: --preempt is inert without --chunked-prefill: a whole-prompt prefill "
+              "finishes in the step that admits it, so no request is ever prefilling")
+    server.warmup([len(p) for p in prompts])
+
+    def submit(p, priority):
+        server.submit(p, max_new_tokens=args.max_new, sampling=sampling, priority=priority)
+
+    def serve():
+        if args.preempt:
+            # Priority burst: the first half starts prefilling at the base
+            # priority, then the second half arrives above it.
+            half = max(1, len(prompts) // 2)
+            for p in prompts[:half]:
+                submit(p, args.priority)
+            server.step()
+            for p in prompts[half:]:
+                submit(p, args.priority + 5)
+        else:
+            for p in prompts:
+                submit(p, args.priority)
+        return server.run()  # the last harvest waits for the card
+
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -129,15 +200,31 @@ def main(argv=None):
         if model.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            results = server.run()  # the last harvest waits for the card
+            t0 = time.perf_counter()
+            results = serve()
+            wall = time.perf_counter() - t0  # the profiler's teardown left out
     else:
-        results = server.run()
-    wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = serve()
+        wall = time.perf_counter() - t0
     s = server.stats
     print(f"continuous: {len(results)} requests, {s.decode_tokens} decode tokens in "
-          f"{s.decode_steps} steps over {args.num_slots} slots")
+          f"{s.decode_steps} steps over {args.num_slots} slots"
+          + (f", prefill chunk {args.chunked_prefill}" if args.chunked_prefill else ""))
     print(f"decode: {s.decode_tok_s:.1f} tok/s, prefill {s.prefill_s:.3f} s, "
           f"decode {s.decode_s:.3f} s, wall {wall:.3f} s, utilization {s.utilization:.0%}")
+    ttft = server.ttft_percentiles()
+    if ttft is not None:
+        print(f"ttft: p50 {ttft[0] * 1e3:.1f} ms, p95 {ttft[1] * 1e3:.1f} ms")
+    if server.prefix_cache:
+        print(f"prefix cache: hit-rate {s.prefix_hit_rate:.0%} ({s.prefix_hit_tokens}/"
+              f"{s.prefix_prompt_tokens} prompt tokens), {s.cow_copies} cow copies")
+    if args.preempt:
+        print(f"preemptions: {s.preemptions}")
+    if model.device.type == "cuda":
+        eng = server.engine
+        print(f"decode graph: {eng.graph_captures} capture(s), {eng.graph_replays} replays "
+              f"(warm-up included)")
     if args.profile:
         print_device_time(prof, wall)
     for rid in sorted(results):

@@ -1,14 +1,19 @@
 """GQA attention (counterpart of ``repro.models.attention``): the training
-forward over a whole sequence, and the serving paths over the paged KV
-token pools.
+forward over a whole sequence, the serving paths over the paged KV token
+pools, and the ring-buffer cache of static-batch serving.
 
-- the full-sequence path (no pool; the training forward) attends over the
+- the full-sequence path (no cache; the training forward) attends over the
   fresh k/v with the online softmax of :func:`_online_attention` in
   ``kv_chunk`` key chunks, both products through the engine (forward and
   backward), as the reference's ``apply`` without a cache does. It writes
   no pages: the pool writes are in place and stay off the autograd path;
 - prefill (whole prompt, from position 0) attends over the fresh k/v the
   same way and writes them into the pool;
+- chunked prefill (``paged.chunked``) writes the chunk's fresh k/v into
+  the pool, gathers the slot's pages back through ``read_idx`` and attends
+  over [gathered pages | fresh chunk], both products through the engine;
+  the gathered entries at or past the chunk's start are masked, so no key
+  counts twice;
 - decode (one token per slot) reads the pool through the page table. On
   the ``"cuda"`` backend the paged flash-decode kernel walks each slot's
   pages itself; on ``"torch"`` the layer gathers the pages through
@@ -18,12 +23,16 @@ token pools.
   products through the engine, which rounds q and the probabilities to
   E4M3, while the paged kernel computes in fp32. A model built with
   ``fused_decode=True`` on ``"torch"`` runs the kernel's plain version
-  instead, which is the kernel's own semantics.
+  instead, which is the kernel's own semantics;
+- the ring buffer (``cache``, static-batch serving, every sequence at one
+  position): a prefill from position 0 attends over the fresh k/v and
+  stores them; a decode step appends one token and attends over the whole
+  buffer, its products through the engine.
 
-Fresh K/V are written into the layer's pool in place (the reference's
-``.at[write_idx].set`` returns a new array; the port updates the pool it
-owns). Pad rows and inactive slots write into the null page 0, which is
-never read back as valid.
+Fresh K/V are written into the layer's pool or ring in place (the
+reference's ``.at[].set`` and ``dynamic_update_slice`` return new arrays;
+the port updates the tensors it owns). Pad rows and inactive slots write
+into the null page 0, which is never read back as valid.
 """
 from __future__ import annotations
 
@@ -47,15 +56,19 @@ class PagedInfo(NamedTuple):
 
     write_idx: (B*Sq,) flat pool index of each fresh key/value.
     k_pos: key positions with POS_SENTINEL at invalid entries: (B, Sq) for
-        prefill (the fresh keys), (B, L) for decode (the gathered pages).
+        prefill (the fresh keys), (B, L) for decode (the gathered pages),
+        (B, L + Sq) for chunked prefill.
     read_idx: (B, L) flat pool indices of each slot's pages in position
-        order; set for a gathered decode step only.
+        order; set for a gathered decode step and for chunked prefill.
     pages, seq_lens, active: the page table (B, P), decode positions (B,)
         and live-slot mask (B,) of a decode step, else None.
     page_size: tokens per page.
     fused: decode through the paged flash-decode attention (the kernel on
         ``"cuda"``, its plain version on ``"torch"``) instead of gathering
         the pages and running :func:`_online_attention`.
+    chunked: a chunked-prefill step: ``read_idx`` (B, L) is set and the
+        layer attends over [gathered pages | fresh k/v], with ``k_pos``
+        (B, L + Sq) covering both.
     """
 
     write_idx: torch.Tensor
@@ -66,6 +79,7 @@ class PagedInfo(NamedTuple):
     active: torch.Tensor | None = None
     page_size: int = 0
     fused: bool = False
+    chunked: bool = False
 
 
 class AttnConfig(NamedTuple):
@@ -145,11 +159,13 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
 
 def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
           engine: Engine, *, pool: dict | None = None,
-          paged: PagedInfo | None = None) -> torch.Tensor:
+          paged: PagedInfo | None = None, cache: dict | None = None) -> torch.Tensor:
     """One attention layer. x: (B, S, D); positions: (S,) or (B, S) absolute
     positions. With ``pool`` (the layer's {"kp", "vp"} flat (n_tok, Hkv, hd)
     token pools, updated in place) and ``paged``, the serving paths; with
-    neither, the causal full-sequence path of the training forward."""
+    ``cache`` (the layer's ring buffer, :func:`init_cache`, updated in
+    place), static-batch serving; with neither, the causal full-sequence
+    path of the training forward."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = common.dense_apply(params["q"], x, engine).reshape(b, s, hq, hd)
@@ -158,10 +174,18 @@ def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     pos2d = positions if positions.dim() == 2 else positions[None]
     q = common.apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_fraction)
     k = common.apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_fraction)
-    if pool is None:
+    if cache is not None:
+        out = _ring_attention(q, k, v, positions, cache, cfg, engine)
+    elif pool is None:
         out = _online_attention(q, k, v, positions, positions, cfg, engine)
-        return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
+    else:
+        out = _paged_attention(q, k, v, positions, pool, paged, cfg, engine)
+    return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
 
+
+def _paged_attention(q, k, v, positions, pool: dict, paged: PagedInfo, cfg: AttnConfig,
+                     engine: Engine) -> torch.Tensor:
+    b, s, hkv, hd = k.shape
     kp, vp = pool["kp"], pool["vp"]
     put_rows_(kp, paged.write_idx, cast(k.reshape(b * s, hkv, hd), kp.dtype))
     put_rows_(vp, paged.write_idx, cast(v.reshape(b * s, hkv, hd), vp.dtype))
@@ -169,20 +193,61 @@ def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
         # Decode through the paged flash-decode attention: it walks each
         # slot's pages, dequantizes fp8 pages in the tile and computes in
         # fp32 (on "cuda" the kernel, on "torch" its plain version).
-        out = kernel_ops.paged_decode_attention(
+        return kernel_ops.paged_decode_attention(
             q[:, 0], kp, vp, paged.pages, paged.seq_lens, paged.active,
             page_size=paged.page_size, window=cfg.window, softcap=cfg.softcap,
             backend=engine.backend,
         )[:, None]
-    else:
-        if paged.pages is not None:
-            # Decode on the plain path: gather every slot's pages in
-            # position order, as the reference's XLA backend does.
-            compute = engine.policy.compute
-            k = take_rows(kp, paged.read_idx).to(compute)
-            v = take_rows(vp, paged.read_idx).to(compute)
-        out = _online_attention(q, k, v, positions, paged.k_pos, cfg, engine)
-    return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
+    if paged.read_idx is not None:
+        # Gather every slot's pages in position order: the plain decode (as
+        # the reference's XLA backend does), or the earlier chunks of a
+        # chunked prefill, ahead of the chunk's fresh keys.
+        compute = engine.policy.compute
+        gk = take_rows(kp, paged.read_idx).to(compute)
+        gv = take_rows(vp, paged.read_idx).to(compute)
+        if paged.chunked:
+            k, v = torch.cat([gk, k.to(compute)], dim=1), torch.cat([gv, v.to(compute)], dim=1)
+        else:
+            k, v = gk, gv
+    return _online_attention(q, k, v, positions, paged.k_pos, cfg, engine)
+
+
+def _ring_attention(q, k, v, positions, cache: dict, cfg: AttnConfig,
+                    engine: Engine) -> torch.Tensor:
+    """The ring-buffer cache of static-batch serving, as the reference's
+    ``apply`` with a cache: ``index`` counts ring writes, so the next write
+    goes to ``index % max_len``. A prefill (S > 1, from position 0) stores
+    the last ``max_len`` fresh k/v and attends over the fresh ones; a
+    decode step stores its token and attends over the whole buffer, read
+    back in the compute format."""
+    s = k.shape[1]
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    max_len = ck.shape[1]
+    if s > 1:
+        keep = min(s, max_len)
+        ck[:, :keep] = cast(k[:, -keep:], ck.dtype)
+        cv[:, :keep] = cast(v[:, -keep:], cv.dtype)
+        cpos[:keep] = positions[-keep:]
+        cache["index"] += keep
+        return _online_attention(q, k, v, positions, positions, cfg, engine)
+    slot = cache["index"] % max_len
+    ck[:, slot:slot + 1] = cast(k, ck.dtype)
+    cv[:, slot:slot + 1] = cast(v, cv.dtype)
+    cpos[slot:slot + 1] = positions
+    cache["index"] += 1
+    compute = engine.policy.compute
+    return _online_attention(q, ck.to(compute), cv.to(compute), positions, cpos, cfg, engine)
+
+
+def init_cache(batch: int, max_len: int, cfg: AttnConfig, dtype, device) -> dict:
+    """One layer's ring buffer: K/V (B, max_len, Hkv, hd), the absolute
+    position of each entry (POS_SENTINEL while unwritten) and the count of
+    writes (a host integer: every sequence of the batch shares it)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((max_len,), POS_SENTINEL, dtype=torch.int64, device=device),
+            "index": 0}
 
 
 def init_paged_pool(n_tokens: int, cfg: AttnConfig, dtype, device) -> dict:

@@ -93,10 +93,10 @@ class Transformer:
         return params
 
     # -- blocks ---------------------------------------------------------------
-    def _block(self, lp, x, positions, engine: Engine, pool=None, paged=None):
+    def _block(self, lp, x, positions, engine: Engine, pool=None, paged=None, cache=None):
         h = common.norm_apply(lp["norm1"], x)
         x = x + attention.apply(lp["attn"], h, positions, self.attn_cfg, engine,
-                                pool=pool, paged=paged)
+                                pool=pool, paged=paged, cache=cache)
         h2 = common.norm_apply(lp["norm2"], x)
         return x + ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
 
@@ -142,12 +142,31 @@ class Transformer:
                 for _ in range(self.cfg.n_layers)]
 
     def prefill_cb(self, params, tokens: torch.Tensor, pools, page_row: torch.Tensor,
-                   start: int, length: int, *, page_size: int) -> torch.Tensor:
-        """Whole-prompt prefill of one slot. tokens: (1, Tb) right-padded;
-        page_row: (P,) the slot's page ids; start: absolute position of the
-        first token; length: valid tokens. Pad rows write the null page and
-        are masked as keys. Returns logits (1, V) at the last valid token;
-        the pools are updated in place."""
+                   slot, start, length, *, page_size: int, chunked: bool = False,
+                   active: torch.Tensor | None = None) -> torch.Tensor:
+        """One prefill chunk of one slot, or (with a rank-2 ``page_row``) one
+        chunk for each of P slots at once; the pools are updated in place.
+
+        Single-row form. tokens: (1, Tb) right-padded; page_row: (P,) the
+        slot's page ids; slot: its state row (the port's models keep none);
+        start, length: host integers, the absolute position of the first
+        token and the valid tokens. With ``chunked`` the layers also gather
+        the earlier chunks' K/V back through the page table and attend over
+        [gathered | fresh]. Pad rows write the null page and are masked as
+        keys. Returns logits (1, V) at the last valid token.
+
+        Multi-row form (always chunked). tokens: (P, Tb); page_row: (P, Pps);
+        slot, start, length: (P,) tensors; ``active``: (P,) bool marking
+        the real rows. Each row gathers its own pages and appends its own
+        chunk, so a row's math is that of the single-row chunked step;
+        inactive pad rows write the null page. Returns logits (P, V) at each
+        row's last valid token."""
+        if page_row.dim() == 2:
+            if not chunked:
+                raise ValueError("multi-row prefill_cb is always chunked (each row gathers its "
+                                 "own committed K/V through its page row); pass chunked=True")
+            return self._prefill_cb_batched(params, tokens, pools, page_row, start, length,
+                                            active, page_size=page_size)
         b, s = tokens.shape
         dev = tokens.device
         tok = torch.arange(s, dtype=torch.int64, device=dev)
@@ -156,11 +175,52 @@ class Transformer:
         page_idx = (pos // page_size).clamp(0, page_row.shape[0] - 1)
         write_idx = torch.where(valid, page_row.long()[page_idx] * page_size + pos % page_size, 0)
         k_pos = torch.where(valid, pos, attention.POS_SENTINEL)[None]
-        paged = PagedInfo(write_idx=write_idx, k_pos=k_pos, page_size=page_size)
+        read_idx = None
+        if chunked:
+            read_idx = self._read_idx(page_row[None], page_size)
+            lpos = torch.arange(read_idx.shape[1], device=dev)[None]
+            read_pos = torch.where(lpos < start, lpos, attention.POS_SENTINEL)
+            k_pos = torch.cat([read_pos, k_pos], dim=1)
+        paged = PagedInfo(write_idx=write_idx, k_pos=k_pos, read_idx=read_idx,
+                          page_size=page_size, chunked=chunked)
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, pos[None].expand(b, s), pools, paged)
         x = common.norm_apply(params["final_norm"], x)
         return self.logits(params, x[:, length - 1:length])[:, 0]
+
+    def _prefill_cb_batched(self, params, tokens, pools, page_rows, starts, lengths, active, *,
+                            page_size: int) -> torch.Tensor:
+        """Multi-row body of :meth:`prefill_cb` (see its docstring)."""
+        b, s = tokens.shape
+        dev = tokens.device
+        act = (torch.ones((b,), dtype=torch.bool, device=dev) if active is None
+               else active.bool())
+        starts, lengths = starts.long(), lengths.long()
+        tok = torch.arange(s, dtype=torch.int64, device=dev)
+        pos = starts[:, None] + tok[None, :]  # (P, Tb) absolute positions
+        valid = (tok[None, :] < lengths[:, None]) & act[:, None]
+        page_idx = (pos // page_size).clamp(0, page_rows.shape[1] - 1)
+        page = torch.gather(page_rows.long(), 1, page_idx)
+        write_idx = torch.where(valid, page * page_size + pos % page_size, 0).reshape(b * s)
+        fresh_pos = torch.where(valid, pos, attention.POS_SENTINEL)
+        read_idx = self._read_idx(page_rows, page_size)
+        lpos = torch.arange(read_idx.shape[1], device=dev)[None]
+        read_pos = torch.where(lpos < starts[:, None], lpos, attention.POS_SENTINEL)
+        paged = PagedInfo(write_idx=write_idx, k_pos=torch.cat([read_pos, fresh_pos], dim=1),
+                          read_idx=read_idx, page_size=page_size, chunked=True)
+        x = self.embed(params, tokens)
+        x = self._run_stack(params, x, pos, pools, paged)
+        x = common.norm_apply(params["final_norm"], x)
+        last = (lengths - 1).clamp(0, s - 1)
+        x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[-1]))
+        return self.logits(params, x_last)[:, 0]
+
+    @staticmethod
+    def _read_idx(page_rows: torch.Tensor, page_size: int) -> torch.Tensor:
+        """(B, P * page_size) flat pool indices of each row's pages in
+        position order."""
+        offs = torch.arange(page_size, device=page_rows.device)
+        return (page_rows.long()[:, :, None] * page_size + offs).reshape(page_rows.shape[0], -1)
 
     def decode_cb(self, params, tokens: torch.Tensor, pools, page_table: torch.Tensor,
                   seq_lens: torch.Tensor, active: torch.Tensor, *,
@@ -177,10 +237,8 @@ class Transformer:
         write_idx = torch.where(active, cur_page * page_size + lens % page_size, 0)
         read_idx = k_pos = None
         if not self.fused_decode:
-            n_tok = page_table.shape[1] * page_size
-            offs = torch.arange(page_size, device=dev)
-            read_idx = (page_table.long()[:, :, None] * page_size + offs).reshape(n_slots, n_tok)
-            lpos = torch.arange(n_tok, device=dev)[None]
+            read_idx = self._read_idx(page_table, page_size)
+            lpos = torch.arange(read_idx.shape[1], device=dev)[None]
             k_pos = torch.where(lpos <= lens[:, None], lpos, attention.POS_SENTINEL)
         paged = PagedInfo(
             write_idx=write_idx, k_pos=k_pos, read_idx=read_idx, pages=page_table,
@@ -191,6 +249,39 @@ class Transformer:
         x = self._run_stack(params, x, lens[:, None], pools, paged)
         x = common.norm_apply(params["final_norm"], x)
         return self.logits(params, x)[:, 0]
+
+
+    # -- static-batch serving (ring-buffer cache) -----------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """The ring-buffer cache of static-batch serving: one buffer of
+        ``max_len`` positions a layer, and the batch's shared position."""
+        return {"pos": 0, "layers": [
+            attention.init_cache(batch, max_len, self.attn_cfg, self.kv_dtype, self.device)
+            for _ in range(self.cfg.n_layers)]}
+
+    def prefill(self, params, batch, cache: dict) -> torch.Tensor:
+        """Run the prompt through the decoder, filling the cache in place.
+        batch: {"tokens": (B, S)}. Returns logits (B, 1, V) at the last
+        position."""
+        tokens = batch["tokens"]
+        x = self.embed(params, tokens)
+        positions = cache["pos"] + torch.arange(tokens.shape[1], device=tokens.device)
+        for lp, c in zip(params["layers"], cache["layers"]):
+            x = self._block(lp, x, positions, self.engine, cache=c)
+        x = common.norm_apply(params["final_norm"], x)
+        cache["pos"] += tokens.shape[1]
+        return self.logits(params, x[:, -1:])
+
+    def decode_step(self, params, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
+        """One-token decode of the whole batch. tokens: (B, 1). Returns
+        logits (B, 1, V); the cache is updated in place."""
+        x = self.embed(params, tokens)
+        positions = cache["pos"] + torch.arange(1, device=tokens.device)
+        for lp, c in zip(params["layers"], cache["layers"]):
+            x = self._block(lp, x, positions, self.engine, cache=c)
+        x = common.norm_apply(params["final_norm"], x)
+        cache["pos"] += 1
+        return self.logits(params, x)
 
 
 def resolve_device(device) -> torch.device:

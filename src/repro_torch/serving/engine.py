@@ -1,17 +1,43 @@
-"""The serving engine core of the port: device steps, the per-slot
-last-token tensor, the sampling generator, and the queue of dispatched
-steps (counterpart of ``repro.serving.engine.EngineCore``).
+"""The serving engine core of the port: device steps with a window of
+dispatched steps, the per-slot last-token tensor, the sampling generator,
+and the decode step replayed as a CUDA graph (counterpart of
+``repro.serving.engine.EngineCore``; its metrics and tracer are not ported).
 
-A ``dispatch_*`` call enqueues the model step and the sampling on the
-device and returns; :meth:`EngineCore.harvest_one` copies the oldest
-step's sampled tokens to the host, which is where the host waits. The
-server harvests every step in the iteration that dispatched it (the
-reference's ``async_depth=0``), so the port's outputs follow the
-reference's synchronous order.
+A ``dispatch_*`` call enqueues a step on the current stream and returns;
+:meth:`EngineCore.harvest_one` waits for the oldest step only, never for
+the whole stream. The server lets up to ``async_depth`` steps stay in
+flight, so the host schedules step t+1 while the card runs step t. Every
+step runs in dispatch order on one stream, which is what makes the host's
+optimistic bookkeeping at dispatch safe (see ``repro.serving.engine``).
 
-Host mirrors are copied at dispatch: ``torch.from_numpy`` shares memory
-with the numpy page table and sequence lengths, which the server mutates
-right after dispatch (the reference's aliasing rule, ``engine.py:329-335``).
+On the card a step never waits for the card at dispatch:
+
+- **Inputs.** Every host array a step reads (tokens, page rows, the page
+  table, sequence lengths, the active mask and the sampling parameters) is
+  copied at dispatch into one pinned staging buffer owned by that step,
+  which goes to the card with one ``non_blocking`` copy and is released
+  only when the step is harvested. This is the reference's aliasing rule
+  (``engine.py:329-335``): the server mutates its numpy mirrors right after
+  dispatch, and the copy must have read them first.
+- **Outputs.** Each step enqueues a ``non_blocking`` copy of its sampled
+  tokens and its finite flag into pinned host memory and records a
+  ``torch.cuda.Event`` after it; the harvest waits on that event.
+
+**The decode graph.** ``jax.jit`` makes the reference's fixed-shape decode
+step one cheap dispatch; the port's counterpart captures ``decode_cb`` as a
+``torch.cuda.CUDAGraph`` on the ``"cuda"`` backend and replays it once a
+step. The graph reads static device buffers (the page table, sequence
+lengths and active mask, refreshed by each step's one staged copy, and the
+last-token tensor) and holds the addresses of the pools and parameters.
+It is captured at the first decode step after one eager warm-up call on
+zeroed inputs (every slot inactive, so the warm-up writes only the null
+page), which builds what the kernels make lazily: the kernel library and
+the decode combine's ticket counters. A ``fresh`` that keeps the pools
+keeps the graph; new pools capture again. Sampling and the last-token
+merge run eagerly after the replay. A graph that fails to capture or to
+replay raises: there is no eager fallback. ``graph_decode=False`` runs the
+same step eagerly on the card (the tests and ``chip_smoke.py`` compare the
+two); on the CPU nothing is captured and the keyword is ignored.
 """
 from __future__ import annotations
 
@@ -23,105 +49,287 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.serving.cache import StateStore
-from repro_torch.serving.sampling import sample_logits, stack_params
+from repro_torch.serving.cache import StateStore, copy_kv_page
+from repro_torch.serving.sampling import GREEDY, sample_logits, stack_params
+
+# Allowed P of a batched prefill step: bucketing the row count bounds the
+# number of step shapes.
+P_BUCKETS = (1, 2, 4, 8)
 
 
 @dataclasses.dataclass
 class InflightStep:
-    """One dispatched step whose tokens the host has not read yet."""
+    """One dispatched step whose results the host has not read yet."""
 
-    kind: str  # prefill_full | decode
+    kind: str  # prefill_full | prefill_chunk | prefill_batch | decode
     t_dispatch: float
-    toks: torch.Tensor  # sampled tokens on the device
-    finite: torch.Tensor  # device bool: the step's live logits were all finite
+    out: torch.Tensor  # host int32: the sampled tokens (if any), then the finite flag
+    done: Optional[torch.cuda.Event]  # recorded after ``out``'s copy (on the card)
+    staged: torch.Tensor  # the step's pinned inputs, held until its harvest
+    n_tokens: int  # sampled tokens at the head of ``out``
     payload: Any
+
+
+def _pack(arrays: dict[str, np.ndarray]) -> tuple[np.ndarray, dict]:
+    """Host arrays as one int32 word array (float32 by its bits, bool as
+    0/1) and each array's (offset, shape, float32 or not)."""
+    layout, words, off = {}, [], 0
+    for name, a in arrays.items():
+        a = np.ascontiguousarray(a)
+        f32 = a.dtype == np.float32
+        layout[name] = (off, a.shape, f32)
+        words.append((a.view(np.int32) if f32 else a.astype(np.int32, copy=False)).ravel())
+        off += a.size
+    return np.concatenate(words), layout
+
+
+def _views(buf: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
+    """Views of a packed buffer by name: float32 arrays by their bits, the
+    others as int32 (a bool array as 0/1: compare with 0 where it is used,
+    so that a view of a static buffer stays a view)."""
+    out = {}
+    for name, (off, shape, f32) in layout.items():
+        t = buf[off:off + int(np.prod(shape))].view(shape)
+        out[name] = t.view(torch.float32) if f32 else t
+    return out
 
 
 class EngineCore:
     """Device-stepping core of the continuous-batching server."""
 
-    def __init__(self, model, params, config, *, seed: int = 0):
+    def __init__(self, model, params, config, profile=None, *, seed: int = 0,
+                 graph_decode: bool = True):
         self.model = model
         self.params = params
         self.config = config
+        self.profile = profile if profile is not None else model.cb_profile()
         self.seed = seed
         self.device = model.device
+        self._on_card = self.device.type == "cuda"
+        self.graph_decode = graph_decode and model.engine.backend == "cuda"
         self.cache: Optional[StateStore] = None
-        self.prefill_s = 0.0
-        self.decode_s = 0.0
+        self._inflight: collections.deque[InflightStep] = collections.deque()
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph_captures = 0
+        self.graph_replays = 0
+        n = config.num_slots
+        # The static decode inputs (what the graph reads), laid out as staged.
+        staged, layout = self._stage_decode(
+            np.zeros((n, config.pages_per_slot), np.int32), np.zeros((n,), np.int32),
+            np.zeros((n,), bool), [GREEDY] * n)
+        self._dec_in = torch.zeros(staged.shape, dtype=torch.int32, device=self.device)
+        self._dec = _views(self._dec_in, layout)
+        self._last_tok = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
+        self.prefill_s = self.decode_s = 0.0
         self.nonfinite_steps = 0
+
+    # -- state lifecycle ---------------------------------------------------
+    @torch.inference_mode()
+    def fresh(self, pools=None) -> None:
+        """(Re)build the StateStore and the per-run device state; ``pools``
+        reuses existing pools (and with them the decode graph). Raises with
+        steps in flight: harvest them first."""
+        if self._inflight:
+            raise RuntimeError(f"engine reset with {len(self._inflight)} steps in flight; "
+                               "harvest them first")
+        if pools is None or self.cache is None or pools is not self.cache.pools:
+            self._graph = None  # the graph holds the old pools' addresses
+        cfg = self.config
+        self.cache = StateStore.build(
+            self.model, num_slots=cfg.num_slots, num_pages=self.resolved_num_pages(),
+            page_size=cfg.page_size, pages_per_slot=cfg.pages_per_slot, pools=pools,
+        )
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._last_tok.zero_()
+        self._t_last_harvest = 0.0
+        self.prefill_s = self.decode_s = 0.0
+        self.nonfinite_steps = 0
+
+    # -- pool sizing -------------------------------------------------------
+    def reserve_tokens_cap(self) -> Optional[int]:
+        """Tokens a request keeps page-resident at once; None = the whole
+        sequence."""
+        cfg, prof = self.config, self.profile
+        if not prof.needs_kv_pages:
+            return 0
+        if prof.kv_window is not None and cfg.prefill_chunk is not None:
+            return min(cfg.max_seq_len, prof.kv_window + cfg.prefill_chunk + 2 * cfg.page_size)
+        return None
 
     def resolved_num_pages(self) -> int:
         cfg = self.config
         if cfg.num_pages is not None:
             return cfg.num_pages
-        per_slot = -(-cfg.max_seq_len // cfg.page_size)
+        cap = self.reserve_tokens_cap()
+        per_slot = -(-min(cfg.max_seq_len, cap if cap is not None else cfg.max_seq_len)
+                     // cfg.page_size)
         return max(cfg.num_slots * per_slot + 1, 2)
 
-    def fresh(self) -> None:
-        """(Re)build the StateStore and the per-run device state."""
-        cfg = self.config
-        self.cache = StateStore.build(
-            self.model, num_slots=cfg.num_slots, num_pages=self.resolved_num_pages(),
-            page_size=cfg.page_size, pages_per_slot=cfg.pages_per_slot,
-        )
-        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self._last_tok = torch.zeros((cfg.num_slots, 1), dtype=torch.int64, device=self.device)
-        self._inflight: collections.deque[InflightStep] = collections.deque()
-        self._t_last_harvest = 0.0
-        self.prefill_s = self.decode_s = 0.0
-        self.nonfinite_steps = 0
+    # -- P-bucketing -------------------------------------------------------
+    def allowed_buckets(self) -> tuple[int, ...]:
+        """P buckets usable here: the standard set clamped to the slot count
+        (pad rows need slot ids apart from the active rows')."""
+        return tuple(b for b in P_BUCKETS if b <= self.config.num_slots) or (1,)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        # .copy(): on the CPU from_numpy would alias the live host mirror.
-        return torch.from_numpy(a.copy()).to(self.device)
+    def bucket_for(self, n_rows: int) -> int:
+        """Smallest allowed bucket covering ``n_rows``."""
+        for b in self.allowed_buckets():
+            if b >= n_rows:
+                return b
+        return self.allowed_buckets()[-1]
 
-    def _sample(self, logits, params_list):
-        sp = {k: torch.from_numpy(v).to(self.device) for k, v in stack_params(params_list).items()}
-        return sample_logits(logits, self._gen, **sp)
+    # -- device helpers ----------------------------------------------------
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write page copy, queued behind the steps already in
+        flight."""
+        copy_kv_page(self.cache.pools, src, dst, page_size=self.config.page_size)
 
-    def dispatch_prefill(self, *, tokens: np.ndarray, page_row: np.ndarray, slot: int,
-                         start: int, n: int, sampling, payload=None) -> None:
-        """Enqueue one whole-prompt prefill of one slot and the sampling of
-        its first token, which goes into the last-token tensor so a decode
-        can be dispatched against it."""
+    @property
+    def num_inflight(self) -> int:
+        return len(self._inflight)
+
+    def _stage(self, arrays: dict[str, np.ndarray]):
+        """Copy host arrays into one staging buffer (pinned on the card) and
+        return it with its layout. The buffer is the step's own: it is not
+        written again, and the step holds it until its harvest."""
+        words, layout = _pack(arrays)
+        staged = torch.empty(words.shape, dtype=torch.int32, pin_memory=self._on_card)
+        staged.numpy()[:] = words
+        return staged, layout
+
+    def _stage_decode(self, page_table, seq_lens, active, params_list):
+        return self._stage({"page_table": page_table, "seq_lens": seq_lens, "active": active,
+                            **stack_params(params_list)})
+
+    def _to_device(self, staged: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
+        return _views(staged.to(self.device, non_blocking=True), layout)
+
+    def _sample(self, logits: torch.Tensor, dev: dict) -> torch.Tensor:
+        return sample_logits(logits, self._gen, temperature=dev["temperature"],
+                             top_k=dev["top_k"], top_p=dev["top_p"])
+
+    def _record(self, kind: str, t0: float, toks, finite: torch.Tensor, staged, payload) -> None:
+        """Queue the step's results for the host: its tokens and finite
+        flag, copied to pinned memory behind the step, and an event."""
+        flag = finite.to(torch.int32)[None]
+        out_dev = flag if toks is None else torch.cat([toks.to(torch.int32), flag])
+        done = None
+        if self._on_card:
+            out = torch.empty(out_dev.shape, dtype=torch.int32, pin_memory=True)
+            out.copy_(out_dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            out = out_dev
+        self._inflight.append(InflightStep(kind, t0, out, done, staged,
+                                           0 if toks is None else toks.shape[0], payload))
+
+    # -- dispatch ----------------------------------------------------------
+    def dispatch_prefill(self, *, kind: str, tokens: np.ndarray, page_row: np.ndarray,
+                         slot: int, start: int, n: int, sampling=None, payload=None) -> None:
+        """Enqueue one single-row prefill step (``prefill_full`` or
+        ``prefill_chunk``). ``sampling`` marks the final chunk: its first
+        token is sampled on the card and goes into the last-token tensor,
+        so a decode can be dispatched against it."""
         t0 = time.perf_counter()
+        arrays = {"tokens": tokens, "page_row": page_row}
+        if sampling is not None:
+            arrays |= stack_params([sampling])
+        staged, layout = self._stage(arrays)
+        dev = self._to_device(staged, layout)
         logits = self.model.prefill_cb(
-            self.params, self._to_device(tokens), self.cache.pools,
-            self._to_device(page_row), start, n, page_size=self.config.page_size,
+            self.params, dev["tokens"], self.cache.pools, dev["page_row"], slot, start, n,
+            page_size=self.config.page_size, chunked=kind == "prefill_chunk",
         )
-        toks = self._sample(logits, [sampling])
-        self._last_tok[slot, 0] = toks[0]
-        self._inflight.append(InflightStep(
-            "prefill_full", t0, toks, torch.isfinite(logits).all(), payload))
+        toks = None
+        if sampling is not None:
+            toks = self._sample(logits, dev)
+            self._last_tok[slot, 0] = toks[0]
+        self._record(kind, t0, toks, torch.isfinite(logits).all(), staged, payload)
+
+    def dispatch_prefill_batch(self, *, tokens: np.ndarray, page_rows: np.ndarray,
+                               slots: np.ndarray, starts: np.ndarray, lengths: np.ndarray,
+                               active: np.ndarray, final_mask: np.ndarray, sampling_list,
+                               payload=None) -> None:
+        """Enqueue one (P, chunk) multi-slot prefill step. Every row is
+        sampled in one call; only rows whose chunk completes the prompt
+        (``final_mask``) go into the last-token tensor."""
+        t0 = time.perf_counter()
+        staged, layout = self._stage({
+            "tokens": tokens, "page_rows": page_rows, "slots": slots, "starts": starts,
+            "lengths": lengths, "active": active, "final": final_mask,
+            **stack_params(sampling_list)})
+        dev = self._to_device(staged, layout)
+        logits = self.model.prefill_cb(
+            self.params, dev["tokens"], self.cache.pools, dev["page_rows"], dev["slots"],
+            dev["starts"], dev["lengths"], page_size=self.config.page_size, chunked=True,
+            active=dev["active"],
+        )
+        toks = self._sample(logits, dev)
+        slots_dev = dev["slots"].long()
+        last = self._last_tok[:, 0]
+        last.scatter_(0, slots_dev, torch.where(dev["final"] != 0, toks.long(), last[slots_dev]))
+        finite = (torch.isfinite(logits).all(-1) | (dev["active"] == 0)).all()
+        self._record("prefill_batch", t0, toks, finite, staged, payload)
+
+    def _decode_forward(self) -> torch.Tensor:
+        """``decode_cb`` on the static decode inputs: the body of the decode
+        graph, and the eager step."""
+        d = self._dec
+        return self.model.decode_cb(
+            self.params, self._last_tok, self.cache.pools, d["page_table"], d["seq_lens"],
+            d["active"] != 0, page_size=self.config.page_size)
+
+    def _capture_decode(self) -> None:
+        """Warm up on zeroed inputs (no slot active: only the null page is
+        written), then capture :meth:`_decode_forward` as a CUDA graph."""
+        self._dec_in.zero_()
+        self._decode_forward()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._dec_logits = self._decode_forward()
+        self._graph = graph
+        self.graph_captures += 1
 
     def dispatch_decode(self, *, active: np.ndarray, params_list, payload=None) -> None:
-        """Enqueue one decode step over every slot; inputs come from the
-        device last-token tensor, and sampled tokens of active slots merge
-        back into it."""
+        """Enqueue one decode step over every slot. Input tokens come from the
+        device last-token tensor; sampled tokens of active slots merge back
+        into it for the next decode."""
         t0 = time.perf_counter()
-        active_dev = self._to_device(active)
-        logits = self.model.decode_cb(
-            self.params, self._last_tok, self.cache.pools,
-            self._to_device(self.cache.page_table), self._to_device(self.cache.seq_lens),
-            active_dev, page_size=self.config.page_size,
-        )
-        toks = self._sample(logits, params_list)
-        self._last_tok = torch.where(active_dev[:, None], toks[:, None].long(), self._last_tok)
-        finite = torch.isfinite(logits[active_dev]).all()
-        self._inflight.append(InflightStep("decode", t0, toks, finite, payload))
+        staged, _ = self._stage_decode(self.cache.page_table, self.cache.seq_lens, active,
+                                       params_list)
+        if self.graph_decode and self._graph is None:
+            self._capture_decode()
+        self._dec_in.copy_(staged, non_blocking=True)
+        if self.graph_decode:
+            self._graph.replay()
+            self.graph_replays += 1
+            logits = self._dec_logits
+        else:
+            logits = self._decode_forward()
+        d = self._dec
+        toks = self._sample(logits, d)
+        act = d["active"] != 0
+        self._last_tok.copy_(torch.where(act[:, None], toks[:, None].long(), self._last_tok))
+        finite = (torch.isfinite(logits).all(-1) | ~act).all()
+        self._record("decode", t0, toks, finite, staged, payload)
 
+    # -- harvest -----------------------------------------------------------
     def harvest_one(self):
         """Wait for the oldest dispatched step and return ``(step, tokens)``
-        as a numpy array; None when nothing is in flight. Each step is
-        charged the wall time from max(its dispatch, the previous harvest)
-        to the moment its tokens reached the host."""
+        (tokens as numpy, None for a non-final prefill chunk); None when
+        nothing is in flight. Each step is charged the wall time from
+        max(its dispatch, the previous harvest) to the moment its results
+        reached the host, so the charges sum to the elapsed wall time when
+        the card is saturated."""
         if not self._inflight:
             return None
         rec = self._inflight.popleft()
-        toks = rec.toks.cpu().numpy()
-        if not bool(rec.finite):
+        if rec.done is not None:
+            rec.done.synchronize()
+        out = rec.out.numpy()
+        toks = out[:rec.n_tokens].copy() if rec.n_tokens else None
+        if not out[-1]:
             self.nonfinite_steps += 1
         t_done = time.perf_counter()
         dt = t_done - max(rec.t_dispatch, self._t_last_harvest)

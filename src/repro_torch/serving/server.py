@@ -1,18 +1,44 @@
 """The continuous-batching server of the port (counterpart of
-``repro.serving.server`` for whole-prompt prefill at dispatch depth 0).
+``repro.serving.server`` without speculative decoding, the tracer and the
+metrics registry; its counters are plain fields of :class:`ServerStats`).
+
+The :class:`~repro_torch.serving.engine.EngineCore` owns the device (the
+StateStore, the steps, the sampling generator, the last-token tensor, the
+decode graph and the window of dispatched steps); the :class:`Server` owns
+the requests (scheduler, admission, prompts, commits and streaming).
 
 One :meth:`Server.step`:
 
-  1. admit queued requests into free slots (pages permitting);
-  2. prefill each newly admitted request's whole prompt, padded up to a
-     multiple of ``prefill_bucket``; the step samples its first token;
-  3. run ONE decode step over every slot, active or not (one fixed shape);
-  4. harvest: copy the sampled tokens to the host, commit them, finish
-     requests at their length or EOS, and emit :class:`TokenEvent`s.
+  1. admit queued requests into free slots (pages and budget permitting),
+     mapping cached prefixes and possibly preempting;
+  2. dispatch one prompt chunk per prefilling request: one single-row step
+     each, or (``prefill_batch``) every prefilling slot packed into one
+     ``(P, chunk)`` step, P bucketed to {1, 2, 4, 8}. The final chunk
+     samples the request's first token on the device;
+  3. dispatch ONE decode step over every slot; its tokens merge into the
+     engine's last-token tensor, so the next decode can be dispatched
+     without waiting for this one;
+  4. harvest the oldest steps in flight down to ``async_depth``: commit
+     tokens and prefix pages, stamp latency marks, emit
+     :class:`TokenEvent`s.
+
+At ``async_depth=0`` every step is harvested in the iteration that
+dispatched it. The dispatch sequence does not depend on the depth, so
+greedy outputs are the same at every depth. Host bookkeeping is
+optimistic at dispatch (page growth, seq_lens, per-request dispatch
+cursors) and authoritative at harvest (committed tokens, prefix
+publishing, latency marks, finishes). An EOS learnt at harvest may leave
+up to ``async_depth`` stale decode steps in flight; their tokens are
+discarded, and their writes touched only the finished request's own
+frontier page.
+
+The static-batch path (:func:`generate_static`) lives here too: the
+ring-buffer baseline that ``launch/serve.py --mode static`` runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, NamedTuple, Optional
 
 import numpy as np
@@ -20,7 +46,7 @@ import torch
 
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serving.engine import EngineCore
-from repro_torch.serving.sampling import GREEDY, SamplingParams
+from repro_torch.serving.sampling import GREEDY, SamplingParams, sample_logits, stack_params
 from repro_torch.serving.scheduler import RUNNING, Request, Scheduler
 
 
@@ -33,13 +59,34 @@ class ServerConfig:
     max_seq_len: int = 256  # per-request prompt + generation cap
     # Total pages including the null page; default: every slot's worst case.
     num_pages: Optional[int] = None
-    prefill_bucket: int = 32  # prompts pad up to a multiple of this
+    token_budget: Optional[int] = None  # cap on sum(max_total) in flight
+    prefill_bucket: int = 32  # unchunked prompts pad up to a multiple of this
+    # Chunked prefill: prompts advance one fixed-size chunk per step,
+    # interleaved with decode steps. None = whole-prompt prefill.
+    prefill_chunk: Optional[int] = None
+    # Prefix caching: published full prompt pages are shared (refcounted,
+    # copy-on-write on a partial tail) into later requests with the same
+    # prompt prefix.
+    prefix_cache: bool = False
+    # A queued higher-priority request may evict a strictly lower-priority
+    # request that is still prefilling.
+    preemption: bool = False
+    # Admission passes a queued request waits per priority level gained.
+    aging_steps: int = 32
+    # Device steps that may be in flight before the host waits for the
+    # oldest. 0 = synchronous; greedy outputs are the same at every depth.
+    async_depth: int = 0
+    # Pack every prefilling slot into one (P, prefill_chunk) step, P
+    # bucketed to {1, 2, 4, 8} (clamped to num_slots). Needs prefill_chunk.
+    prefill_batch: bool = False
 
     @property
     def pages_per_slot(self) -> int:
         return -(-self.max_seq_len // self.page_size)
 
     def bucket(self, prompt_len: int) -> int:
+        if self.prefill_chunk is not None:
+            return self.prefill_chunk
         b = self.prefill_bucket
         return -(-prompt_len // b) * b
 
@@ -58,13 +105,19 @@ class TokenEvent(NamedTuple):
 class ServerStats:
     """Plain counters of one run."""
 
-    prefill_calls: int = 0
-    prefill_tokens: int = 0
+    prefill_calls: int = 0  # prefill chunk advances committed
+    prefill_tokens: int = 0  # valid prompt tokens prefilled
     decode_steps: int = 0
     decode_tokens: int = 0  # tokens sampled for active slots
     slot_steps: int = 0  # decode_steps * num_slots
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    # Prompt tokens served from the prefix cache, and all prompt tokens
+    # admitted (a preempted request's resume counts again).
+    prefix_hit_tokens: int = 0
+    prefix_prompt_tokens: int = 0
+    cow_copies: int = 0  # copy-on-write page copies
+    preemptions: int = 0  # prefilling requests evicted back to the queue
     nonfinite_steps: int = 0  # steps whose live logits held inf or NaN
 
     @property
@@ -73,127 +126,369 @@ class ServerStats:
         return self.decode_tokens / self.slot_steps if self.slot_steps else 0.0
 
     @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from the prefix cache."""
+        if not self.prefix_prompt_tokens:
+            return 0.0
+        return self.prefix_hit_tokens / self.prefix_prompt_tokens
+
+    @property
     def decode_tok_s(self) -> float:
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
+
+    @property
+    def total_s(self) -> float:
+        return self.prefill_s + self.decode_s
+
+
+@dataclasses.dataclass
+class _DispatchState:
+    """Per-request host cursor of work dispatched (``req.prefilled`` and
+    ``req.out_tokens`` advance only at harvest). ``epoch`` is
+    ``req.preemptions`` at install: a step dispatched before a preemption
+    carries the old epoch, and its harvest is skipped."""
+
+    prefilled: int
+    generated: int
+    epoch: int
 
 
 class Server:
     """Continuous-batching inference server over the engine's StateStore.
     The model's engine decides the path: on the ``"cuda"`` backend every
-    GEMM and the decode attention launch the port's kernels.
+    GEMM and the decode attention launch the port's kernels, and the decode
+    step is a CUDA graph.
 
     ``device`` is the card by default; it raises when CUDA is absent unless
     the caller asks for ``"cpu"``, and the model must live there."""
 
     def __init__(self, model, params, config: Optional[ServerConfig] = None, *,
                  seed: int = 0, device="cuda"):
+        if config is None:
+            config = ServerConfig()
+        if config.async_depth < 0:
+            raise ValueError("async_depth must be >= 0")
+        if config.prefill_batch and config.prefill_chunk is None:
+            raise ValueError("prefill_batch packs (P, prefill_chunk) steps and needs a fixed "
+                             "chunk shape: set prefill_chunk")
         device = resolve_device(device)
         if model.device.type != device.type:
             raise ValueError(f"the model lives on {model.device}, the server on {device}")
         self.model = model
         self.params = params
-        self.config = config if config is not None else ServerConfig()
-        profile = model.cb_profile()
-        if profile.has_state_rows or profile.kv_window is not None:
+        self.config = config
+        self.profile = model.cb_profile()
+        if self.profile.has_state_rows or self.profile.kv_window is not None:
             raise NotImplementedError(
                 "the port's StateStore holds full-length KV pages only (no state rows, no window)")
-        self.engine = EngineCore(model, params, self.config, seed=seed)
-        self.engine.fresh()
-        self.scheduler = Scheduler(
-            num_slots=self.config.num_slots, pool=self.cache.allocator,
-            pages_per_slot=self.config.pages_per_slot, max_seq_len=self.config.max_seq_len,
-        )
-        self.stats = ServerStats()
-        self.results: dict[int, Request] = {}
-        # Tokens dispatched per running request; committed tokens lag by
-        # the steps still in flight.
-        self._generated: dict[int, int] = {}
+        self.prefix_cache = config.prefix_cache  # the reference's auto-disable cases raise above
+        self.engine = EngineCore(model, params, config, self.profile, seed=seed)
+        self._fresh_state()
 
     @property
     def cache(self):
+        """The engine's StateStore (page table, seq_lens, pools)."""
         return self.engine.cache
 
-    def submit(self, prompt: Iterable[int], *, max_new_tokens: int = 32,
-               sampling: SamplingParams = GREEDY, eos_id: Optional[int] = None) -> Request:
-        return self.scheduler.submit(Request(
-            prompt=[int(t) for t in prompt], max_new_tokens=max_new_tokens,
-            sampling=sampling, eos_id=eos_id,
-        ))
+    @property
+    def seed(self) -> int:
+        return self.engine.seed
 
+    @seed.setter
+    def seed(self, value: int) -> None:
+        self.engine.seed = value
+
+    def _fresh_state(self, pools=None) -> None:
+        cfg = self.config
+        self.engine.fresh(pools=pools)
+        self.scheduler = Scheduler(
+            num_slots=cfg.num_slots, pool=self.cache.allocator,
+            pages_per_slot=cfg.pages_per_slot, max_seq_len=cfg.max_seq_len,
+            token_budget=cfg.token_budget, kv_reserve_tokens=self.engine.reserve_tokens_cap(),
+            prefix_cache=self.prefix_cache, preemption=cfg.preemption,
+            aging_steps=cfg.aging_steps,
+        )
+        self.stats = ServerStats()
+        self.results: dict[int, Request] = {}
+        self._slot_req: dict[int, Request] = {}  # slot -> running request
+        self._disp: dict[int, _DispatchState] = {}  # rid -> dispatch cursor
+
+    def reset(self) -> None:
+        """Drop all serving state; keep the pools (stale K/V are never read
+        back as valid) and with them the decode graph. Steps in flight are
+        harvested first and their events discarded."""
+        self._drain([])
+        self._fresh_state(pools=self.cache.pools)
+
+    # -- request intake ----------------------------------------------------
+    def submit(self, prompt: Iterable[int], *, max_new_tokens: int = 32,
+               sampling: SamplingParams = GREEDY, eos_id: Optional[int] = None,
+               priority: int = 0) -> Request:
+        req = self.scheduler.submit(Request(
+            prompt=[int(t) for t in prompt], max_new_tokens=max_new_tokens,
+            sampling=sampling, eos_id=eos_id, priority=priority,
+        ))
+        req.t_submit = req.t_queued = time.perf_counter()
+        return req
+
+    # -- the step loop -----------------------------------------------------
     @torch.inference_mode()
     def step(self) -> list[TokenEvent]:
-        """One scheduler iteration: admit, prefill the admitted, decode
-        every slot, harvest. Returns the tokens harvested. Runs under
+        """One scheduler iteration: admit, dispatch one prefill chunk per
+        prefilling request (batched with ``prefill_batch``) and one decode
+        over every slot, then harvest down to ``async_depth``. Returns the
+        tokens harvested (possibly none while work is in flight). Runs under
         ``torch.inference_mode``: serving records no autograd graph."""
         events: list[TokenEvent] = []
-        for req in self.scheduler.admit():
-            self._dispatch_prefill(req)
-        decoding = [(slot, req) for slot, req in self.scheduler.running.items()
-                    if req.decoding and self._generated[req.rid] < self._gen_cap(req)]
+        for req in self.scheduler.admit(on_preempt=self._on_preempt):
+            self._install(req)
+        self._sync_scheduler_stats()
+        prefilling = [req for req in self.scheduler.running.values()
+                      if self._dispatch_prefilling(req)]
+        dispatched = 0
+        if prefilling:
+            if self.config.prefill_batch:
+                dispatched += self._dispatch_prefill_batched(prefilling)
+            else:
+                for req in prefilling:
+                    self._dispatch_prefill_serial(req)
+                    dispatched += 1
+        decoding = self._decode_candidates()
         if decoding:
             self._dispatch_decode(decoding)
-        while self._harvest_one(events):
-            pass
-        self._sync_stats()
+            dispatched += 1
+        while self.engine.num_inflight > self.config.async_depth:
+            self._harvest_one(events)
+        if not dispatched and self.engine.num_inflight:
+            # Everything admissible is in flight: consume one result so the
+            # loop always moves toward the drain.
+            self._harvest_one(events)
         return events
 
     def run(self) -> dict[int, Request]:
         """Drain the queue; returns {rid: finished Request}."""
         while self.scheduler.has_work():
             self.step()
+        self._drain([])  # EOS-overshoot leftovers; their commits are stale
         return dict(self.results)
 
     def stream(self):
         """Generator over TokenEvents until all submitted work finishes."""
         while self.scheduler.has_work():
             yield from self.step()
+        tail: list[TokenEvent] = []
+        self._drain(tail)
+        yield from tail
+
+    def ttft_percentiles(self, qs=(50, 95)) -> Optional[tuple[float, ...]]:
+        """Submit -> first-token wall seconds at the given percentiles over
+        finished requests (queueing included); None before any finished."""
+        ttft = [r.t_first_token - r.t_submit for r in self.results.values()
+                if r.t_first_token is not None]
+        if not ttft:
+            return None
+        return tuple(float(np.percentile(ttft, q)) for q in qs)
+
+    def warmup(self, prompt_lens: Iterable[int], max_new_tokens: int = 2) -> None:
+        """Run every prefill bucket the given prompt lengths hit and the
+        decode step once (on the card: build the kernels and capture the
+        decode graph), then reset, so a timed run right after measures the
+        steady state."""
+        seen: set[int] = set()
+        for pl in prompt_lens:
+            tb = self.config.bucket(pl)
+            if tb in seen:
+                continue
+            seen.add(tb)
+            self.submit([1] * pl, max_new_tokens=max_new_tokens)
+        self.run()
+        self.reset()
 
     # -- internals ---------------------------------------------------------
+    def _sync_scheduler_stats(self) -> None:
+        s = self.scheduler
+        self.stats.prefix_hit_tokens = s.prefix_hit_tokens
+        self.stats.prefix_prompt_tokens = s.prefix_prompt_tokens
+        self.stats.preemptions = s.preemptions
+
     def _gen_cap(self, req: Request) -> int:
+        """Tokens this request may generate in total: dispatch stops exactly
+        where ``scheduler.commit`` will declare FINISH_LENGTH."""
         return max(0, min(req.max_new_tokens, req.max_total - req.prompt_len))
+
+    def _dispatch_prefilling(self, req: Request) -> bool:
+        ds = self._disp.get(req.rid)
+        return ds is not None and ds.prefilled < req.prompt_len
+
+    def _decode_candidates(self) -> list:
+        out = []
+        for slot, req in self.scheduler.running.items():
+            ds = self._disp.get(req.rid)
+            if ds is None or ds.prefilled < req.prompt_len:
+                continue
+            if ds.generated >= self._gen_cap(req):
+                continue
+            out.append((slot, req, ds))
+        return out
 
     def _mirror_pages(self, req: Request, grown) -> None:
         for idx, page in grown:
             self.cache.set_page(req.slot, idx, page)
 
-    def _dispatch_prefill(self, req: Request) -> None:
-        n = req.prompt_len
-        self._mirror_pages(req, self.scheduler.ensure_pages(req, n))
-        toks = np.zeros((1, self.config.bucket(n)), np.int32)
-        toks[0, :n] = req.prompt
-        self.engine.dispatch_prefill(
-            tokens=toks, page_row=self.cache.page_table[req.slot], slot=req.slot,
-            start=0, n=n, sampling=req.sampling, payload=req,
-        )
-        req.prefilled = n
-        self._generated[req.rid] = 1  # the prefill samples the first token
-        self.cache.seq_lens[req.slot] = n
+    def _on_preempt(self, slot: int) -> None:
+        """The scheduler evicted this slot's request: NULL its page-table
+        row and drop its dispatch cursor (its steps in flight carry the old
+        epoch and are skipped at harvest)."""
+        self.cache.reset_slot(slot)
+        req = self._slot_req.pop(slot, None)
+        if req is not None:
+            self._disp.pop(req.rid, None)
+            req.t_queued = time.perf_counter()
 
-    def _dispatch_decode(self, decoding) -> None:
+    def _install(self, req: Request) -> None:
+        """Wire a newly admitted request into the device state: mirror its
+        prefix pages, run the copy-on-write copies, and start its committed
+        length at the cached prefix."""
+        req.t_admit = time.perf_counter()
+        self._slot_req[req.slot] = req
+        self._disp[req.rid] = _DispatchState(prefilled=req.prefilled,
+                                             generated=len(req.out_tokens),
+                                             epoch=req.preemptions)
+        self._mirror_pages(req, list(enumerate(req.pages)))
+        for src, dst in req.pending_copies:
+            self.engine.copy_page(src, dst)
+            self.stats.cow_copies += 1
+        req.pending_copies = []
+        self.cache.seq_lens[req.slot] = req.prefilled
+
+    # -- dispatch (optimistic host state) ----------------------------------
+    def _dispatch_prefill_serial(self, req: Request) -> None:
+        """Dispatch one prompt chunk of one slot. A prefix-hit request starts
+        at its first uncached position and gathers the mapped pages back,
+        so it always takes the chunked step, even with chunked prefill off
+        (the suffix then runs as one bucketed chunk)."""
+        cfg = self.config
+        ds = self._disp[req.rid]
+        start = ds.prefilled
+        if cfg.prefill_chunk is None:
+            n = req.prompt_len - start
+            tb = cfg.bucket(n)
+            kind = "prefill_chunk" if start > 0 else "prefill_full"
+        else:
+            n = min(cfg.prefill_chunk, req.prompt_len - start)
+            tb = cfg.prefill_chunk
+            kind = "prefill_chunk"
+        self._mirror_pages(req, self.scheduler.ensure_pages(req, start + n))
+        toks = np.zeros((1, tb), np.int32)
+        toks[0, :n] = req.prompt[start:start + n]
+        final = start + n == req.prompt_len
+        self.engine.dispatch_prefill(
+            kind=kind, tokens=toks, page_row=self.cache.page_table[req.slot], slot=req.slot,
+            start=start, n=n, sampling=req.sampling if final else None,
+            payload=[(req, ds.epoch, start, n, final)],
+        )
+        ds.prefilled = start + n
+        if final:
+            ds.generated += 1  # the final chunk samples the first token
+        self.cache.seq_lens[req.slot] = ds.prefilled
+
+    def _dispatch_prefill_batched(self, prefilling: list) -> int:
+        """Dispatch every prefilling request's next chunk as (P, chunk)
+        steps, P bucketed to the engine's allowed set. Pad rows are inactive
+        and carry a slot id apart from the group's active slots (the
+        reference's rule: a pad's masked state write-back must not race a
+        real row's; here it writes the old last token back). Returns the
+        number of steps dispatched."""
+        cfg = self.config
+        chunk = cfg.prefill_chunk
+        max_b = self.engine.allowed_buckets()[-1]
+        dispatched = 0
+        for i in range(0, len(prefilling), max_b):
+            group = prefilling[i:i + max_b]
+            if len(group) == 1:
+                # A lone prefilling request takes the serial (1, chunk) step.
+                self._dispatch_prefill_serial(group[0])
+                dispatched += 1
+                continue
+            p = self.engine.bucket_for(len(group))
+            toks = np.zeros((p, chunk), np.int32)
+            page_rows = np.zeros((p, cfg.pages_per_slot), np.int32)
+            slots = np.zeros((p,), np.int32)
+            starts = np.zeros((p,), np.int32)
+            lengths = np.zeros((p,), np.int32)
+            active = np.zeros((p,), bool)
+            final_mask = np.zeros((p,), bool)
+            sampling_list = [GREEDY] * p
+            rows = []
+            used = set()
+            for r, req in enumerate(group):
+                ds = self._disp[req.rid]
+                start = ds.prefilled
+                n = min(chunk, req.prompt_len - start)
+                self._mirror_pages(req, self.scheduler.ensure_pages(req, start + n))
+                toks[r, :n] = req.prompt[start:start + n]
+                page_rows[r] = self.cache.page_table[req.slot]
+                slots[r] = req.slot
+                starts[r] = start
+                lengths[r] = n
+                active[r] = True
+                final = start + n == req.prompt_len
+                final_mask[r] = final
+                sampling_list[r] = req.sampling
+                used.add(req.slot)
+                rows.append((req, ds.epoch, start, n, final))
+            pad_slots = [s for s in range(cfg.num_slots) if s not in used]
+            for r in range(len(group), p):
+                slots[r] = pad_slots[0]  # pads may share a slot between them
+            self.engine.dispatch_prefill_batch(
+                tokens=toks, page_rows=page_rows, slots=slots, starts=starts, lengths=lengths,
+                active=active, final_mask=final_mask, sampling_list=sampling_list,
+                payload=rows,
+            )
+            dispatched += 1
+            for req, _, start, n, final in rows:
+                ds = self._disp[req.rid]
+                ds.prefilled = start + n
+                if final:
+                    ds.generated += 1
+                self.cache.seq_lens[req.slot] = ds.prefilled
+        return dispatched
+
+    def _dispatch_decode(self, decoding: list) -> None:
         n = self.config.num_slots
         active = np.zeros((n,), bool)
         params_list = [GREEDY] * n
-        for slot, req in decoding:
+        rows = []
+        for slot, req, ds in decoding:
             grown = self.scheduler.ensure_page(req, int(self.cache.seq_lens[slot]))
             if grown is not None:
                 self._mirror_pages(req, [grown])
             active[slot] = True
             params_list[slot] = req.sampling
-        self.engine.dispatch_decode(active=active, params_list=params_list,
-                                    payload=list(decoding))
-        for slot, req in decoding:
-            self._generated[req.rid] += 1
+            rows.append((slot, req, ds.epoch))
+        self.engine.dispatch_decode(active=active, params_list=params_list, payload=rows)
+        for slot, req, ds in decoding:
+            ds.generated += 1
             self.cache.seq_lens[slot] += 1
 
+    # -- harvest (authoritative commits) -----------------------------------
+    def _drain(self, events: list[TokenEvent]) -> None:
+        while self._harvest_one(events):
+            pass
+
     def _harvest_one(self, events: list[TokenEvent]) -> bool:
+        """Consume the oldest step in flight: commit its tokens and prefix
+        state and emit TokenEvents. Rows whose request was preempted (old
+        epoch) or already finished (EOS overshoot) are discarded. Returns
+        False when nothing was in flight."""
         res = self.engine.harvest_one()
         if res is None:
             return False
         rec, toks = res
         if rec.kind == "decode":
             committed = 0
-            for slot, req in rec.payload:
-                if req.status != RUNNING or req.slot != slot:
+            for slot, req, epoch in rec.payload:
+                if req.status != RUNNING or req.preemptions != epoch or req.slot != slot:
                     continue
                 self._commit(req, int(toks[slot]), events)
                 committed += 1
@@ -201,26 +496,97 @@ class Server:
             self.stats.slot_steps += self.config.num_slots
             self.stats.decode_tokens += committed
         else:
-            req = rec.payload
-            self.stats.prefill_calls += 1
-            self.stats.prefill_tokens += req.prompt_len
-            if req.status == RUNNING:
-                self._commit(req, int(toks[0]), events)
+            for i, (req, epoch, start, n, final) in enumerate(rec.payload):
+                if req.status != RUNNING or req.preemptions != epoch:
+                    continue
+                req.prefilled = start + n
+                self.scheduler.publish_prefix(req)
+                self.stats.prefill_calls += 1
+                self.stats.prefill_tokens += n
+                if final:
+                    self._commit(req, int(toks[i]), events)
+        self.stats.prefill_s = self.engine.prefill_s
+        self.stats.decode_s = self.engine.decode_s
+        self.stats.nonfinite_steps = self.engine.nonfinite_steps
         return True
 
     def _commit(self, req: Request, token: int, events: list[TokenEvent]) -> None:
+        """Commit one harvested token; latency marks are stamped here, where
+        its value reaches the host, never at dispatch."""
+        now = time.perf_counter()
+        if req.t_first_token is None:
+            req.t_first_token = now
+        req.t_last_token = now
         finished = self.scheduler.commit(req, token)
         events.append(TokenEvent(rid=req.rid, token=token, index=req.num_generated - 1,
                                  finished=finished, finish_reason=req.finish_reason))
         if finished:
             slot = req.slot
+            req.t_finish = now
             self.scheduler.finish(req)
             self.cache.reset_slot(slot)
             self.results[req.rid] = req
-            self._generated.pop(req.rid, None)
+            self._slot_req.pop(slot, None)
+            self._disp.pop(req.rid, None)
 
-    def _sync_stats(self) -> None:
-        self.stats.prefill_s = self.engine.prefill_s
-        self.stats.decode_s = self.engine.decode_s
-        self.stats.nonfinite_steps = self.engine.nonfinite_steps
 
+# -- static-batch reference path ---------------------------------------------
+
+class StaticStats(NamedTuple):
+    prefill_s: float
+    first_decode_s: float  # the first decode step, excluded from tok/s
+    steady_s: float
+    steady_steps: int
+    batch: int
+
+    @property
+    def decode_tok_s(self) -> float:
+        if not self.steady_steps or not self.steady_s:
+            return 0.0
+        return self.batch * self.steady_steps / self.steady_s
+
+
+def _wait(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def generate_static(model, params, batch: dict, *, max_new_tokens: int,
+                    sampling: SamplingParams = GREEDY, seed: int = 0):
+    """Static-batch generation on the ring-buffer cache: every sequence
+    shares one position, and the batch runs ``max_new_tokens`` steps
+    whatever each sequence needs. batch: {"tokens": (B, T)} on the model's
+    device. Returns (generated (B, max_new_tokens) numpy array,
+    :class:`StaticStats`); steady-state tok/s excludes the prefill and the
+    first decode step."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    dev = model.device
+    cache = model.init_cache(b, t + max_new_tokens)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sp = {k: torch.from_numpy(v).to(dev) for k, v in stack_params([sampling] * b).items()}
+
+    def pick(logits):
+        return sample_logits(logits, gen, **sp)[:, None]
+
+    t0 = time.perf_counter()
+    tok = pick(model.prefill(params, {"tokens": tokens}, cache)[:, -1])
+    _wait(dev)
+    prefill_s = time.perf_counter() - t0
+    out = [tok]
+    first_decode_s = steady_s = 0.0
+    steady_steps = 0
+    for i in range(max_new_tokens - 1):
+        t0 = time.perf_counter()
+        tok = pick(model.decode_step(params, tok.long(), cache)[:, 0])
+        _wait(dev)
+        dt = time.perf_counter() - t0
+        if i == 0:
+            first_decode_s = dt
+        else:
+            steady_s += dt
+            steady_steps += 1
+        out.append(tok)
+    seqs = torch.cat(out, dim=1).cpu().numpy()
+    return seqs, StaticStats(prefill_s, first_decode_s, steady_s, steady_steps, b)

@@ -312,7 +312,7 @@ def test_serving_steps_route_as_on_the_card(monkeypatch):
     page_row = torch.arange(1, 10, dtype=torch.int32)
     with torch.inference_mode():
         tokens = torch.randint(0, model.cfg.vocab_size, (1, 32))
-        model.prefill_cb(params, tokens, pools, page_row, 0, 30, page_size=ps)
+        model.prefill_cb(params, tokens, pools, page_row, 0, 0, 30, page_size=ps)
         prefill = rec.take()
         pt = torch.arange(1, 37, dtype=torch.int32).reshape(4, 9)
         model.decode_cb(params, torch.randint(0, model.cfg.vocab_size, (4, 1)), pools, pt,

@@ -101,7 +101,7 @@ def _prefill_and_decode(model, params, tmodel, tparams, feed=None):
                                    jnp.int32(0), jnp.int32(0), jnp.int32(7), page_size=ps)
     with torch.inference_mode():
         got = tmodel.prefill_cb(tparams, torch.from_numpy(toks), tpools,
-                                torch.from_numpy(page_row), 0, 7, page_size=ps)
+                                torch.from_numpy(page_row), 0, 0, 7, page_size=ps)
     assert got.shape == (1, model.cfg.vocab_size)
     pairs = [(np.asarray(want)[0], got[0].numpy())]
 
@@ -166,7 +166,8 @@ def test_fused_decode_on_the_plain_backend_matches_gathered_decode_in_fp32():
         toks = torch.arange(16).reshape(2, 8) % model.cfg.vocab_size
         with torch.inference_mode():
             for slot, n in ((0, 8), (1, 5)):
-                model.prefill_cb(tparams, toks[slot:slot + 1], pools, pt[slot], 0, n, page_size=4)
+                model.prefill_cb(tparams, toks[slot:slot + 1], pools, pt[slot], slot, 0, n,
+                                 page_size=4)
             outs.append(model.decode_cb(
                 tparams, torch.tensor([[3], [4]]), pools, pt,
                 torch.tensor([8, 5], dtype=torch.int32), torch.tensor([True, True]),
