@@ -10,8 +10,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (one ``nvcc`` per source, all started together);
 3. the GEMM-Op kernel against its plain PyTorch version, on the card:
    all seven Table-1 ops, ragged, batched, broadcast and transposed
-   operands, and the serving path's shapes, each with the schedule it
-   takes and the share of its outputs that differ from the plain version;
+   operands, and the serving path's shapes (phase 13's verify and MoE
+   drafter shapes among them), each with the schedule it takes and the
+   share of its outputs that differ from the plain version;
    then each schedule (tensor cores, small rows, SIMT) at its edges: the
    rows around the small-row threshold, K-major and strided operands (the
    latter through the K-major copy), K not a multiple of 128, the E5M2
@@ -25,7 +26,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    split, on a split boundary and in the last, whole splits dead by
    length, by NULL pages and by the window, an inactive slot and softcap
    with splits, the long-context shape (16 slots of 4096 tokens), and one
-   case run twice, which must give the same bits;
+   case run twice, which must give the same bits; the grid includes phase
+   13's drafter shape (hd 64, 16/8 heads);
 5. the dense flash-attention kernel against its plain version (granite's
    and gemma2's shapes in fp32, fp16 and bf16, a ragged non-causal case,
    and the tensor-core kernel's edges: Sq not a multiple of 128,
@@ -64,6 +66,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
     and prefix-hit prefill within 1e-4 of the whole prompt and the same
     greedy tokens from four servers. Each run prints decode tok/s,
     prefill s, wall, peak memory and the decode graph's busy share;
+13. speculative decoding, right after phase 12 on its model: (a) the
+    rejection sampler on the card, TV < 0.05 at N = 4000 for drafter
+    logits and deterministic drafts, greedy rows' decisions equal to the
+    CPU's; (b) at full width with 2 layers, granite-3-8b's ``verify_cb``
+    and the MoE drafter's (granite-moe-1b-a400m) prefill, catch-up and
+    decode, kernels against the plain path at phase 7's bounds (but the
+    drafter's catch-up under redmule_hfp8 at 3e-3, with the router gate
+    behind its difference logged); (c) the
+    new shapes in phases 3, 4 and 11; (d) granite-3-8b at 40 layers with
+    k = 4: 8 requests of repeated motifs, 32 new tokens each, plain with
+    the decode graph, then speculative with the n-gram drafter and with
+    granite-moe-1b-a400m at 24 layers (E4M3 weights and pages) as the
+    drafter: each graph (verify, drafter catch-up, drafter decode)
+    captured once, verify replays equal to rounds, each graph step's
+    launches read at its warm-up and capture (verify GEMMs on the tensor
+    cores; drafter decode GEMMs on small rows but the fp32 routers, SIMT;
+    one paged decode a layer a draft step); decode tok/s against the plain
+    graph, acceptance, accepted a round, verify replay ms, drafter round
+    ms, peak memory; greedy tokens against the plain run's with the
+    divergence accounting, which a planted off-by-one (draft i + 1 judged
+    by ``logits[:, i + 1]``) must fail at this depth; the model drafter
+    at temperature 1.0 with an acceptance above 0; (e) fp32 at 2 layers:
+    greedy speculative tokens equal to plain decode with both drafters and
+    no pages left held, and the planted off-by-one must fail that check;
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -86,6 +112,7 @@ neither JAX nor the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -246,6 +273,10 @@ def phase_gemm() -> float:
                 n += 1
                 if gop.is_gemm and pol_name == "redmule_hfp8":
                     worst = max(worst, e)
+    # The MoE router (phase 13): fp32 on the SIMT schedule, the catch-up's 64 rows.
+    _gemm_check("fp32/matmul/moe router 64x1024x32", rand(64, 1024), rand(1024, 32, scale=0.02),
+                None, semiring.MATMUL, get_policy("fp32"))
+    n += 1
     bf16 = get_policy("tpu_bf16")
     for label, (x, w) in {"2d": (rand(37, 129), rand(129, 70)),
                           "transposed-w": (rand(5, 37, 129), rand(70, 129).T)}.items():
@@ -261,6 +292,7 @@ def phase_gemm() -> float:
     # | 32 fresh] keys, concatenated and permuted as the layer does.
     chunk_k = torch.cat([rand(1, 112, 8, 128), rand(1, 32, 8, 128)], 1).permute(0, 2, 3, 1)
     chunk_v = torch.cat([rand(1, 112, 8, 128), rand(1, 32, 8, 128)], 1).permute(0, 2, 1, 3)
+    verify_k = torch.cat([rand(4, 128, 8, 128), rand(4, 5, 8, 128)], 1)
     main = {
         "decode 4x4096x12800": (rand(4, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
         "prefill 64x4096x12800": (rand(64, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
@@ -273,6 +305,22 @@ def phase_gemm() -> float:
             torch.rand(1, 8, 4 * 32, 144, generator=gen, device=dev), chunk_v),
         "batched prefill (4,32)x4096x12800": (rand(4, 32, 4096),
                                               rand(4096, 12800, scale=4096 ** -0.5)),
+        # Phase 13's speculative shapes: the verify step's 20 rows (4 slots x
+        # 5 positions, on the tensor cores) and its two attention products
+        # over 8-page rows (128 gathered keys and 5 fresh); the MoE drafter's
+        # expert GEMMs (decode on small rows, catch-up at 64 rows) and logits.
+        "verify 20x4096x12800": (rand(20, 4096), rand(4096, 12800, scale=4096 ** -0.5)),
+        "verify 20x4096x1024 (k, v)": (rand(20, 4096), rand(4096, 1024, scale=4096 ** -0.5)),
+        "verify 20x4096x4096 (q, o)": (rand(20, 4096), rand(4096, 4096, scale=4096 ** -0.5)),
+        "verify logits 20x4096x49155 (table.T)": (rand(20, 4096), table.T),
+        "verify scores (4,8)x20x128x133": (rand(4, 8, 4 * 5, 128), verify_k.permute(0, 2, 3, 1)),
+        "verify values (4,8)x20x133x128": (
+            torch.rand(4, 8, 4 * 5, 133, generator=gen, device=dev), verify_k.permute(0, 2, 1, 3)),
+        "moe decode 4x1024x16384": (rand(4, 1024), rand(1024, 16384, scale=1024 ** -0.5)),
+        "moe decode 4x16384x1024": (rand(4, 16384), rand(16384, 1024, scale=512 ** -0.5)),
+        "moe catch-up 64x1024x16384": (rand(64, 1024), rand(1024, 16384, scale=1024 ** -0.5)),
+        "drafter logits 4x1024x49155 (table.T)": (rand(4, 1024),
+                                                  rand(49155, 1024, scale=0.02).T),
     }
     for label, (x, w) in main.items():
         worst = max(worst, _gemm_check(f"redmule_hfp8/matmul/{label}", x, w, None,
@@ -515,12 +563,15 @@ def phase_decode() -> None:
     cases = [(c, None) for c in DECODE_GRID]
     cases.append(((3, 4, 2, 16, 8, 4, 12, torch.float32, None, ()), 30.0))  # softcap
     cases.append(((4, 32, 8, 128, 16, 7, 29, torch.float8_e4m3fn, None, ()), None))
+    # Phase 13's drafter decode: granite-moe's heads (G = 2, hd 64), E4M3
+    # pages of 16 in 9-page rows (128 + k tokens a slot).
+    cases.append(((4, 16, 8, 64, 16, 9, 37, torch.float8_e4m3fn, None, ()), None))
     worst = {dt: 0.0 for dt in DECODE_TOL}
     for (s, hq, hkv, hd, ps, pps, npg, dt, win, inact), cap in cases:
         q, kp, vp, pt, lens, act = make_decode_case(
             rng, s=s, hq=hq, hkv=hkv, hd=hd, page_size=ps, pages_per_slot=pps,
             n_pages=npg, dtype=dt, window=win, inactive=inact,
-            q_dtype=torch.float16 if hd == 128 else torch.float32)
+            q_dtype=torch.float16 if hd in (64, 128) else torch.float32)
         kw = dict(page_size=ps, window=win, softcap=cap)
         got = ops.paged_decode_attention(q, kp, vp, pt, lens, act, backend="cuda", **kw)
         want = ops.paged_decode_attention(q, kp, vp, pt, lens, act, backend="torch", **kw)
@@ -995,7 +1046,7 @@ def _count_launches(engine, readings: dict) -> None:
         return run
 
     engine.dispatch_prefill = counted("prefill", engine.dispatch_prefill)
-    engine._decode_forward = counted("decode", engine._decode_forward)
+    engine.decode_step.forward = counted("decode", engine.decode_step.forward)
 
 
 def _one_reading(kind: str, readings: list, expect: tuple) -> tuple:
@@ -1123,45 +1174,27 @@ def phase_serve(cfg, model, params) -> dict:
 
 def _record_decode_rows(server, rows: dict) -> None:
     """Keep each decode step's logits row of each active request, keyed by
-    (rid, index of the token it samples), by wrapping the engine's decode
-    dispatch and its sampling."""
-    eng = server.engine
-    dispatch, sample, current = eng.dispatch_decode, eng._sample, []
+    (rid, index of the token it samples) (``record_rows`` of the port's
+    launcher gate)."""
+    from repro_torch.launch.spec_gate import record_rows
 
-    def dispatch_decode(**kw):
-        current[:] = [(slot, req.rid, server._disp[req.rid].generated)
-                      for slot, req, _ in kw["payload"]]
-        try:
-            dispatch(**kw)
-        finally:
-            current.clear()
-
-    def sample_rows(logits, dev):
-        for slot, rid, i in current:
-            rows[(rid, i)] = logits[slot].clone()
-        return sample(logits, dev)
-
-    eng.dispatch_decode, eng._sample = dispatch_decode, sample_rows
+    record_rows(server, rows)
 
 
-def _time_replays(server, spans: list) -> None:
-    """CUDA events around each replay of the decode graph: its device time."""
-    eng = server.engine
-    capture = eng._capture_decode
+def _time_runs(step, spans: list) -> None:
+    """CUDA events around each run of a GraphStep (a replay of its graph,
+    or with ``graph`` False its eager step): its device time."""
+    run = step.run
 
-    def capture_timed():
-        capture()
-        replay = eng._graph.replay
+    def timed():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        spans.append((start, end))
+        return out
 
-        def timed():
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            replay()
-            end.record()
-            spans.append((start, end))
-        eng._graph.replay = timed
-
-    eng._capture_decode = capture_timed
+    step.run = timed
 
 
 def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup=None,
@@ -1181,7 +1214,7 @@ def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup
     server.engine.graph_decode = graph
     rows, spans = {}, []
     _record_decode_rows(server, rows)
-    _time_replays(server, spans)
+    _time_runs(server.engine.decode_step, spans)
     server.warmup(sorted({len(p) for p in prompts}))
     rows.clear()
     spans.clear()
@@ -1455,6 +1488,583 @@ def phase_serving_features(cfg, model, params) -> dict:
     return counts
 
 
+# -- phase 13 --------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_MAX_NEW = 32
+SPEC_DRAFTER = "granite-moe-1b-a400m"
+# Phase 13(b)'s bounds on max|dlogit|/max|logit|, kernels against the plain
+# path: phase 7's, but for the MoE drafter's catch-up under redmule_hfp8.
+# Its router is an fp32 GEMM (as in the reference) on fp16 activations and
+# fp32 weights, whose products are not exact: the SIMT kernel sums them in
+# another order than the plain path's torch.matmul, a router probability
+# moves by an ulp, and now and then its fp16 gate rounds the other way. The
+# catch-up read 8.67e-4 on the card; its bound is a few times that, and the
+# phase logs the router call, row and gate behind the difference. The
+# drafter's prefill and decode keep bound 0.
+SPEC_PARITY_BOUND = {"fp32": 1e-4, "redmule_hfp8": 0.0}
+MOE_CATCH_UP_HFP8_BOUND = 3e-3
+
+
+def _spec_sampler() -> None:
+    """(a) The rejection sampler on the card: the first emitted token over
+    N = 4000 rounds follows the filtered target softmax (TV < 0.05) for
+    drafter logits and for deterministic drafts; on greedy rows the
+    accepted counts and tokens equal the sampler's on the CPU, and the
+    last token is the plain sampler's argmax on the CPU, bit for bit."""
+    from repro_torch.serving.sampling import filter_logits, sample_logits
+    from repro_torch.serving.spec import speculative_sample
+
+    rng = np.random.default_rng(0)
+    v, k, n = 8, 2, 4000
+    tl = torch.from_numpy((rng.standard_normal((1, k + 1, v)) * 2).astype(np.float32))
+    dl = torch.from_numpy((rng.standard_normal((1, k, v)) * 2).astype(np.float32))
+    temp, tk, tp = torch.tensor([0.7]), torch.tensor([0]), torch.tensor([0.9])
+    expect = torch.softmax(filter_logits(tl[:, 0], temp, tk, tp), -1)[0].numpy()
+    dev = "cuda"
+    rep = lambda t: t.repeat_interleave(n, 0).to(dev)  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(42)
+    tvs = {}
+    for mode in ("model q", "onehot q"):
+        if mode == "model q":
+            q = torch.softmax(filter_logits(dl[0], temp.repeat(k), tk.repeat(k), tp.repeat(k)), -1)
+            drafts = torch.multinomial(q.to(dev), n, replacement=True, generator=gen).T
+            draft_logits = rep(dl)
+        else:
+            drafts = torch.randint(0, v, (n, k), generator=gen, device=dev)
+            draft_logits = None
+        out, _ = speculative_sample(rep(tl), drafts, gen, rep(temp), rep(tk), rep(tp),
+                                    torch.full((n,), k + 1, device=dev),
+                                    torch.ones(n, dtype=torch.bool, device=dev),
+                                    draft_logits=draft_logits)
+        emp = np.bincount(out[:, 0].cpu().numpy(), minlength=v) / n
+        tvs[mode] = 0.5 * float(np.abs(emp - expect).sum())
+        if not tvs[mode] < 0.05:
+            raise AssertionError(f"spec (a) {mode}: TV {tvs[mode]:.4f} >= 0.05")
+    # Greedy rows at the serve shape: 4 slots, k = 4, the full vocabulary.
+    s, v = 6, 49155
+    logits = torch.from_numpy(rng.standard_normal((s, SPEC_K + 1, v)).astype(np.float32))
+    drafts = logits[:, :SPEC_K].argmax(-1)
+    miss = torch.from_numpy(rng.random((s, SPEC_K)) < 0.3)
+    drafts = torch.where(miss, torch.from_numpy(rng.integers(0, v, (s, SPEC_K))), drafts)
+    lengths = torch.tensor([5, 5, 3, 1, 0, 4])
+    active = lengths > 0
+    zeros, ones = torch.zeros(s), torch.ones(s)
+    args = (zeros, zeros.long(), ones, lengths, active)
+    got, acc = speculative_sample(logits.to(dev), drafts.to(dev), gen,
+                                  *(a.to(dev) for a in args))
+    want, want_acc = speculative_sample(logits, drafts, torch.Generator().manual_seed(0), *args)
+    got, acc = got.cpu(), acc.cpu()
+    if not torch.equal(acc, want_acc):
+        raise AssertionError(f"spec (a): greedy accepted counts {acc} on the card, {want_acc} "
+                             "on the CPU")
+    plain = [int(sample_logits(logits[r, int(acc[r])][None], torch.Generator(), zeros[:1],
+                               zeros[:1].long(), ones[:1])[0]) for r in range(s)]
+    for r in range(s):
+        if not torch.equal(got[r, :acc[r] + 1], want[r, :acc[r] + 1]) or int(got[r, acc[r]]) != plain[r]:
+            raise AssertionError(f"spec (a): greedy row {r} differs from the CPU's decisions")
+    log(f"spec (a): rejection sampler on the card, TV {tvs['model q']:.4f} (model q), "
+        f"{tvs['onehot q']:.4f} (onehot q) at N = {n}, below 0.05; greedy rows' accepted counts "
+        f"{acc.tolist()} and tokens equal to the CPU's and to the plain sampler's argmax")
+
+
+def _verify_logits(model, params, prompts, width, ps=16):
+    """Each prompt but its last ``width`` tokens prefilled into its own
+    slot, then one ``verify_cb`` over the held-back tokens of every slot
+    (the target's verify step at width 5, the drafter's catch-up at 16).
+    Returns the valid rows' logits, one (width, V) block a slot."""
+    n = len(prompts)
+    pps = max(-(-len(p) // ps) for p in prompts)
+    pt = torch.arange(1, n * pps + 1, dtype=torch.int32, device="cuda").reshape(n, pps)
+    pools = model.init_state_store(n, n * pps + 1, ps)
+    for slot, p in enumerate(prompts):
+        head = torch.from_numpy(p[:-width]).to("cuda")[None]
+        model.prefill_cb(params, head, pools, pt[slot], slot, 0, head.shape[1], page_size=ps)
+    toks = torch.stack([torch.from_numpy(p[-width:]) for p in prompts]).to("cuda")
+    lay = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")  # noqa: E731
+    logits = model.verify_cb(params, toks, pools, pt, lay([len(p) - width for p in prompts]),
+                             lay([width] * n), torch.ones(n, dtype=torch.bool, device="cuda"),
+                             page_size=ps, commit=False)
+    torch.cuda.synchronize()
+    return list(logits)
+
+
+def _recording_routers(calls: list):
+    """Record each MoE router call's (top-k probabilities, top-k experts)
+    in ``calls`` while the context is open."""
+    from repro_torch.models import moe
+
+    router = moe._router
+
+    def recording(params, x2, cfg, engine, aux=True):
+        out = router(params, x2, cfg, engine, aux)
+        calls.append((out[0].float().clone(), out[1].clone()))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        moe._router = recording
+        try:
+            yield
+        finally:
+            moe._router = router
+
+    return ctx()
+
+
+def _gate_witness(got: list, want: list, n_experts: int, n_layers: int,
+                  dtype: torch.dtype) -> str:
+    """Where the two paths' MoE gates part: the first router call and row
+    whose top-k experts or gates in ``dtype`` (the policy's output format,
+    in which the gates multiply the experts' outputs) differ, with the
+    router probabilities there."""
+    name = str(dtype).removeprefix("torch.")
+    if len(got) != len(want):
+        return f"{len(got)} router calls against {len(want)}"
+    dp = 0.0
+    for c, ((pa, ia), (pb, ib)) in enumerate(zip(got, want)):
+        ga = torch.zeros((pa.shape[0], n_experts), device=pa.device).scatter_(1, ia, pa)
+        gb = torch.zeros_like(ga).scatter_(1, ib, pb)
+        dp = max(dp, float((ga - gb).abs().max()))
+        rows = (ga.to(dtype) != gb.to(dtype)).any(-1).nonzero()
+        if len(rows):
+            r = int(rows[0])
+            flip = (ga[r].to(dtype) != gb[r].to(dtype)).nonzero()[:, 0].tolist()
+            same = sorted(ia[r].tolist()) == sorted(ib[r].tolist())
+            return (f"router call {c} (layer {c % n_layers}), row {r} of {pa.shape[0]}: "
+                    f"{'the same' if same else 'different'} top-{ia.shape[1]} experts, "
+                    f"{len(rows)} row(s) with a differing {name} gate; expert(s) {flip}: "
+                    f"probability {[float(ga[r, e]) for e in flip]} (kernels) against "
+                    f"{[float(gb[r, e]) for e in flip]} (plain), {name} gate "
+                    f"{[float(ga[r, e].to(dtype)) for e in flip]} against "
+                    f"{[float(gb[r, e].to(dtype)) for e in flip]}; max|dp| over the row "
+                    f"{float((ga[r] - gb[r]).abs().max()):.3g}")
+    return f"no {name} gate differs; max|dp| over every router call {dp:.3g}"
+
+
+def _spec_parity() -> None:
+    """(b) granite-3-8b's ``verify_cb`` (width 5) and the MoE drafter's
+    prefill, catch-up (``verify_cb`` at width 16) and decode at full width
+    with 2 layers: the kernels' path against the plain path on the card,
+    fed the same tokens, at phase 7's bounds (the drafter's catch-up under
+    redmule_hfp8 at ``MOE_CATCH_UP_HFP8_BOUND``, with the router gate
+    behind its difference logged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.models import build
+    from repro_torch.models.transformer import Transformer
+
+    rng = np.random.default_rng(11)
+    page_table = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    page_table[0, :5] = torch.arange(1, 6)
+    page_table[1, :3] = torch.arange(6, 9)
+    worst, bad = {}, {}
+    for arch, width in (("granite-3-8b", 5), (SPEC_DRAFTER, 16)):
+        prompts = [rng.integers(0, 49155, size=n) for n in (64, 32)]
+        for pol, kv, fp8p in (("fp32", "fp32", False), ("redmule_hfp8", "e4m3", True)):
+            cfg = dataclasses.replace(get_config(arch), n_layers=2, policy=pol,
+                                      kv_cache_dtype=kv, fp8_params=fp8p)
+            cuda_model = build(cfg, device="cuda")
+            params = cuda_model.init(0)
+            plain = Transformer(cfg, engine=Engine(policy=pol, backend="torch"), device="cuda",
+                                fused_decode=True)
+            routers = ([], [])
+            with _recording_routers(routers[0]):
+                got = _verify_logits(cuda_model, params, prompts, width)
+            with _recording_routers(routers[1]):
+                want = _verify_logits(plain, params, prompts, width)
+            step = "verify_cb" if arch != SPEC_DRAFTER else "catch-up"
+            errs = {step: [rel_err(a, b) for a, b in zip(got, want)]}
+            if arch == SPEC_DRAFTER:
+                got, chosen = _slice_run(cuda_model, params, prompts, page_table)
+                want, _ = _slice_run(plain, params, prompts, page_table, forced=chosen[:-1])
+                if not all(torch.isfinite(g).all() for g in got):
+                    raise AssertionError(f"spec (b) {arch} {pol}: non-finite logits")
+                errs["prefill"] = [rel_err(a, b) for a, b in zip(got[:2], want[:2])]
+                errs["decode"] = [rel_err(a, b) for a, b in zip(got[2:], want[2:])]
+            label = f"spec (b) {arch} {pol}"
+            log(f"{label}: max|dlogit|/max|logit| " + ", ".join(
+                f"{k} {max(v):.3g} ({sum(e == 0 for e in v)}/{len(v)} blocks bitwise)"
+                for k, v in errs.items()))
+            if routers[0]:
+                log(f"{label}: routers over the prefills and the catch-up, kernels against "
+                    "plain: " + _gate_witness(*routers, cfg.n_experts, cfg.n_layers,
+                                              cuda_model.policy.out))
+            for name, v in errs.items():
+                bound = (MOE_CATCH_UP_HFP8_BOUND if (arch, pol, name) == (
+                    SPEC_DRAFTER, "redmule_hfp8", "catch-up") else SPEC_PARITY_BOUND[pol])
+                worst[(arch, pol, name)] = (max(v), bound)
+                if not max(v) <= bound:
+                    bad[(arch, pol, name)] = (max(v), bound)
+            del cuda_model, plain, params
+            torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"spec (b): beyond the bounds, (error, bound): {bad}")
+    log(f"spec (b): verify_cb and the MoE drafter's prefill, catch-up and decode within "
+        f"phase 7's bounds (fp32 1e-4, redmule_hfp8 0; the MoE drafter's catch-up under "
+        f"redmule_hfp8 {MOE_CATCH_UP_HFP8_BOUND:g}, for its fp32 router): (error, bound) "
+        + ", ".join(f"{'/'.join(k)} ({e:.3g}, {b:g})" for k, (e, b) in worst.items()))
+
+
+def _spec_prompts(vocab: int) -> list:
+    """The spec launcher's workload: 8 prompts around 64 tokens, each a
+    motif repeated three times, which prompt lookup can draft from."""
+    from repro_torch.launch.serve import mixed_prompt_lens
+
+    rng = np.random.default_rng(7)
+    prompts = []
+    for n in mixed_prompt_lens(64, 8):
+        motif = list(rng.integers(0, vocab, size=max(2, n // 3)))
+        prompts.append((motif * 3)[:max(n, 6)])
+    return prompts
+
+
+def _drafter(policy="redmule_hfp8", kv="e4m3", fp8_params=True, n_layers=None):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config(SPEC_DRAFTER)
+    cfg = dataclasses.replace(cfg, policy=policy, kv_cache_dtype=kv, fp8_params=fp8_params,
+                              n_layers=n_layers or cfg.n_layers)
+    model = build(cfg, device="cuda")
+    return model, model.init(1)
+
+
+def _count_forwards(step, label: str, readings: dict) -> None:
+    """Record, over each eager run of a GraphStep's forward (its warm-up and
+    its capture), the kernels' launch counts (``READING``) and the GEMM
+    calls by (x shape, w shape). A replay ticks no counter."""
+    from repro_torch.kernels import redmule_gemm as rg
+
+    forward = step.forward
+
+    def counted(d, pools):
+        calls, plan_call = collections.Counter(), rg.plan_call
+
+        def recording(x, w, y, **kw):
+            calls[(tuple(x.shape), tuple(w.shape))] += 1
+            return plan_call(x, w, y, **kw)
+
+        rg.plan_call = recording
+        before = _launch_counts()
+        try:
+            out = forward(d, pools)
+        finally:
+            rg.plan_call = plan_call
+        readings.setdefault(label, []).append(
+            (tuple(a - b for a, b in zip(_launch_counts(), before)), calls))
+        return out
+
+    step.forward = counted
+
+
+def _spec_run(label, model, params, prompts, *, spec=None, drafter=None, sampling=None,
+              rows=None, readings=None, graph=True, max_new=SPEC_MAX_NEW, setup=None):
+    """One warmed-up run of ``prompts`` (``max_new`` tokens each) through a
+    Server with the serve run's sizing: plain with the decode graph, or
+    speculative. ``rows`` collects each (request, token index)'s logits row
+    (the decode steps', or the verify steps' rows that emitted a token);
+    ``readings`` the graph steps' eager forwards; ``setup`` sees the server
+    before its warm-up. Returns (server, results, info)."""
+    from repro_torch.launch.spec_gate import record_rows
+    from repro_torch.serving import Server, ServerConfig
+
+    dmodel, dparams = drafter or (None, None)
+    server = Server(model, params, ServerConfig(
+        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + max_new), seed=0, spec=spec,
+        draft_model=dmodel, draft_params=dparams)
+    steps, spans, rounds = {}, [], []
+    step_spans = collections.defaultdict(list)
+    if rows is not None:
+        record_rows(server, rows)
+    if spec is None:
+        _time_runs(server.engine.decode_step, spans)
+    else:
+        steps["verify"] = server.verifier.step
+        if dmodel is not None:
+            steps |= {"catch-up": server.drafter._catch_up, "draft decode": server.drafter._decode}
+        for name, step in steps.items():
+            step.graph = graph  # before the first round: nothing is captured yet
+            if readings is not None:
+                _count_forwards(step, name, readings)
+            _time_runs(step, step_spans[name])
+        propose = server.drafter.propose
+
+        def timed_propose(*args):
+            t0 = time.perf_counter()
+            out = propose(*args)
+            rounds.append(time.perf_counter() - t0)
+            return out
+
+        server.drafter.propose = timed_propose
+    if setup is not None:
+        setup(server)
+    server.warmup(sorted({len(p) for p in prompts}))
+    for acc in (spans, rounds, *step_spans.values()):
+        acc.clear()
+    if rows is not None:
+        rows.clear()
+    replays0 = {name: step.replays for name, step in steps.items()}
+    graph_replays0 = server.engine.graph_replays
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for p in prompts:
+        server.submit(p, max_new_tokens=max_new, **({} if sampling is None else
+                                                     {"sampling": sampling}))
+    results = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = server.stats
+    if s.nonfinite_steps:
+        raise AssertionError(f"{label}: {s.nonfinite_steps} steps had non-finite logits")
+    if len(results) != len(prompts) or any(r.num_generated != max_new for r in results.values()):
+        raise AssertionError(f"{label}: not every request gave {max_new} tokens")
+    replays = {name: step.replays - replays0[name] for name, step in steps.items()}
+    info = {"tok_s": s.decode_tok_s, "wall": wall, "replays": replays,
+            "mem": torch.cuda.max_memory_allocated()}
+    line = (f"{label}: decode {s.decode_tok_s:.1f} tok/s, decode {s.decode_s:.3f} s over "
+            f"{s.decode_steps} steps, prefill {s.prefill_s:.3f} s, wall {wall:.3f} s, "
+            f"max memory {info['mem'] / 1e9:.2f} GB")
+    if spec is None:
+        if server.engine.graph_replays - graph_replays0 != s.decode_steps:
+            raise AssertionError(f"{label}: decode replays differ from decode steps")
+        info["replay_ms"] = sum(a.elapsed_time(b) for a, b in spans) / max(len(spans), 1)
+        line += f", decode replay {info['replay_ms']:.3f} ms"
+    elif graph:
+        for name, step in steps.items():
+            if step.captures != 1:
+                raise AssertionError(f"{label}: the {name} graph was captured {step.captures} "
+                                     "times, expected once")
+        if replays["verify"] != s.spec_steps:
+            raise AssertionError(f"{label}: {replays['verify']} verify replays for "
+                                 f"{s.spec_steps} speculative rounds")
+        if "draft decode" in replays and replays["draft decode"] != (SPEC_K - 1) * s.spec_steps:
+            raise AssertionError(f"{label}: {replays['draft decode']} draft decode replays for "
+                                 f"{s.spec_steps} rounds of k - 1 = {SPEC_K - 1}")
+    elif any(step.captures or step.replays for step in steps.values()):
+        raise AssertionError(f"{label}: an eager run captured or replayed a graph")
+    if spec is not None:
+        step_ms = {name: sum(a.elapsed_time(b) for a, b in sp) / max(len(sp), 1)
+                   for name, sp in step_spans.items()}
+        info |= {"acceptance": s.acceptance_rate, "accepted_per_round": s.accepted_per_step,
+                 "rounds": s.spec_steps, "verify_ms": step_ms["verify"], "step_ms": step_ms,
+                 "draft_ms": 1e3 * sum(rounds) / max(len(rounds), 1)}
+        what = "replay" if graph else "eager step"
+        line += (f"; {s.spec_steps} rounds, acceptance {s.acceptance_rate:.1%} "
+                 f"({s.spec_accepted}/{s.spec_drafted}), {s.accepted_per_step:.3f} accepted a "
+                 f"round; device ms per {what}: " + ", ".join(
+                     f"{k} {v:.3f}" for k, v in step_ms.items())
+                 + f"; drafter round {info['draft_ms']:.3f} ms (host clock); replays {replays}")
+        _no_leaks(label, server)
+    log(line)
+    return server, results, info
+
+
+def _no_leaks(label, server) -> None:
+    stores = [server.cache]
+    if hasattr(server.drafter, "store"):
+        stores.append(server.drafter.store)
+    for store in stores:
+        if store.allocator.num_held or store.page_table.any() or store.seq_lens.any():
+            raise AssertionError(f"{label}: pages or lengths left held after the run")
+
+
+def _one_forward(label, readings, expect) -> tuple:
+    """The launch counts of a graph step's two eager forwards (its warm-up
+    and capture), which must both be ``expect`` (``READING`` without the
+    auxiliary launches)."""
+    seen = sorted({r[:-1] for r, _ in readings})
+    if len(readings) != 2 or seen != [expect]:
+        raise AssertionError(f"spec (d) {label}: {READING[:-1]} per forward {seen} over "
+                             f"{len(readings)} eager forwards, expected {expect} twice")
+    return expect
+
+
+def _plant_off_by_one(server) -> None:
+    """A planted fault: draft i + 1 judged by the logits after it,
+    ``logits[:, i + 1]`` (the last position's logits repeated)."""
+    sample = server.verifier.sample
+    server.verifier.sample = lambda logits, dl, gen: sample(
+        torch.cat([logits[:, 1:], logits[:, -1:]], dim=1), dl, gen)
+
+
+def _greedy_accounting(label, spec_res, plain_res, spec_rows, plain_rows, *,
+                       planted=False) -> None:
+    """Tokens against the plain run's, with the launcher gate's
+    ``greedy_accounting``: at each request's first divergence the plain
+    run's margin for its own token over the emitted one must not exceed
+    the largest verify/decode change of a top-2 margin at the matched
+    positions. A ``planted`` fault must fail it."""
+    from repro_torch.launch.spec_gate import greedy_accounting
+
+    noise, splits, bad = greedy_accounting(_tokens(spec_res), _tokens(plain_res), spec_rows,
+                                           plain_rows)
+    what = (f"{len(plain_res) - len(splits)} of {len(plain_res)} requests give the plain run's "
+            f"tokens; the largest verify/decode change of a top-2 margin at matched positions "
+            f"{noise:.4g}; divergences (request, index, the plain run's margin for its token) "
+            f"{splits}")
+    if planted != bool(bad):
+        raise AssertionError(f"{label}: " + (
+            f"the planted fault passed the accounting: {what}" if planted else
+            f"divergences with a margin above the noise {bad}: {what}"))
+    log(f"{label}: {what}; " + (f"{len(bad)} unexplained, so the accounting flags the planted "
+                                "fault" if planted else "each margin within the noise"))
+
+
+def _spec_serve(cfg, model, params) -> dict:
+    """(d) granite-3-8b at full width and depth (phase 8's model), 8
+    requests of repeated motifs, 32 new tokens each: plain with the decode
+    graph, then speculative with k = 4 and the n-gram drafter and with
+    granite-moe-1b-a400m at full width and depth (E4M3 weights and pages)
+    as the drafter, greedy; then the model drafter at temperature 1.0.
+    Returns the launches of the speculative graphs' GEMM shapes and paged
+    decodes on this path, for the kernel line."""
+    from repro_torch.serving import SamplingParams, SpecConfig
+
+    prompts = _spec_prompts(cfg.vocab_size)
+    n_layers = cfg.n_layers
+    plain_rows, readings = {}, {}
+    _, plain, plain_info = _spec_run("spec (d) plain decode graph", model, params, prompts,
+                                     rows=plain_rows)
+    dmodel, dparams = _drafter()
+    dl = dmodel.cfg.n_layers
+    log(f"spec (d): drafter {SPEC_DRAFTER}, {dl} layers d{dmodel.cfg.d_model}, "
+        f"{dmodel.cfg.n_experts} experts top {dmodel.cfg.top_k}, E4M3 weights and pages")
+    infos, forwards = {}, collections.Counter()
+    for name, drafter in (("ngram", None), ("model", (dmodel, dparams))):
+        rows, rd = {}, {}
+        server, res, info = _spec_run(f"spec (d) k={SPEC_K} {name} drafter", model, params,
+                                      prompts, spec=SpecConfig(k=SPEC_K), drafter=drafter,
+                                      rows=rows, readings=rd)
+        infos[name] = info
+        _greedy_accounting(f"spec (d) {name} drafter, greedy", res, plain, rows, plain_rows)
+        steps = {"verify": server.verifier.step}
+        if name == "model":
+            # The three graphs against the same steps run eagerly on the card.
+            eager_rows = {}
+            _, eager, _ = _spec_run("spec (d) model drafter, eager steps", model, params,
+                                    prompts, spec=SpecConfig(k=SPEC_K), drafter=drafter,
+                                    rows=eager_rows, graph=False)
+            _same_tokens("spec (d) eager steps", _tokens(eager), _tokens(res))
+            _same_rows("spec (d) eager steps", eager_rows, rows)
+            log(f"spec (d): the verify, catch-up and drafter decode graphs give the eager "
+                f"steps' tokens and verify logits bit for bit ({len(rows)} rows)")
+            steps |= {"catch-up": server.drafter._catch_up, "draft decode": server.drafter._decode}
+            # Temperature 1.0 on the same server (its graphs kept).
+            server.reset()
+            for p in prompts:
+                server.submit(p, max_new_tokens=SPEC_MAX_NEW, sampling=SamplingParams(1.0))
+            server.run()
+            s = server.stats
+            if not s.acceptance_rate > 0:
+                raise AssertionError("spec (d): the model drafter's temperature-1.0 acceptance "
+                                     "rate is 0")
+            log(f"spec (d) model drafter, temperature 1.0: acceptance {s.acceptance_rate:.1%} "
+                f"({s.spec_accepted}/{s.spec_drafted}), {s.accepted_per_step:.3f} accepted a "
+                f"round over {s.spec_steps} rounds, decode {s.decode_tok_s:.1f} tok/s")
+        for step, recs in rd.items():
+            readings.setdefault(step, []).extend(recs)
+            # Every eager forward and every replay (warm-ups included)
+            # launches the same kernels.
+            total = len(recs) + steps[step].replays
+            for key, c in recs[0][1].items():
+                forwards[key] += c * total
+            forwards[("paged decode", step)] += recs[0][0][1] * total
+        _no_leaks(f"spec (d) {name}", server)
+        del server
+    # The planted off-by-one at full depth: the accounting must flag it.
+    rows = {}
+    _, res, _ = _spec_run("spec (d) planted off-by-one, ngram drafter", model, params, prompts,
+                          spec=SpecConfig(k=SPEC_K), rows=rows, setup=_plant_off_by_one)
+    _greedy_accounting("spec (d) planted off-by-one", res, plain, rows, plain_rows, planted=True)
+    per = {"verify": _one_forward("verify", readings["verify"][:2],
+                                  (9 * n_layers + 1, 0, 0, 9 * n_layers + 1, 0)),
+           "catch-up": _one_forward("catch-up", readings["catch-up"],
+                                    (10 * dl + 1, 0, dl, 9 * dl + 1, 0)),
+           "draft decode": _one_forward("draft decode", readings["draft decode"],
+                                        (8 * dl + 1, dl, dl, 0, 7 * dl + 1))}
+    if len(readings["verify"]) != 4 or sorted({r[:-1] for r, _ in readings["verify"]}) != [
+            per["verify"]]:
+        raise AssertionError("spec (d): the two servers' verify forwards differ")
+    log(f"spec (d): per verify step gemm {per['verify'][0]} (tensor cores {per['verify'][3]}, "
+        f"small rows {per['verify'][4]}, simt {per['verify'][2]}); per drafter decode step "
+        f"gemm {per['draft decode'][0]} (small rows {per['draft decode'][4]}, simt "
+        f"{per['draft decode'][2]}: the fp32 routers) and {per['draft decode'][1]} paged "
+        f"decodes; per catch-up step gemm {per['catch-up'][0]} (tensor cores "
+        f"{per['catch-up'][3]}, simt {per['catch-up'][2]})")
+    for name in ("ngram", "model"):
+        i = infos[name]
+        log(f"spec (d) {name} drafter against the plain decode graph: {i['tok_s']:.1f} against "
+            f"{plain_info['tok_s']:.1f} decode tok/s ({i['tok_s'] / plain_info['tok_s']:.2f}x), "
+            f"wall {i['wall']:.3f} against {plain_info['wall']:.3f} s; acceptance "
+            f"{i['acceptance']:.1%}, {i['accepted_per_round']:.3f} accepted a round; verify "
+            f"replay {i['verify_ms']:.3f} ms against a decode replay of "
+            f"{plain_info['replay_ms']:.3f} ms; drafter round {i['draft_ms']:.3f} ms; max "
+            f"memory {i['mem'] / 1e9:.2f} GB")
+    del dmodel, dparams
+    torch.cuda.empty_cache()
+    pages = -(-(max(map(len, prompts)) + SPEC_MAX_NEW) // SERVE_CONFIG["page_size"])
+    return {"spec_calls": forwards, "spec_ctx": pages * SERVE_CONFIG["page_size"] + SPEC_K + 1,
+            "spec_draft_decode": forwards[("paged decode", "draft decode")],
+            "spec_verify_per_step": per["verify"][0],
+            "spec_draft_per_step": per["draft decode"][0],
+            "spec_draft_paged_per_step": per["draft decode"][1]}
+
+
+def _spec_fp32_parity() -> None:
+    """(e) granite-3-8b at full width with 2 layers under fp32 with fp32
+    pages: greedy speculative decoding with the n-gram drafter and with
+    the MoE drafter (also 2 layers, fp32) gives the plain decode graph's
+    tokens; no pages left in either store. A planted off-by-one (draft
+    i + 1 judged by the logits after it, ``logits[:, i + 1]``) must fail
+    that check."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serving import SpecConfig
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy="fp32",
+                              kv_cache_dtype="fp32")
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    drafter = _drafter("fp32", "fp32", False, n_layers=2)
+    prompts = _spec_prompts(cfg.vocab_size)
+    _, plain, _ = _spec_run("spec (e) fp32 plain", model, params, prompts)
+    want = _tokens(plain)
+    for name, d in (("ngram", None), ("model", drafter)):
+        _, res, _ = _spec_run(f"spec (e) fp32 {name} drafter", model, params, prompts,
+                              spec=SpecConfig(k=SPEC_K), drafter=d)
+        _same_tokens(f"spec (e) fp32 {name} drafter", _tokens(res), want)
+    # The planted off-by-one.
+    from repro_torch.serving import Server, ServerConfig
+
+    server = Server(model, params, ServerConfig(
+        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + SPEC_MAX_NEW), seed=0,
+        spec=SpecConfig(k=SPEC_K))
+    _plant_off_by_one(server)
+    for p in prompts:
+        server.submit(p, max_new_tokens=SPEC_MAX_NEW)
+    try:
+        _same_tokens("spec (e) planted off-by-one", _tokens(server.run()), want)
+    except AssertionError as e:
+        log(f"spec (e): the planted off-by-one fails the parity check ({e})")
+    else:
+        raise AssertionError("spec (e): the planted off-by-one passed the greedy parity check")
+    log("spec (e): fp32 at 2 layers, greedy speculative decoding with both drafters gives the "
+        "plain decode graph's tokens; no pages left in either store")
+    del model, params, drafter, server
+    torch.cuda.empty_cache()
+
+
+def phase_spec(cfg, model, params) -> dict:
+    """Phase 13: speculative decoding, right after phase 12 on its model."""
+    _spec_sampler()
+    _spec_parity()
+    counts = _spec_serve(cfg, model, params)
+    _spec_fp32_parity()
+    return counts
+
+
 # -- phase 9 ---------------------------------------------------------------------
 
 # The train run of phase 10; phase 9 holds one step at its batch.
@@ -1613,19 +2223,20 @@ def _scaled_mm_ms(x, w, out_dtype):
     return time_ms(lambda: torch._scaled_mm(a, b, one, one, out_dtype=out_dtype), graph=True)
 
 
-def _gemm_row(label, x, w, out_dtype, launches, **extra):
-    """One (mul, add) row of the kernel line under redmule_hfp8: the kernel
-    on its planned schedule (held within GEMM_TOL of the plain version;
-    device time from a CUDA-graph replay), the
-    plain version, torch.matmul on the widened fp16 operands and
-    torch._scaled_mm on the fp8 ones. Bound: each operand byte read once
-    and the output written once at 3.35 TB/s, against 2*M*K*N operations
-    (per batch) at the fp8 tensor-core peak."""
+def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", **extra):
+    """One (mul, add) row of the kernel line, under redmule_hfp8 unless
+    ``policy`` says otherwise: the kernel on its planned schedule (held
+    within GEMM_TOL of the plain version; device time from a CUDA-graph
+    replay), the plain version, torch.matmul on the widened fp16 operands
+    (on the fp32 ones under fp32) and torch._scaled_mm on the fp8 ones.
+    Bound: each operand byte read once and the output written once at
+    3.35 TB/s, against 2*M*K*N operations (per batch) at the fp8
+    tensor-core peak (the fp32 peak on the SIMT schedule)."""
     from repro_torch.core import semiring
-    from repro_torch.core.precision import get_policy
+    from repro_torch.core.precision import FP32, get_policy
     from repro_torch.kernels import redmule_gemm as rg
 
-    pol = get_policy("redmule_hfp8")
+    pol = get_policy(policy)
     kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=out_dtype)
     plan = rg.plan_call(x, w, None, gop=semiring.MATMUL, policy=pol).plan
     aux0 = rg.aux_launches.n
@@ -1642,7 +2253,7 @@ def _gemm_row(label, x, w, out_dtype, launches, **extra):
     # host work (planning, allocation, the ctypes launch) paces the calls.
     eager_ms = time_ms(lambda: rg.redmule_gemm(x, w, None, **kw), iters=5 if big else 20)
     plain_ms = time_ms(lambda: rg.redmule_gemm_plain(x, w, None, **kw), iters=5)
-    x16, w16 = x.half(), w.half()
+    x16, w16 = (x, w) if pol.compute == FP32 else (x.half(), w.half())
     library_ms = time_ms(lambda: torch.matmul(x16, w16), iters=5 if big else 20, graph=True)
     scaled_ms = _scaled_mm_ms(x, w, out_dtype)
     m, k = x.shape[-2:]
@@ -1650,8 +2261,10 @@ def _gemm_row(label, x, w, out_dtype, launches, **extra):
     batch = got.numel() // (m * n)
     nbytes = sum(t.numel() * t.element_size() for t in (x, w, got))
     ops = 2.0 * batch * m * k * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / mma_peak(x, w) * 1e3
-    share, ulps = ulp_spread(got, want)
+    peak = FP32_FLOP_S if plan.schedule == "simt" else mma_peak(x, w)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    share, ulps = ulp_spread(got, want) if got.element_size() == 2 else (
+        float((got != want).float().mean()), None)
     return {
         "name": f"redmule_gemm[{label}]", "route": "cuda", "source": GEMM_SOURCE[plan.schedule],
         "replaces": "src/repro/kernels/redmule_gemm.py:110",
@@ -1713,9 +2326,58 @@ def _gemm_entries(counts) -> list:
     ]
     for label, (a, b) in _backward_pairs(torch.Generator(device="cuda").manual_seed(6)).items():
         entries.append(_gemm_row(f"backward {label}", a, b, FP16, train, **per_step))
+    entries += _spec_gemm_entries(counts, q, table)
     del table
     entries += [_copy_entry(counts), _combine_entry(counts)]
     return entries
+
+
+def _spec_gemm_entries(counts, q, table) -> list:
+    """Phase 13's GEMM shapes: the verify step (20 rows) and the MoE
+    drafter's expert GEMMs and logits. Launches: each shape's calls on
+    phase 13(d)'s path, the graphs' warm-ups, captures and replays."""
+    from repro_torch.core.precision import E4M3, FP16, FP32
+
+    calls, ctx = counts["spec_calls"], counts["spec_ctx"]
+    per_verify = {"launches_per_verify_step": counts["spec_verify_per_step"]}
+    per_draft = {"launches_per_draft_decode_step": counts["spec_draft_per_step"]}
+    keys = q(E4M3, 4, ctx, 8, 128).permute(0, 2, 3, 1)  # (B, Hkv, hd, T) strided view
+    d_table = q(E4M3, 49155, 1024, scale=0.02)
+    dense = (4, 5, 4096)
+    rows = [
+        _gemm_row("verify 20x4096x12800", q(E4M3, 20, 4096), q(E4M3, 12800, 4096, scale=0.02).T,
+                  FP16, calls[(dense, (4096, 12800))], **per_verify),
+        _gemm_row("verify 20x4096x1024 (k, v)", q(E4M3, 20, 4096),
+                  q(E4M3, 1024, 4096, scale=0.02).T, FP16, calls[(dense, (4096, 1024))],
+                  **per_verify),
+        _gemm_row("verify 20x4096x4096 (q, o)", q(E4M3, 20, 4096),
+                  q(E4M3, 4096, 4096, scale=0.02).T, FP16, calls[(dense, (4096, 4096))],
+                  **per_verify),
+        _gemm_row("verify logits 20x4096x49155 (table.T)", q(E4M3, 20, 4096), table.T, FP16,
+                  calls[(dense, (4096, 49155))], **per_verify),
+        _gemm_row(f"verify scores (4,8)x20x128x{ctx}", q(E4M3, 4, 8, 20, 128), keys, FP16,
+                  calls[((4, 8, 20, 128), (4, 8, 128, ctx))], **per_verify),
+        _gemm_row(f"verify values (4,8)x20x{ctx}x128", q(E4M3, 4, 8, 20, ctx),
+                  keys.transpose(-1, -2), FP16, calls[((4, 8, 20, ctx), (4, 8, ctx, 128))],
+                  **per_verify),
+        _gemm_row("moe decode up/gate 4x1024x16384", q(E4M3, 4, 1024),
+                  q(E4M3, 16384, 1024, scale=0.03).T, FP16, calls[((4, 1024), (1024, 16384))],
+                  **per_draft),
+        _gemm_row("moe decode down 4x16384x1024", q(E4M3, 4, 16384),
+                  q(E4M3, 1024, 16384, scale=0.04).T, FP16, calls[((4, 16384), (16384, 1024))],
+                  **per_draft),
+        _gemm_row("moe catch-up up/gate 64x1024x16384", q(E4M3, 64, 1024),
+                  q(E4M3, 16384, 1024, scale=0.03).T, FP16, calls[((64, 1024), (1024, 16384))]),
+        _gemm_row("drafter decode logits 4x1024x49155 (table.T)", q(E4M3, 4, 1024), d_table.T,
+                  FP16, calls[((4, 1, 1024), (1024, 49155))], **per_draft),
+        # The MoE router: fp32, as in the reference, on the SIMT schedule.
+        _gemm_row("moe decode router 4x1024x32, fp32", q(FP32, 4, 1024),
+                  torch.randn((1024, 32), generator=torch.Generator(device="cuda").manual_seed(3),
+                              device="cuda") * 0.02, FP32, calls[((4, 1024), (1024, 32))],
+                  policy="fp32", **per_draft),
+    ]
+    del d_table
+    return rows
 
 
 def _copy_entry(counts):
@@ -1873,10 +2535,18 @@ def _decode_entries(counts) -> list:
     serve = make_decode_case(
         rng, s=4, hq=32, hkv=8, hd=128, page_size=16, pages_per_slot=7, n_pages=29,
         dtype=torch.float8_e4m3fn, q_dtype=torch.float16, seq_lens=[70, 40, 100, 65])
+    drafter = make_decode_case(
+        rng, s=4, hq=16, hkv=8, hd=64, page_size=16, pages_per_slot=9, n_pages=37,
+        dtype=torch.float8_e4m3fn, q_dtype=torch.float16, seq_lens=[70, 40, 100, 65])
+    drafter_counts = {"decode": counts["spec_draft_decode"],
+                      "decode_per_decode_step": counts["spec_draft_paged_per_step"],
+                      "decode_per_prefill": 0}
     return [
         _decode_row(counts, "S4 Hq32 Hkv8 hd128 ps16 e4m3", serve, "the serve run's shape"),
         _decode_row(counts, "S16x4096 Hq32 Hkv8 hd128 ps16 e4m3", _long_decode_case(),
                     "long context, off the serve run"),
+        _decode_row(drafter_counts, "S4 Hq16 Hkv8 hd64 ps16 e4m3", drafter,
+                    "phase 13's drafter decode shape"),
     ]
 
 
@@ -1931,7 +2601,8 @@ def _log_entry(e) -> None:
         extra = (f"; schedule {e['schedule']} (split {e['split']}, {e['aux_launches_per_call']} "
                  f"auxiliary launches a call), eager calls {e['eager_ms']:.4f} ms, "
                  f"_scaled_mm {smm}, {e['tflop_s']:.1f} TFLOP/s, "
-                 f"{e['share_differ']:.2%} of outputs differ, worst {e['worst_ulps']} ulp")
+                 f"{e['share_differ']:.2%} of outputs differ"
+                 + ("" if e["worst_ulps"] is None else f", worst {e['worst_ulps']} ulp"))
     elif "eager_ms" in e:
         extra = f"; eager calls {e['eager_ms']:.4f} ms"
         if "splits" in e:
@@ -1973,6 +2644,7 @@ def main() -> int:
         cfg, model, params = _serve_model()
         counts |= phase_serve(cfg, model, params)
         counts |= phase_serving_features(cfg, model, params)
+        counts |= phase_spec(cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
     phase_train_parity()

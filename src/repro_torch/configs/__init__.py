@@ -1,14 +1,15 @@
 """Architecture config registry of the port: ``--arch <id>`` resolves here.
 
-The first slice of the port covers the dense decoder granite-3-8b only;
-every other architecture of the JAX package raises.
+The port covers the dense decoder granite-3-8b and the dense-MoE decoder
+granite-moe-1b-a400m (its draft model); every other architecture of the
+JAX package raises.
 """
 from __future__ import annotations
 
-from repro_torch.configs import granite3_8b
+from repro_torch.configs import granite3_8b, granite_moe_1b
 from repro_torch.configs.base import ModelConfig
 
-_ARCHS = {"granite-3-8b": granite3_8b}
+_ARCHS = {"granite-3-8b": granite3_8b, "granite-moe-1b-a400m": granite_moe_1b}
 
 ARCH_IDS = tuple(_ARCHS)
 

@@ -9,7 +9,10 @@ decode graph), so its tok/s is the steady state; the static path times its
 first decode step apart.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
-      --fp8-kv --fp8-params --policy redmule_hfp8 --prompt-len 64 [--profile]
+      --fp8-kv --fp8-params --policy redmule_hfp8 --prompt-len 64 --page-size 16 [--profile]
+  PYTHONPATH=src python -m repro_torch.launch.serve --fp8-kv --fp8-params \\
+      --policy redmule_hfp8 --prompt-len 64 --page-size 16 --spec-k 4 \\
+      --draft-model granite-moe-1b-a400m --spec-gate
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --chunked-prefill 4 --prefill-batch --prefix-cache --async-depth 1
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --mode static
@@ -27,7 +30,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import POLICIES
 from repro_torch.kernels import _build
 from repro_torch.models import build
-from repro_torch.serving import SamplingParams, Server, ServerConfig, generate_static
+from repro_torch.serving import SamplingParams, Server, ServerConfig, SpecConfig, generate_static
+from repro_torch.launch.spec_gate import record_rows, run_gate
 
 
 def mixed_prompt_lens(base: int, n: int) -> list[int]:
@@ -46,7 +50,7 @@ def parse_args(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--num-slots", type=int, default=4)
-    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--fp8-kv", action="store_true", help="store the KV pages in E4M3")
     ap.add_argument("--fp8-params", action="store_true", help="store the weights in E4M3")
     ap.add_argument("--policy", choices=sorted(POLICIES), default=None,
@@ -72,6 +76,23 @@ def parse_args(argv=None):
                     help="let higher-priority requests evict lower-priority ones that are "
                          "still prefilling; the second half of the requests then arrives at "
                          "priority+5 after the first half has started prefilling")
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens a round and verify them in one "
+                         "target step (0 = off); without --draft-model the drafter is n-gram "
+                         "prompt lookup")
+    ap.add_argument("--draft-model", choices=ARCH_IDS, default=None,
+                    help="the draft model (its own StateStore; its vocabulary must be the "
+                         "target's; --fp8-kv, --fp8-params, --policy and --page-size apply to "
+                         "it too); implies --spec-k 4 if unset")
+    ap.add_argument("--spec-ngram", type=int, default=3, metavar="N",
+                    help="longest n-gram of prompt-lookup self-drafting")
+    ap.add_argument("--spec-gate", action="store_true",
+                    help="check that greedy speculative output equals a non-speculative run's "
+                         "tokens (on the card under an fp8 policy: that every divergence lies "
+                         "within the verify/decode logit noise, see launch/spec_gate.py) and "
+                         "that the acceptance rate is above 0 (for a model drafter under "
+                         "greedy, acceptance is read from a temperature-1.0 pass: two random "
+                         "models share no greedy chain)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -121,14 +142,17 @@ def main(argv=None):
     """Serve ``--requests`` random prompts; returns (server, results), or
     (None, generated tokens) under ``--mode static``."""
     args = parse_args(argv)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    cfg = dataclasses.replace(
-        cfg,
-        policy=args.policy or cfg.policy,
-        kv_cache_dtype="e4m3" if args.fp8_kv else cfg.kv_cache_dtype,
-        fp8_params=args.fp8_params or cfg.fp8_params,
-        n_layers=args.layers or cfg.n_layers,
-    )
+    def config(arch):
+        cfg = get_config(arch, smoke=args.smoke)
+        return dataclasses.replace(
+            cfg,
+            policy=args.policy or cfg.policy,
+            kv_cache_dtype="e4m3" if args.fp8_kv else cfg.kv_cache_dtype,
+            fp8_params=args.fp8_params or cfg.fp8_params,
+        )
+
+    cfg = config(args.arch)
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     model = build(cfg, device=args.device)
     if model.engine.backend == "cuda":
         t0 = time.perf_counter()
@@ -138,6 +162,19 @@ def main(argv=None):
     print(f"engine: policy={model.policy.name} backend={model.engine.backend} "
           f"device={model.device} kv_dtype={cfg.kv_cache_dtype} "
           f"fp8_params={cfg.fp8_params} layers={cfg.n_layers}")
+
+    spec = draft_model = draft_params = None
+    if args.mode == "continuous" and (args.spec_k > 0 or args.draft_model is not None):
+        spec = SpecConfig(k=args.spec_k or 4, ngram_n=args.spec_ngram)
+        if args.draft_model is not None:
+            dcfg = config(args.draft_model)
+            draft_model = build(dcfg, device=args.device)
+            draft_params = draft_model.init(args.seed + 1)
+            print(f"drafter: {dcfg.name} layers={dcfg.n_layers} policy={draft_model.policy.name} "
+                  f"kv_dtype={dcfg.kv_cache_dtype} fp8_params={dcfg.fp8_params}")
+    elif args.spec_k > 0 or args.draft_model is not None:
+        print("note: speculative decoding rides the continuous server; --spec-k/--draft-model "
+              "are inert under static mode")
 
     rng = np.random.default_rng(args.seed)
     sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
@@ -158,6 +195,13 @@ def main(argv=None):
         # Shared-system-prompt shape: one common prefix and unique tails.
         sys_prompt = list(rng.integers(0, cfg.vocab_size, size=args.prompt_len))
         prompts = [sys_prompt + list(rng.integers(0, cfg.vocab_size, size=n)) for n in lens]
+    elif spec is not None and draft_model is None:
+        # Repeated-motif prompts, the traffic prompt lookup feeds on (a random
+        # prompt repeats no n-gram until the greedy chain falls into a loop).
+        prompts = []
+        for n in lens:
+            motif = list(rng.integers(0, cfg.vocab_size, size=max(2, n // 3)))
+            prompts.append((motif * 3)[:max(n, 6)])
     else:
         prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in lens]
     server = Server(model, params, ServerConfig(
@@ -167,13 +211,20 @@ def main(argv=None):
         prefill_chunk=args.chunked_prefill or None, prefix_cache=args.prefix_cache,
         preemption=args.preempt, async_depth=args.async_depth,
         prefill_batch=args.prefill_batch,
-    ), seed=args.seed, device=args.device)
+    ), seed=args.seed, device=args.device, spec=spec, draft_model=draft_model,
+        draft_params=draft_params)
     print(f"state store: {server.cache.allocator.num_pages} pages x {args.page_size} "
           f"tokens ({server.cache.kv_bytes() / 1e6:.2f} MB kv)")
+    if spec is not None and args.async_depth:
+        print("note: --async-depth is inert under speculative decoding: a round is "
+              "host-synchronous, so the dispatch depth is 0")
     if args.preempt and not args.chunked_prefill:
         print("note: --preempt is inert without --chunked-prefill: a whole-prompt prefill "
               "finishes in the step that admits it, so no request is ever prefilling")
     server.warmup([len(p) for p in prompts])
+    spec_rows = {}
+    if spec is not None and args.spec_gate:
+        record_rows(server, spec_rows)
 
     def submit(p, priority):
         server.submit(p, max_new_tokens=args.max_new, sampling=sampling, priority=priority)
@@ -221,16 +272,33 @@ def main(argv=None):
               f"{s.prefix_prompt_tokens} prompt tokens), {s.cow_copies} cow copies")
     if args.preempt:
         print(f"preemptions: {s.preemptions}")
+    if spec is not None:
+        drafter = (f"model:{args.draft_model}" if draft_model is not None
+                   else f"ngram(n={spec.ngram_n})")
+        print(f"speculative: k={spec.k} drafter={drafter} acceptance {s.acceptance_rate:.0%} "
+              f"({s.spec_accepted}/{s.spec_drafted} drafts), {s.accepted_per_step:.2f} "
+              f"accepted/round over {s.spec_steps} rounds")
     if model.device.type == "cuda":
         eng = server.engine
         print(f"decode graph: {eng.graph_captures} capture(s), {eng.graph_replays} replays "
               f"(warm-up included)")
+        if spec is not None:
+            steps = {"verify": server.verifier.step}
+            if draft_model is not None:
+                steps |= {"drafter catch-up": server.drafter._catch_up,
+                          "drafter decode": server.drafter._decode}
+            print("speculative graphs: " + ", ".join(
+                f"{k} {v.captures} capture(s) {v.replays} replays" for k, v in steps.items())
+                + " (warm-up included)")
     if args.profile:
         print_device_time(prof, wall)
     for rid in sorted(results):
         r = results[rid]
         print(f"  req {rid}: prompt {r.prompt_len:>3} -> {r.num_generated} tokens "
               f"({r.finish_reason}): {r.out_tokens}")
+    if spec is not None and args.spec_gate:
+        run_gate(args, server, model, params, prompts, results, sampling, spec_rows,
+                 model_drafter=draft_model is not None)
     return server, results
 
 

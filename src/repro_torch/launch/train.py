@@ -72,6 +72,9 @@ def train(args) -> dict:
         cfg, policy=args.policy or cfg.policy, remat=args.remat or cfg.remat,
         n_layers=args.layers or cfg.n_layers,
     )
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE training (the aux loss in the loss) is "
+                                  "not ported yet; the port serves MoE models only")
     model = build(cfg, device=args.device)
     backend = args.backend or model.engine.backend
     on_card = model.device.type == "cuda"

@@ -1,15 +1,16 @@
-"""The dense decoder-only transformer of the port, for training and for
-continuous-batching serving (counterpart of
+"""The decoder-only transformer of the port, dense or with a dense-MoE FFN,
+for training and for continuous-batching serving (counterpart of
 ``repro.models.transformer.Transformer``).
 
 Parameters are a plain dict of tensors: ``embed.table``, one dict per
 layer under ``layers`` (the reference stacks them on a leading axis for
 ``lax.scan``; the port runs a Python loop over a list), and
-``final_norm.scale``. With ``cfg.remat == "block"`` the training forward
-recomputes each block in the backward pass
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of its
-scan body does. Other families (MoE, recurrent, sliding-window-only,
-encoder-decoder, VLM) raise ``NotImplementedError``.
+``final_norm.scale``. A layer holds ``ffn``, or ``moe`` when the config
+has experts (``models/moe.py``; serving only so far: MoE training raises).
+With ``cfg.remat == "block"`` the training forward recomputes each block
+in the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` of its scan body does. Other families (recurrent,
+sliding-window-only, encoder-decoder, VLM) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import E4M3, as_dtype
 from repro_torch.engine import Engine
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, moe
 from repro_torch.models.attention import AttnConfig, PagedInfo
 
 Params = dict[str, Any]
@@ -47,13 +48,13 @@ class Transformer:
                  fused_decode: bool = False):
         # gemma's embedding scale (keyed on the name, as in the reference),
         # its final softcap and sliding windows are not ported yet.
-        if (cfg.family != "dense" or tuple(cfg.block_pattern) != ("attn",)
-                or cfg.is_moe or cfg.is_encoder_decoder or cfg.norm != "rmsnorm"
+        if (cfg.family not in ("dense", "moe") or tuple(cfg.block_pattern) != ("attn",)
+                or cfg.is_encoder_decoder or cfg.norm != "rmsnorm"
                 or not cfg.tie_embeddings or "gemma" in cfg.name
                 or cfg.final_softcap is not None or cfg.sliding_window is not None):
             raise NotImplementedError(
-                f"{cfg.name}: the port covers the dense decoder-only family "
-                "(pattern ('attn',), RMSNorm, tied embeddings) so far"
+                f"{cfg.name}: the port covers the dense decoder-only family and its "
+                "dense-MoE variant (pattern ('attn',), RMSNorm, tied embeddings) so far"
             )
         self.cfg = cfg
         self.engine = engine
@@ -70,6 +71,12 @@ class Transformer:
             rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
             softcap=cfg.attn_softcap,
         )
+        self.moe_cfg = moe.MoEConfig(
+            cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff, cfg.capacity_factor,
+            cfg.moe_impl, cfg.act,
+        ) if cfg.is_moe else None
+        if self.moe_cfg is not None:
+            moe.check_impl(self.moe_cfg)
 
     # -- parameters ---------------------------------------------------------
     def init(self, seed: int) -> Params:
@@ -88,7 +95,8 @@ class Transformer:
                 "norm1": common.norm_init(cfg.d_model, dev),
                 "attn": attention.init(gen, cfg.d_model, self.attn_cfg, self.dtype, dev),
                 "norm2": common.norm_init(cfg.d_model, dev),
-                "ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev),
+                **({"moe": moe.init(gen, self.moe_cfg, self.dtype, dev)} if cfg.is_moe
+                   else {"ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev)}),
             })
         return params
 
@@ -98,6 +106,8 @@ class Transformer:
         x = x + attention.apply(lp["attn"], h, positions, self.attn_cfg, engine,
                                 pool=pool, paged=paged, cache=cache)
         h2 = common.norm_apply(lp["norm2"], x)
+        if "moe" in lp:
+            return x + moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=False)[0]
         return x + ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
 
     def _run_stack(self, params, x, positions, pools, paged: PagedInfo):
@@ -118,6 +128,10 @@ class Transformer:
         (hidden (B, S, d) after the final norm, aux loss); the dense decoder
         has no auxiliary loss, so aux is an fp32 zero. ``engine`` overrides
         the model's engine for this call (the step factories' plumbing)."""
+        if self.cfg.is_moe:
+            raise NotImplementedError(
+                f"{self.cfg.name}: MoE training (the aux loss in the loss) is not ported yet; "
+                "the port serves MoE models only")
         eng = engine or self.engine
         tokens = batch["tokens"]
         x = self.embed(params, tokens, eng)
@@ -191,6 +205,46 @@ class Transformer:
     def _prefill_cb_batched(self, params, tokens, pools, page_rows, starts, lengths, active, *,
                             page_size: int) -> torch.Tensor:
         """Multi-row body of :meth:`prefill_cb` (see its docstring)."""
+        x = self._chunk_rows(params, tokens, pools, page_rows, starts, lengths, active,
+                             page_size=page_size)
+        b, s = tokens.shape
+        last = (lengths.long() - 1).clamp(0, s - 1)
+        x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[-1]))
+        return self.logits(params, x_last)[:, 0]
+
+    def verify_cb(self, params, tokens: torch.Tensor, pools, page_table: torch.Tensor,
+                  seq_lens: torch.Tensor, lengths: torch.Tensor, active: torch.Tensor, *,
+                  page_size: int, commit: bool) -> torch.Tensor:
+        """The slot-batched multi-token verify step of speculative decoding:
+        the multi-row chunked :meth:`prefill_cb` over every slot, with
+        logits at every position.
+
+        tokens: (S, T) each slot's row [last committed token, draft_1 ..
+        draft_k], right-padded; page_table: (S, P); seq_lens: (S,) tokens
+        committed per slot (the first fresh position); lengths: (S,) valid
+        tokens per row (0 for rows sitting the round out); active: (S,).
+        Each row gathers its committed K/V through its page row and attends
+        causally over [gathered | fresh]. Fresh K/V are written through the
+        page table; what lies past the prefix the host later commits is
+        never read back as valid (the masks stop at ``seq_lens``) and is
+        rewritten by the next step, so rejected drafts need no undo.
+        Returns logits (S, T, V): ``[:, i]`` is the distribution after token
+        i, which judges draft i + 1.
+
+        ``commit`` is the reference's switch for recurrent state rows (the
+        pass that scans the accepted tokens into them). The port's models
+        keep none, so it changes nothing; a model with state rows raises."""
+        if commit and self.cb_profile().has_state_rows:
+            raise NotImplementedError("the state-row commit pass is not ported yet")
+        x = self._chunk_rows(params, tokens, pools, page_table, seq_lens, lengths, active,
+                             page_size=page_size)
+        return self.logits(params, x)
+
+    def _chunk_rows(self, params, tokens, pools, page_rows, starts, lengths, active, *,
+                    page_size: int) -> torch.Tensor:
+        """The stack over (P, Tb) rows, each a chunk of its own slot's
+        sequence from ``starts``: writes the fresh K/V and returns the final
+        hidden states (P, Tb, d) after the final norm."""
         b, s = tokens.shape
         dev = tokens.device
         act = (torch.ones((b,), dtype=torch.bool, device=dev) if active is None
@@ -210,10 +264,7 @@ class Transformer:
                           read_idx=read_idx, page_size=page_size, chunked=True)
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, pos, pools, paged)
-        x = common.norm_apply(params["final_norm"], x)
-        last = (lengths - 1).clamp(0, s - 1)
-        x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[-1]))
-        return self.logits(params, x_last)[:, 0]
+        return common.norm_apply(params["final_norm"], x)
 
     @staticmethod
     def _read_idx(page_rows: torch.Tensor, page_size: int) -> torch.Tensor:

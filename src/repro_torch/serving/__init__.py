@@ -1,7 +1,7 @@
 """Continuous-batching serving of the port over paged KV pools: chunked
 and batched prefill, the prefix cache with copy-on-write, priorities and
-preemption, dispatch-ahead, and the static-batch baseline (counterpart of
-``repro.serving`` without speculative decoding)."""
+preemption, dispatch-ahead, speculative decoding, and the static-batch
+baseline (counterpart of ``repro.serving``)."""
 from repro_torch.serving.cache import (
     NULL_PAGE,
     OutOfPagesError,
@@ -26,6 +26,14 @@ from repro_torch.serving.scheduler import (
     Request,
     Scheduler,
 )
+from repro_torch.serving.spec import (
+    ModelDrafter,
+    NgramDrafter,
+    SpecConfig,
+    Verifier,
+    effective_k,
+    speculative_sample,
+)
 from repro_torch.serving.server import (
     Server,
     ServerConfig,
@@ -40,6 +48,8 @@ __all__ = [
     "FINISH_LENGTH",
     "FINISHED",
     "GREEDY",
+    "ModelDrafter",
+    "NgramDrafter",
     "NULL_PAGE",
     "OutOfPagesError",
     "PagePool",
@@ -51,13 +61,17 @@ __all__ = [
     "Server",
     "ServerConfig",
     "ServerStats",
+    "SpecConfig",
     "StateStore",
     "StaticStats",
     "TokenEvent",
+    "Verifier",
     "copy_kv_page",
+    "effective_k",
     "filter_logits",
     "generate_static",
     "prefix_block_hashes",
     "sample_logits",
+    "speculative_sample",
     "stack_params",
 ]

@@ -26,18 +26,22 @@ On the card a step never waits for the card at dispatch:
 **The decode graph.** ``jax.jit`` makes the reference's fixed-shape decode
 step one cheap dispatch; the port's counterpart captures ``decode_cb`` as a
 ``torch.cuda.CUDAGraph`` on the ``"cuda"`` backend and replays it once a
-step. The graph reads static device buffers (the page table, sequence
-lengths and active mask, refreshed by each step's one staged copy, and the
-last-token tensor) and holds the addresses of the pools and parameters.
-It is captured at the first decode step after one eager warm-up call on
-zeroed inputs (every slot inactive, so the warm-up writes only the null
-page), which builds what the kernels make lazily: the kernel library and
-the decode combine's ticket counters. A ``fresh`` that keeps the pools
-keeps the graph; new pools capture again. Sampling and the last-token
-merge run eagerly after the replay. A graph that fails to capture or to
-replay raises: there is no eager fallback. ``graph_decode=False`` runs the
-same step eagerly on the card (the tests and ``chip_smoke.py`` compare the
-two); on the CPU nothing is captured and the keyword is ignored.
+step (a :class:`GraphStep`). The graph reads static device buffers (the
+page table, sequence lengths and active mask, refreshed by each step's one
+staged copy, and the last-token tensor) and holds the addresses of the
+pools and parameters. It is captured at the first decode step after one
+eager warm-up call on zeroed inputs (every slot inactive, so the warm-up
+writes only the null page), which builds what the kernels make lazily:
+the kernel library and the decode combine's ticket counters. A ``fresh``
+that keeps the pools keeps the graph; new pools capture again. Sampling
+and the last-token merge run eagerly after the replay. A graph that fails
+to capture or to replay raises: there is no eager fallback.
+``graph_decode=False`` runs the same step eagerly on the card (the tests
+and ``chip_smoke.py`` compare the two); on the CPU nothing is captured and
+the keyword is ignored.
+
+The speculative steps (the verify step, the model drafter's catch-up and
+decode) are fixed-shape too, each a :class:`GraphStep` of its own.
 """
 from __future__ import annotations
 
@@ -83,6 +87,69 @@ def _pack(arrays: dict[str, np.ndarray]) -> tuple[np.ndarray, dict]:
     return np.concatenate(words), layout
 
 
+def stage(arrays: dict[str, np.ndarray], pinned: bool):
+    """Copy host arrays into one int32 staging buffer (pinned for the card)
+    and return it with its layout. The buffer is the caller's own: it is not
+    written again, and the caller holds it until the copy that reads it has
+    run."""
+    words, layout = _pack(arrays)
+    staged = torch.empty(words.shape, dtype=torch.int32, pin_memory=pinned)
+    staged.numpy()[:] = words
+    return staged, layout
+
+
+class GraphStep:
+    """A fixed-shape device step over static inputs: the decode step of
+    :class:`EngineCore` and the speculative steps (the verify step, the
+    drafter's catch-up and decode).
+
+    ``forward(inputs, pools)`` reads ``inputs``, views of one static int32
+    buffer laid out like ``arrays``. :meth:`load` copies a step's staged
+    inputs into that buffer (one ``non_blocking`` copy), capturing the
+    graph first where it has none for these pools (it holds the pools' and
+    parameters' addresses, so other pools capture again). :meth:`run`
+    replays the graph, or with ``graph=False`` runs ``forward`` eagerly on
+    the same buffer. A capture or replay that fails raises."""
+
+    def __init__(self, forward, arrays: dict[str, np.ndarray], device, *, graph: bool):
+        words, self.layout = _pack(arrays)
+        self.buf = torch.zeros(words.shape, dtype=torch.int32, device=device)
+        self.inputs = _views(self.buf, self.layout)
+        self.forward = forward
+        self.graph = graph
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_pools = self._pools = self._out = None
+        self.captures = self.replays = 0
+
+    def load(self, staged: torch.Tensor, pools) -> None:
+        if self.graph and (self._graph is None or pools is not self._graph_pools):
+            self._capture(pools)
+        self._pools = pools
+        self.buf.copy_(staged, non_blocking=True)
+
+    def _capture(self, pools) -> None:
+        """Run ``forward`` once eagerly on zeroed inputs (no slot active:
+        only the null page is written), which builds what the kernels make
+        lazily (the kernel library, the decode combine's ticket counters),
+        then capture it as a CUDA graph."""
+        self.buf.zero_()
+        self.forward(self.inputs, pools)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.forward(self.inputs, pools)
+        self._graph, self._out, self._graph_pools = graph, out, pools
+        self.captures += 1
+
+    def run(self) -> torch.Tensor:
+        """The step on the loaded inputs; with the graph its output is the
+        graph's own tensor, rewritten by the next replay."""
+        if not self.graph:
+            return self.forward(self.inputs, self._pools)
+        self._graph.replay()
+        self.replays += 1
+        return self._out
+
+
 def _views(buf: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
     """Views of a packed buffer by name: float32 arrays by their bits, the
     others as int32 (a bool array as 0/1: compare with 0 where it is used,
@@ -106,22 +173,35 @@ class EngineCore:
         self.seed = seed
         self.device = model.device
         self._on_card = self.device.type == "cuda"
-        self.graph_decode = graph_decode and model.engine.backend == "cuda"
         self.cache: Optional[StateStore] = None
         self._inflight: collections.deque[InflightStep] = collections.deque()
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self.graph_captures = 0
-        self.graph_replays = 0
         n = config.num_slots
-        # The static decode inputs (what the graph reads), laid out as staged.
-        staged, layout = self._stage_decode(
+        self.decode_step = GraphStep(self._decode_forward, self._decode_arrays(
             np.zeros((n, config.pages_per_slot), np.int32), np.zeros((n,), np.int32),
-            np.zeros((n,), bool), [GREEDY] * n)
-        self._dec_in = torch.zeros(staged.shape, dtype=torch.int32, device=self.device)
-        self._dec = _views(self._dec_in, layout)
+            np.zeros((n,), bool), [GREEDY] * n), self.device, graph=False)
+        self.graph_decode = graph_decode
         self._last_tok = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
         self.prefill_s = self.decode_s = 0.0
         self.nonfinite_steps = 0
+
+    # -- the decode graph --------------------------------------------------
+    @property
+    def graph_decode(self) -> bool:
+        """Whether the decode step is a CUDA graph (only on the ``"cuda"``
+        backend; set False before the first decode step to run it eagerly)."""
+        return self.decode_step.graph
+
+    @graph_decode.setter
+    def graph_decode(self, value: bool) -> None:
+        self.decode_step.graph = bool(value) and self.model.engine.backend == "cuda"
+
+    @property
+    def graph_captures(self) -> int:
+        return self.decode_step.captures
+
+    @property
+    def graph_replays(self) -> int:
+        return self.decode_step.replays
 
     # -- state lifecycle ---------------------------------------------------
     @torch.inference_mode()
@@ -132,8 +212,6 @@ class EngineCore:
         if self._inflight:
             raise RuntimeError(f"engine reset with {len(self._inflight)} steps in flight; "
                                "harvest them first")
-        if pools is None or self.cache is None or pools is not self.cache.pools:
-            self._graph = None  # the graph holds the old pools' addresses
         cfg = self.config
         self.cache = StateStore.build(
             self.model, num_slots=cfg.num_slots, num_pages=self.resolved_num_pages(),
@@ -189,17 +267,18 @@ class EngineCore:
         return len(self._inflight)
 
     def _stage(self, arrays: dict[str, np.ndarray]):
-        """Copy host arrays into one staging buffer (pinned on the card) and
-        return it with its layout. The buffer is the step's own: it is not
-        written again, and the step holds it until its harvest."""
-        words, layout = _pack(arrays)
-        staged = torch.empty(words.shape, dtype=torch.int32, pin_memory=self._on_card)
-        staged.numpy()[:] = words
-        return staged, layout
+        """:func:`stage` for a step, which holds the buffer until its harvest."""
+        return stage(arrays, self._on_card)
 
-    def _stage_decode(self, page_table, seq_lens, active, params_list):
-        return self._stage({"page_table": page_table, "seq_lens": seq_lens, "active": active,
-                            **stack_params(params_list)})
+    @property
+    def generator(self) -> torch.Generator:
+        """The sampling generator (re-seeded by :meth:`fresh`)."""
+        return self._gen
+
+    @staticmethod
+    def _decode_arrays(page_table, seq_lens, active, params_list) -> dict:
+        return {"page_table": page_table, "seq_lens": seq_lens, "active": active,
+                **stack_params(params_list)}
 
     def _to_device(self, staged: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
         return _views(staged.to(self.device, non_blocking=True), layout)
@@ -272,42 +351,23 @@ class EngineCore:
         finite = (torch.isfinite(logits).all(-1) | (dev["active"] == 0)).all()
         self._record("prefill_batch", t0, toks, finite, staged, payload)
 
-    def _decode_forward(self) -> torch.Tensor:
+    def _decode_forward(self, d: dict, pools) -> torch.Tensor:
         """``decode_cb`` on the static decode inputs: the body of the decode
         graph, and the eager step."""
-        d = self._dec
         return self.model.decode_cb(
-            self.params, self._last_tok, self.cache.pools, d["page_table"], d["seq_lens"],
+            self.params, self._last_tok, pools, d["page_table"], d["seq_lens"],
             d["active"] != 0, page_size=self.config.page_size)
-
-    def _capture_decode(self) -> None:
-        """Warm up on zeroed inputs (no slot active: only the null page is
-        written), then capture :meth:`_decode_forward` as a CUDA graph."""
-        self._dec_in.zero_()
-        self._decode_forward()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._dec_logits = self._decode_forward()
-        self._graph = graph
-        self.graph_captures += 1
 
     def dispatch_decode(self, *, active: np.ndarray, params_list, payload=None) -> None:
         """Enqueue one decode step over every slot. Input tokens come from the
         device last-token tensor; sampled tokens of active slots merge back
         into it for the next decode."""
         t0 = time.perf_counter()
-        staged, _ = self._stage_decode(self.cache.page_table, self.cache.seq_lens, active,
-                                       params_list)
-        if self.graph_decode and self._graph is None:
-            self._capture_decode()
-        self._dec_in.copy_(staged, non_blocking=True)
-        if self.graph_decode:
-            self._graph.replay()
-            self.graph_replays += 1
-            logits = self._dec_logits
-        else:
-            logits = self._decode_forward()
-        d = self._dec
+        staged, _ = self._stage(self._decode_arrays(self.cache.page_table, self.cache.seq_lens,
+                                                    active, params_list))
+        self.decode_step.load(staged, self.cache.pools)
+        logits = self.decode_step.run()
+        d = self.decode_step.inputs
         toks = self._sample(logits, d)
         act = d["active"] != 0
         self._last_tok.copy_(torch.where(act[:, None], toks[:, None].long(), self._last_tok))

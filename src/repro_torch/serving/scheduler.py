@@ -57,6 +57,9 @@ class Request:
     eos_id: Optional[int] = None
     # Higher runs first; FIFO within a level.
     priority: int = 0
+    # Speculative decoding: this request's draft depth, None for the
+    # server's SpecConfig.k (it can lower k, never raise it).
+    spec_k: Optional[int] = None
     rid: Optional[int] = None  # assigned by Scheduler.submit
 
     out_tokens: list[int] = dataclasses.field(default_factory=list)
@@ -85,6 +88,7 @@ class Request:
     t_first_token: Optional[float] = None
     t_last_token: Optional[float] = None
     t_finish: Optional[float] = None
+    spec_accepted: int = 0  # drafts accepted over every speculative round
 
     @property
     def prompt_len(self) -> int:

@@ -1,6 +1,6 @@
 """The continuous-batching server of the port (counterpart of
-``repro.serving.server`` without speculative decoding, the tracer and the
-metrics registry; its counters are plain fields of :class:`ServerStats`).
+``repro.serving.server`` without the tracer and the metrics registry; its
+counters are plain fields of :class:`ServerStats`).
 
 The :class:`~repro_torch.serving.engine.EngineCore` owns the device (the
 StateStore, the steps, the sampling generator, the last-token tensor, the
@@ -21,6 +21,13 @@ One :meth:`Server.step`:
   4. harvest the oldest steps in flight down to ``async_depth``: commit
      tokens and prefix pages, stamp latency marks, emit
      :class:`TokenEvent`s.
+
+With ``spec`` (or a ``draft_model``) step 3 is a speculative round
+instead (:meth:`Server._spec_decode_once`): a drafter proposes up to k
+tokens a slot, the target verifies k + 1 positions of every slot in one
+step, and rejection sampling commits the accepted drafts and one token of
+the target's. A round is host-synchronous, so the dispatch depth is 0
+under speculation whatever ``async_depth`` says.
 
 At ``async_depth=0`` every step is harvested in the iteration that
 dispatched it. The dispatch sequence does not depend on the depth, so
@@ -48,6 +55,7 @@ from repro_torch.models.transformer import resolve_device
 from repro_torch.serving.engine import EngineCore
 from repro_torch.serving.sampling import GREEDY, SamplingParams, sample_logits, stack_params
 from repro_torch.serving.scheduler import RUNNING, Request, Scheduler
+from repro_torch.serving.spec import ModelDrafter, NgramDrafter, SpecConfig, Verifier, effective_k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,11 +127,28 @@ class ServerStats:
     cow_copies: int = 0  # copy-on-write page copies
     preemptions: int = 0  # prefilling requests evicted back to the queue
     nonfinite_steps: int = 0  # steps whose live logits held inf or NaN
+    # Speculative decoding: verify rounds run (each also counts as a decode
+    # step), drafts fielded, drafts accepted.
+    spec_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def utilization(self) -> float:
-        """Fraction of offered decode-lane steps that produced a token."""
+        """Fraction of offered decode-lane steps that produced a token; above
+        1 under speculative decoding, where a lane can emit several."""
         return self.decode_tokens / self.slot_steps if self.slot_steps else 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of fielded drafts the target accepted."""
+        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
+
+    @property
+    def accepted_per_step(self) -> float:
+        """Mean accepted drafts per speculative round (a round emits this
+        plus one token a decoding row)."""
+        return self.spec_accepted / self.spec_steps if self.spec_steps else 0.0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -160,10 +185,16 @@ class Server:
     step is a CUDA graph.
 
     ``device`` is the card by default; it raises when CUDA is absent unless
-    the caller asks for ``"cpu"``, and the model must live there."""
+    the caller asks for ``"cpu"``, and the model must live there.
+
+    ``spec`` turns on speculative decoding with the n-gram drafter, or with
+    ``draft_model``/``draft_params`` (a model sharing the target's
+    vocabulary, on the same device) as the drafter; a ``draft_model``
+    without ``spec`` takes the default :class:`SpecConfig`."""
 
     def __init__(self, model, params, config: Optional[ServerConfig] = None, *,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", spec: Optional[SpecConfig] = None,
+                 draft_model=None, draft_params=None):
         if config is None:
             config = ServerConfig()
         if config.async_depth < 0:
@@ -183,6 +214,27 @@ class Server:
                 "the port's StateStore holds full-length KV pages only (no state rows, no window)")
         self.prefix_cache = config.prefix_cache  # the reference's auto-disable cases raise above
         self.engine = EngineCore(model, params, config, self.profile, seed=seed)
+        if draft_model is not None and spec is None:
+            spec = SpecConfig()
+        self.spec = spec
+        self.drafter = self.verifier = None
+        if spec is not None:
+            if draft_model is not None:
+                if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                    raise ValueError("drafter and target must share a vocabulary: "
+                                     f"{draft_model.cfg.vocab_size} != {model.cfg.vocab_size}")
+                if draft_model.device.type != device.type:
+                    raise ValueError(f"the drafter lives on {draft_model.device}, the server "
+                                     f"on {device}")
+                self.drafter = ModelDrafter(
+                    draft_model, draft_params, num_slots=config.num_slots,
+                    page_size=config.page_size, max_seq_len=config.max_seq_len, k=spec.k,
+                    draft_chunk=spec.draft_chunk)
+            else:
+                self.drafter = NgramDrafter(k=spec.k, ngram_n=spec.ngram_n)
+            self.verifier = Verifier(model, params, num_slots=config.num_slots, k=spec.k,
+                                     page_size=config.page_size,
+                                     pages_per_slot=config.pages_per_slot)
         self._fresh_state()
 
     @property
@@ -212,6 +264,8 @@ class Server:
         self.results: dict[int, Request] = {}
         self._slot_req: dict[int, Request] = {}  # slot -> running request
         self._disp: dict[int, _DispatchState] = {}  # rid -> dispatch cursor
+        if self.drafter is not None:
+            self.drafter.reset()
 
     def reset(self) -> None:
         """Drop all serving state; keep the pools (stale K/V are never read
@@ -223,10 +277,10 @@ class Server:
     # -- request intake ----------------------------------------------------
     def submit(self, prompt: Iterable[int], *, max_new_tokens: int = 32,
                sampling: SamplingParams = GREEDY, eos_id: Optional[int] = None,
-               priority: int = 0) -> Request:
+               priority: int = 0, spec_k: Optional[int] = None) -> Request:
         req = self.scheduler.submit(Request(
             prompt=[int(t) for t in prompt], max_new_tokens=max_new_tokens,
-            sampling=sampling, eos_id=eos_id, priority=priority,
+            sampling=sampling, eos_id=eos_id, priority=priority, spec_k=spec_k,
         ))
         req.t_submit = req.t_queued = time.perf_counter()
         return req
@@ -253,6 +307,14 @@ class Server:
                 for req in prefilling:
                     self._dispatch_prefill_serial(req)
                     dispatched += 1
+        if self.spec is not None:
+            # A speculative round is host-synchronous: harvest the prefill
+            # steps first (committing first tokens), so the round sees the
+            # state a synchronous server would.
+            self._drain(events)
+            if any(r.decoding for r in self.scheduler.running.values()):
+                self._spec_decode_once(events)
+            return events
         decoding = self._decode_candidates()
         if decoding:
             self._dispatch_decode(decoding)
@@ -340,6 +402,8 @@ class Server:
         row and drop its dispatch cursor (its steps in flight carry the old
         epoch and are skipped at harvest)."""
         self.cache.reset_slot(slot)
+        if self.drafter is not None:
+            self.drafter.release_slot(slot)
         req = self._slot_req.pop(slot, None)
         if req is not None:
             self._disp.pop(req.rid, None)
@@ -471,6 +535,75 @@ class Server:
             ds.generated += 1
             self.cache.seq_lens[slot] += 1
 
+    # -- speculative decoding ------------------------------------------------
+    def _spec_decode_once(self, events: list[TokenEvent]) -> None:
+        """One speculative round over every decoding slot: draft up to k,
+        verify k + 1 positions in one fixed-shape step, rejection-sample,
+        then commit the accepted drafts and one token of the target's a row.
+
+        The target's K/V written past the accepted prefix needs no undo:
+        ``seq_lens`` does not advance over it, so it is never read back, and
+        the next round overwrites it. The drafter rolls itself back the same
+        way (``drafter.py``)."""
+        spec = self.spec
+        decoding = [(slot, req) for slot, req in self.scheduler.running.items()
+                    if req.decoding]
+        n = self.config.num_slots
+        want = np.zeros((n,), np.int32)
+        active = np.zeros((n,), bool)
+        contexts: dict[int, list[int]] = {}
+        params_list = [GREEDY] * n
+        for slot, req in decoding:
+            committed = int(self.cache.seq_lens[slot])
+            remaining = min(req.max_new_tokens - req.num_generated,
+                            req.max_total - req.prompt_len - req.num_generated)
+            want[slot] = effective_k(spec.k if req.spec_k is None else req.spec_k, spec.k,
+                                     remaining, req.max_total - 1 - committed)
+            active[slot] = True
+            contexts[slot] = req.prompt + req.out_tokens
+            params_list[slot] = req.sampling
+        t0 = time.perf_counter()
+        gen = self.engine.generator
+        proposal = self.drafter.propose(contexts, want, gen, params_list)
+        k_eff = np.minimum(want, proposal.counts)
+        lengths = np.where(active, k_eff + 1, 0).astype(np.int32)
+        tokens = np.zeros((n, spec.k + 1), np.int32)
+        for slot, req in decoding:
+            tokens[slot, 0] = req.out_tokens[-1]
+            m = int(k_eff[slot])
+            tokens[slot, 1:1 + m] = proposal.tokens[slot, :m]
+            grown = self.scheduler.ensure_pages(req, int(self.cache.seq_lens[slot]) + m + 1)
+            self._mirror_pages(req, grown)
+        logits = self.verifier.verify(self.cache.pools, tokens, self.cache.page_table,
+                                      self.cache.seq_lens, lengths, active, params_list)
+        out, acc, finite = self.verifier.sample(logits, proposal.logits, gen)
+        res = torch.cat([out.flatten(), acc, finite.to(torch.int32)[None]]).cpu().numpy()
+        out, acc = res[:out.numel()].reshape(out.shape), res[out.numel():-1]
+        eng, st = self.engine, self.stats
+        eng.decode_s += time.perf_counter() - t0
+        eng.nonfinite_steps += int(not res[-1])
+        st.decode_s, st.nonfinite_steps = eng.decode_s, eng.nonfinite_steps
+        st.decode_steps += 1
+        st.slot_steps += n
+        st.spec_steps += 1
+        for slot, req in decoding:
+            a = int(acc[slot])
+            st.spec_drafted += int(k_eff[slot])
+            st.spec_accepted += a
+            req.spec_accepted += a
+            ds = self._disp.get(req.rid)
+            emitted = 0
+            for j in range(a + 1):
+                self._commit(req, int(out[slot, j]), events)
+                emitted += 1
+                if req.finish_reason is not None:
+                    break  # accepted tokens past EOS are discarded
+            st.decode_tokens += emitted
+            if req.finish_reason is None:
+                if ds is not None:
+                    ds.generated += emitted
+                self.cache.seq_lens[slot] += a + 1
+
     # -- harvest (authoritative commits) -----------------------------------
     def _drain(self, events: list[TokenEvent]) -> None:
         while self._harvest_one(events):
@@ -525,6 +658,8 @@ class Server:
             req.t_finish = now
             self.scheduler.finish(req)
             self.cache.reset_slot(slot)
+            if self.drafter is not None:
+                self.drafter.release_slot(slot)
             self.results[req.rid] = req
             self._slot_req.pop(slot, None)
             self._disp.pop(req.rid, None)

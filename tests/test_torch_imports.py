@@ -132,7 +132,7 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("change", [
     {"name": "gemma2-2b-smoke"}, {"final_softcap": 30.0}, {"sliding_window": 8},
-    {"n_experts": 4, "top_k": 2}, {"block_pattern": ("attn", "rglru")},
+    {"tie_embeddings": False}, {"block_pattern": ("attn", "rglru")},
 ])
 def test_unported_archs_raise(change):
     import dataclasses
@@ -145,3 +145,17 @@ def test_unported_archs_raise(change):
     cfg = dataclasses.replace(get_config("granite-3-8b", smoke=True), **change)
     with pytest.raises(NotImplementedError, match="dense decoder-only"):
         build(cfg, device="cpu")
+
+
+def test_moe_expert_parallel_impl_raises():
+    """The MoE family builds with the dense implementation; expert
+    parallelism (``moe_impl="ep"``) needs a mesh and raises."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    assert build(cfg, device="cpu").moe_cfg.impl == "dense"
+    with pytest.raises(NotImplementedError, match="distrib"):
+        build(dataclasses.replace(cfg, moe_impl="ep"), device="cpu")
