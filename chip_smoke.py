@@ -21,6 +21,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GEMM run twice that must give the same bits, and the two auxiliary
    kernels (K-major copy, split-K combine) bitwise against their plain
    versions;
+3c. the SIMT schedule's three forms (warp, f32, h2): every Table-1 pair
+   under fp32 and redmule_hfp8 on operands with NaN, +-inf, +-0 and values
+   past 464, at ragged shapes with K split across a boundary, transposed
+   views, K = 1001 and a batch stride of 0 (NaN positions, then bits); a
+   planted dropped K split per tiled form that must fail; the MoE router
+   bit for bit eager and replayed; and the semiring paths at full size,
+   read on the counters: ``Engine.closure`` of a 4096-node graph under fp32
+   (apsp) and redmule_fp16 (max_capacity_path) against Floyd-Warshall bit
+   for bit, and ``Engine.gemm_op`` apsp 64x4096x12800 under redmule_hfp8;
 4. the paged flash-decode kernel against its plain version, then its split
    page walk at its edges: 64-page tables with lengths ending in the first
    split, on a split boundary and in the last, whole splits dead by
@@ -103,6 +112,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
     every (mul, add) shape of both paths, phase 12's chunked and batched
     prefill included, with ``torch._scaled_mm`` beside
     ``torch.matmul`` where its shape rules allow, and its schedule; the
+    SIMT forms at the router's two shapes, phase 3c's semiring paths and
+    phase 7's widest fp32 product, and the split-K combine with min; the
     paged decode at the serving and the long-context shape, as CUDA-graph
     replays with eager calls beside; the dense attention with its route).
 
@@ -153,13 +164,13 @@ def mma_peak(*operands: torch.Tensor) -> float:
     return FP8_FLOP_S if all(t.dtype in FP8_DTYPES for t in operands) else FP16_FLOP_S
 
 
-def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
+def time_ms(fn, iters: int = 20, graph: bool = False, warmup: int = 3) -> float:
     """Mean device time of one call, by CUDA events over ``iters`` calls.
     With ``graph`` the calls are captured once in a CUDA graph and the
     graph is replayed, so the time is the card's alone: the GEMM wrapper
     plans on the host for longer than its small-row kernels run, which
     eager calls would time instead."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -240,10 +251,22 @@ def _gemm_check(label, x, w, y, gop, policy):
         if not err <= tol:
             raise AssertionError(f"{label}: max|dz|/max|z| = {err:.3g} > {tol}")
     else:
-        err = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got.float(), want.float()):
-            raise AssertionError(f"{label}: min/max op not bitwise, max|dz| = {err}")
+        err = float((got.float() - want.float()).nan_to_num().abs().max())
+        if not same_bits(got, want):
+            raise AssertionError(f"{label}: min/max op not bitwise (NaN positions, then bits), "
+                                 f"max|dz| = {err}")
     return err
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN at the same positions, and the same bits everywhere else (the
+    sign of a zero included): ``torch.equal`` on floats fails on any NaN
+    and takes -0 for +0."""
+    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(gn, wn):
+        return False
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    return torch.equal(got.view(bits)[~gn], want.view(bits)[~wn])
 
 
 def phase_gemm() -> float:
@@ -496,6 +519,238 @@ def phase_gemm_schedules() -> None:
     if not torch.equal(z.view(torch.int16), rg.splitk_combine_plain(ws, y, FP16).view(torch.int16)):
         raise AssertionError("the split-K combine differs from its plain version")
     log("gemm schedules: K-major copy and split-K combine bitwise equal to their plain versions")
+
+
+# -- phase 3c --------------------------------------------------------------------
+
+SIMT_V = 4096  # nodes of the closures' graphs
+
+
+def _edge_operand(gen, *shape, zero_row=None, zero_col=None):
+    """Normal values with planted specials (NaN, +-inf, +-0, magnitudes past
+    E4M3's 464, which the reference's E4M3 cast makes NaN) and a row or
+    column of zeros of both signs, so that min and max meet zeros to order."""
+    t = torch.randn(shape, generator=gen, device="cuda") * 4
+    flat = t.view(-1)
+    specials = torch.tensor([math.nan, math.inf, -math.inf, 0.0, -0.0, 500.0, -600.0, 1e4,
+                             -0.0, 0.0], device="cuda")
+    flat[torch.randperm(flat.numel(), generator=gen, device="cuda")[:len(specials)]] = specials
+
+    def zeros(n):
+        neg = torch.rand(n, generator=gen, device="cuda") < 0.5
+        return torch.where(neg, -torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda"))
+
+    if zero_row is not None:
+        t[..., zero_row, :] = zeros(shape[-1])
+    if zero_col is not None:
+        t[..., :, zero_col] = zeros(shape[-2])
+    return t
+
+
+def _same_nonfinite_close(got, want) -> float:
+    """(mul, add) on edge operands: raises unless NaN and +-inf sit at the
+    same positions; returns the finite rest's max|dz|/max|z|."""
+    g, w = got.float(), want.float()
+    for special in (torch.isnan, lambda t: t == math.inf, lambda t: t == -math.inf):
+        if not torch.equal(special(g), special(w)):
+            raise AssertionError("NaN or inf positions differ")
+    fin = torch.isfinite(w)
+    return rel_err(g[fin], w[fin])
+
+
+def _floyd_warshall(d: torch.Tensor, circ, star) -> torch.Tensor:
+    """d* by Floyd-Warshall in plain torch on the card: d = star(d, circ(d[:, k], d[k, :]))."""
+    d = d.clone()
+    for k in range(d.shape[0]):
+        d = star(d, circ(d[:, k:k + 1], d[k:k + 1, :]))
+    return d
+
+
+def _closure_graph(gen, op: str):
+    """A random directed graph of SIMT_V nodes with about 4 edges a node.
+    apsp (fp32): integer weights in [1, 16], 1e6 for a missing edge and 0
+    on the diagonal, so every path sum is exact. max_capacity_path (fp16):
+    integer capacities in [1, 64], 0 for a missing edge."""
+    v = SIMT_V
+    w = torch.randint(1, 17 if op == "apsp" else 65, (v, v), generator=gen, device="cuda").float()
+    present = torch.rand((v, v), generator=gen, device="cuda") < 4.0 / v
+    if op == "apsp":
+        d = torch.where(present, w, torch.full_like(w, 1e6))
+        d.fill_diagonal_(0.0)
+        return d
+    return torch.where(present, w, torch.zeros_like(w)).half()
+
+
+def _simt_path(label, run, readings: dict) -> object:
+    """Run ``run`` with the GEMM's counters set to 0 and record, after it,
+    the launches of each SIMT form and the auxiliary (combine) launches."""
+    from repro_torch.kernels import redmule_gemm as rg
+
+    _reset_launch_counts()
+    for c in rg.simt_form_launches.values():
+        c.reset()
+    out = run()
+    torch.cuda.synchronize()
+    readings[label] = {"gemm": rg.launches.n, "aux": rg.aux_launches.n,
+                       **{f: c.n for f, c in rg.simt_form_launches.items()}}
+    return out
+
+
+def phase_simt() -> dict:
+    """Phase 3c: the SIMT schedule's three forms (warp, f32, h2) at their
+    edges and on the semiring paths.
+
+    Every Table-1 pair under fp32 and redmule_hfp8 on edge operands (NaN,
+    +-inf, +-0, past 464; zeros of both signs in a row of X and a column
+    of W; Y with the same), at shapes that take each form: the warp form,
+    (lanes over N for an N-contiguous W, over K for a transposed one),
+    tiles with K split across a ragged boundary (M, N and K ragged),
+    transposed views with K = 1001 (not a 16-byte row: the element loads),
+    and a batch stride of 0. The semiring pairs must give the plain
+    version's NaN positions and its bits elsewhere; (mul, add) its NaN and
+    inf positions and the rest within GEMM_TOL. Then a planted dropped K
+    split per tiled form must fail; the MoE router's two shapes give the
+    same bits in an eager call and a graph replay; and the semiring paths
+    at full size, each read on the counters: ``Engine.closure`` of a
+    4096-node graph under fp32 (apsp, the f32 form) and under redmule_fp16
+    (max_capacity_path, the h2 form), both against Floyd-Warshall bit for
+    bit, and ``Engine.gemm_op`` apsp 64x4096x12800 under redmule_hfp8 (the
+    h2 form, K split 4, the min combine) against the plain engine.
+    Returns the paths' launch readings for the kernel line."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import cast, get_policy
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import redmule_gemm as rg
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    e = functools.partial(_edge_operand, gen)
+    seen, n = set(), 0
+    for pol_name in ("fp32", "redmule_hfp8"):
+        pol = get_policy(pol_name)
+        for gop in semiring.TABLE1:
+            if gop.is_gemm and pol_name != "fp32":
+                continue  # the tensor cores take it (phase 3b)
+            cases = {
+                "37x1000x70": (e(37, 1000, zero_row=3), e(1000, 70, zero_col=5), None),
+                "37x1000x70, W^T": (e(37, 1000, zero_row=3), e(70, 1000, zero_row=5).T, None),
+                "100x1000x200 +y, split": (e(100, 1000, zero_row=70), e(1000, 200, zero_col=130),
+                                           e(100, 200)),
+                "transposed 100x1001x200": (e(1001, 100, zero_col=7).T,
+                                            e(200, 1001, zero_row=9).T, None),
+                "batch stride 0 (3)x37x300x70": (e(1, 37, 300, zero_row=1),
+                                                 e(3, 300, 70, zero_col=2), e(37, 70)),
+            }
+            for label, (x, w, y) in cases.items():
+                name = f"simt {pol_name}/{gop.name}/{label}"
+                xq, wq = cast(x, pol.storage_fwd), cast(w, pol.storage_fwd)
+                plan = rg.plan_call(xq, wq, None if y is None else y.float(), gop=gop,
+                                    policy=pol).plan
+                seen.add((plan.form, plan.split > 1))
+                got = ops.gemm_op(x, w, y, gop=gop, policy=pol, backend="cuda")
+                want = ops.gemm_op(x, w, y, gop=gop, policy=pol, backend="torch")
+                torch.cuda.synchronize()
+                if gop.is_gemm:
+                    try:
+                        err = _same_nonfinite_close(got, want)
+                    except AssertionError as exc:
+                        raise AssertionError(f"{name}: {exc}") from None
+                    if not err <= GEMM_TOL[got.dtype]:
+                        raise AssertionError(f"{name}: max|dz|/max|z| {err:.3g}")
+                elif not same_bits(got, want):
+                    raise AssertionError(f"{name} ({plan.form}, split {plan.split}): not the "
+                                         "plain version's NaN positions and bits")
+                n += 1
+    for want in (("warp", False), ("f32", True), ("h2", True), ("f32", False), ("h2", False)):
+        if want not in seen:
+            raise AssertionError(f"simt edges: no case took form {want[0]} with split "
+                                 f"{'> 1' if want[1] else '1'} ({sorted(seen)})")
+    log(f"simt: {n} edge cases (NaN, +-inf, +-0, past 464) give the plain version's NaN "
+        f"positions and bits (forms and splits taken: {sorted(seen)})")
+
+    # A planted dropped K split per tiled form: the plain version without
+    # the second (last) split's K range must differ.
+    rand = lambda *sh: torch.randn(sh, generator=gen, device="cuda")  # noqa: E731
+    planted = {}
+    for pol_name, op in (("redmule_hfp8", "apsp"), ("fp32", "apsp"), ("fp32", "matmul")):
+        pol, gop = get_policy(pol_name), semiring.get(op)
+        x, w = cast(rand(100, 1000), pol.storage_fwd), cast(rand(1000, 200), pol.storage_fwd)
+        plan = rg.plan_call(x, w, None, gop=gop, policy=pol).plan
+        if plan.split < 2:
+            raise AssertionError(f"planted split {pol_name}/{op}: planned {plan}")
+        kw = dict(gop=gop, policy=pol, out_dtype=pol.out)
+        got = rg.redmule_gemm(x, w, None, **kw)
+        kept = (plan.split - 1) * plan.k_per_split
+        want = rg.redmule_gemm_plain(x[:, :kept], w[:kept], None, **kw)
+        torch.cuda.synchronize()
+        key = f"{plan.form} {pol_name}/{op}"
+        planted[key] = rel_err(got, want) if gop.is_gemm else float(
+            (got != want).float().mean())
+        if (planted[key] <= GEMM_TOL[got.dtype]) if gop.is_gemm else same_bits(got, want):
+            raise AssertionError(f"a dropped K split on the {key} form passes the check")
+    log("simt: a planted dropped K split fails every tiled form (" + ", ".join(
+        f"{k} {v:.3g}" for k, v in planted.items()) + "; error or share of outputs that differ)")
+
+    # The router: an eager call and a graph replay, the same bits.
+    fp32 = get_policy("fp32")
+    kw = dict(gop=semiring.MATMUL, policy=fp32, out_dtype=torch.float32)
+    router_w = rand(1024, 32) * 0.02
+    for rows in (4, 64):
+        x = rand(rows, 1024)
+        eager = rg.redmule_gemm(x, router_w, None, **kw)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            replayed = rg.redmule_gemm(x, router_w, None, **kw)
+        g.replay()
+        torch.cuda.synchronize()
+        plan = rg.plan_call(x, router_w, None, gop=semiring.MATMUL, policy=fp32).plan
+        if not torch.equal(eager.view(torch.int32), replayed.view(torch.int32)):
+            raise AssertionError(f"router {rows}x1024x32: a graph replay differs from the eager "
+                                 "call")
+        err = rel_err(eager, rg.redmule_gemm_plain(x, router_w, None, **kw))
+        if not err <= GEMM_TOL[torch.float32]:
+            raise AssertionError(f"router {rows}x1024x32: {err:.3g} from the plain version")
+        log(f"simt: router {rows}x1024x32 ({plan.form} form) gives the same bits eager and "
+            f"replayed, {err:.3g} from the plain version")
+        del g
+
+    # The semiring paths at full size.
+    readings = {}
+    for op, pol_name in (("apsp", "fp32"), ("max_capacity_path", "redmule_fp16")):
+        gop = semiring.get(op)
+        d = _closure_graph(gen, op)
+        eng = Engine(policy=pol_name, backend="cuda")
+        t0 = time.perf_counter()
+        got = _simt_path(f"closure {op}", lambda: eng.closure(d, op), readings)
+        ms = (time.perf_counter() - t0) * 1e3
+        if op != "apsp":  # the closure's diagonal: the circ identity
+            d.fill_diagonal_(semiring.finite_identity(gop.circ, d.dtype))
+        want = _floyd_warshall(d, semiring.op_fn(gop.circ), semiring.op_fn(gop.star))
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"closure {op} V={SIMT_V} ({pol_name}) differs from "
+                                 "Floyd-Warshall")
+        r = readings[f"closure {op}"]
+        log(f"simt: Engine.closure {op} V={SIMT_V} under {pol_name}: {r['gemm']} squarings in "
+            f"{ms:.1f} ms (host clock), SIMT forms {({f: r[f] for f in rg.SIMT_FORMS})}, equal "
+            f"to Floyd-Warshall bit for bit")
+    hfp8, apsp = get_policy("redmule_hfp8"), semiring.get("apsp")
+    x, w = rand(64, 4096), rand(4096, 12800) * 4096 ** -0.5
+    plan = rg.plan_call(cast(x, hfp8.storage_fwd), cast(w, hfp8.storage_fwd), None, gop=apsp,
+                        policy=hfp8).plan
+    got = _simt_path("gemm_op apsp", lambda: Engine(policy=hfp8, backend="cuda").gemm_op(
+        x, w, op="apsp"), readings)
+    want = Engine(policy=hfp8, backend="torch").gemm_op(x, w, op="apsp")
+    if not same_bits(got, want):
+        raise AssertionError("Engine.gemm_op apsp 64x4096x12800 redmule_hfp8 differs from the "
+                             "plain engine")
+    r = readings["gemm_op apsp"]
+    if r["h2"] != 1 or r["aux"] != 1:
+        raise AssertionError(f"Engine.gemm_op apsp 64x4096x12800: launches {r}, expected one "
+                             "h2 launch and one combine")
+    log(f"simt: Engine.gemm_op apsp 64x4096x12800 under redmule_hfp8 ({plan.form} form, split "
+        f"{plan.split}, one min combine) equal to the plain engine bit for bit")
+    return {"simt_paths": readings}
 
 
 # -- phase 4 ---------------------------------------------------------------------
@@ -934,7 +1189,27 @@ def _chunk_run(model, params, prompts, page_table, ps=16) -> list:
     return out
 
 
-def phase_slice_parity() -> None:
+@contextlib.contextmanager
+def _recording_plans(calls: collections.Counter):
+    """Count the GEMM-Op calls planned while the context is open by (M, K,
+    N after batch folding, schedule, SIMT form)."""
+    from repro_torch.kernels import redmule_gemm as rg
+
+    plan_call = rg.plan_call
+
+    def recording(*args, **kw):
+        c = plan_call(*args, **kw)
+        calls[(c.m, c.k, c.n, c.plan.schedule, c.plan.form)] += 1
+        return c
+
+    rg.plan_call = recording
+    try:
+        yield calls
+    finally:
+        rg.plan_call = plan_call
+
+
+def phase_slice_parity() -> dict:
     """granite-3-8b at full width, 2 layers: the kernels' path against the
     plain path on the card, fed the same tokens, over whole-prompt prefill
     and decode and over chunked and batched prefill. The bound holds the plain
@@ -949,7 +1224,10 @@ def phase_slice_parity() -> None:
     every E4M3 product is exact in fp16, both sides sum in fp32 and round
     once to fp16, and the run is deterministic. Its bound is therefore 0:
     any difference means one side changed its arithmetic, and one E4M3
-    rounding flipped by it reaches the logits."""
+    rounding flipped by it reaches the logits.
+
+    Returns the fp32 run's SIMT calls of its widest product (the 64-row
+    prefill's 64 x 4096 x 12800), for the kernel line."""
     from repro_torch.configs import get_config
     from repro_torch.engine import Engine
     from repro_torch.models import build
@@ -960,6 +1238,7 @@ def phase_slice_parity() -> None:
     page_table = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
     page_table[0, :5] = torch.arange(1, 6)
     page_table[1, :3] = torch.arange(6, 9)
+    fp32_calls = collections.Counter()
     for pol, kv, fp8p, bound in (("fp32", "fp32", False, 1e-4),
                                  ("redmule_hfp8", "e4m3", True, 0.0)):
         cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy=pol,
@@ -969,7 +1248,8 @@ def phase_slice_parity() -> None:
         plain = Engine(policy=pol, backend="torch")
         fused = Transformer(cfg, engine=plain, device="cuda", fused_decode=True)
         gather = Transformer(cfg, engine=plain, device="cuda")
-        got, chosen = _slice_run(cuda_model, params, prompts, page_table)
+        with _recording_plans(fp32_calls if pol == "fp32" else collections.Counter()):
+            got, chosen = _slice_run(cuda_model, params, prompts, page_table)
         forced = chosen[:-1]  # decode step i was fed chosen[i]
         if not all(torch.isfinite(g).all() for g in got):
             raise AssertionError(f"slice parity {pol}: non-finite logits on the kernels' path")
@@ -1000,6 +1280,9 @@ def phase_slice_parity() -> None:
         log(f"slice parity {pol}: {worst:.3g} within {bound:g}")
         del cuda_model, fused, gather, params
         torch.cuda.empty_cache()
+    log("slice parity fp32: the kernels' GEMMs by (M, K, N, schedule, form): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(fp32_calls.items())))
+    return {"fp32_wide": fp32_calls[(64, 4096, 12800, "simt", "f32")]}
 
 
 # -- phase 8 ---------------------------------------------------------------------
@@ -2223,11 +2506,13 @@ def _scaled_mm_ms(x, w, out_dtype):
     return time_ms(lambda: torch._scaled_mm(a, b, one, one, out_dtype=out_dtype), graph=True)
 
 
-def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", **extra):
-    """One (mul, add) row of the kernel line, under redmule_hfp8 unless
-    ``policy`` says otherwise: the kernel on its planned schedule (held
-    within GEMM_TOL of the plain version; device time from a CUDA-graph
-    replay), the plain version, torch.matmul on the widened fp16 operands
+def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", op="matmul", y=None,
+              **extra):
+    """One row of the kernel line, (mul, add) under redmule_hfp8 unless
+    ``op`` and ``policy`` say otherwise: the kernel on its planned schedule
+    (held within GEMM_TOL of the plain version, a semiring pair to its NaN
+    positions and bits; device time from a CUDA-graph replay), the plain
+    version, and for (mul, add) torch.matmul on the widened fp16 operands
     (on the fp32 ones under fp32) and torch._scaled_mm on the fp8 ones.
     Bound: each operand byte read once and the output written once at
     3.35 TB/s, against 2*M*K*N operations (per batch) at the fp8
@@ -2236,30 +2521,37 @@ def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", **extra):
     from repro_torch.core.precision import FP32, get_policy
     from repro_torch.kernels import redmule_gemm as rg
 
-    pol = get_policy(policy)
-    kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=out_dtype)
-    plan = rg.plan_call(x, w, None, gop=semiring.MATMUL, policy=pol).plan
+    pol, gop = get_policy(policy), semiring.get(op)
+    kw = dict(gop=gop, policy=pol, out_dtype=out_dtype)
+    plan = rg.plan_call(x, w, y, gop=gop, policy=pol).plan
     aux0 = rg.aux_launches.n
-    got = rg.redmule_gemm(x, w, None, **kw)
+    got = rg.redmule_gemm(x, w, y, **kw)
     aux = rg.aux_launches.n - aux0
-    want = rg.redmule_gemm_plain(x, w, None, **kw)
+    want = rg.redmule_gemm_plain(x, w, y, **kw)
     err = rel_err(got, want)
-    if not err <= GEMM_TOL[got.dtype]:
+    if gop.is_gemm and not err <= GEMM_TOL[got.dtype]:
         raise AssertionError(f"redmule_gemm[{label}]: max|dz|/max|z| = {err:.3g} > "
                              f"{GEMM_TOL[got.dtype]}")
+    if not gop.is_gemm and not same_bits(got, want):
+        raise AssertionError(f"redmule_gemm[{label}]: not bitwise against the plain version")
     big = x.numel() * w.shape[-1] > 1 << 32
-    ms = time_ms(lambda: rg.redmule_gemm(x, w, None, **kw), iters=5 if big else 20, graph=True)
+    ms = time_ms(lambda: rg.redmule_gemm(x, w, y, **kw), iters=5 if big else 20, graph=True)
     # Eager calls, timed the same way: where this exceeds ``ms`` the wrapper's
     # host work (planning, allocation, the ctypes launch) paces the calls.
-    eager_ms = time_ms(lambda: rg.redmule_gemm(x, w, None, **kw), iters=5 if big else 20)
-    plain_ms = time_ms(lambda: rg.redmule_gemm_plain(x, w, None, **kw), iters=5)
-    x16, w16 = (x, w) if pol.compute == FP32 else (x.half(), w.half())
-    library_ms = time_ms(lambda: torch.matmul(x16, w16), iters=5 if big else 20, graph=True)
-    scaled_ms = _scaled_mm_ms(x, w, out_dtype)
+    eager_ms = time_ms(lambda: rg.redmule_gemm(x, w, y, **kw), iters=5 if big else 20)
+    # The plain semiring scan at 4096^3 takes seconds a call: one, after one.
+    slow = big and not gop.is_gemm
+    plain_ms = time_ms(lambda: rg.redmule_gemm_plain(x, w, y, **kw), iters=1 if slow else 5,
+                       warmup=1 if slow else 3)
+    library_ms = scaled_ms = None
+    if gop.is_gemm:
+        x16, w16 = (x, w) if pol.compute == FP32 else (x.half(), w.half())
+        library_ms = time_ms(lambda: torch.matmul(x16, w16), iters=5 if big else 20, graph=True)
+        scaled_ms = _scaled_mm_ms(x, w, out_dtype)
     m, k = x.shape[-2:]
     n = w.shape[-1]
     batch = got.numel() // (m * n)
-    nbytes = sum(t.numel() * t.element_size() for t in (x, w, got))
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, got) + (() if y is None else (y,)))
     ops = 2.0 * batch * m * k * n
     peak = FP32_FLOP_S if plan.schedule == "simt" else mma_peak(x, w)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
@@ -2269,7 +2561,7 @@ def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", **extra):
         "name": f"redmule_gemm[{label}]", "route": "cuda", "source": GEMM_SOURCE[plan.schedule],
         "replaces": "src/repro/kernels/redmule_gemm.py:110",
         "launches": launches, **extra, "schedule": plan.schedule, "split": plan.split,
-        "aux_launches_per_call": aux,
+        **({"form": plan.form} if plan.form else {}), "aux_launches_per_call": aux,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "share_differ": share, "worst_ulps": ulps,
         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -2343,6 +2635,8 @@ def _spec_gemm_entries(counts, q, table) -> list:
     per_draft = {"launches_per_draft_decode_step": counts["spec_draft_per_step"]}
     keys = q(E4M3, 4, ctx, 8, 128).permute(0, 2, 3, 1)  # (B, Hkv, hd, T) strided view
     d_table = q(E4M3, 49155, 1024, scale=0.02)
+    router_w = torch.randn((1024, 32), generator=torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda") * 0.02
     dense = (4, 5, 4096)
     rows = [
         _gemm_row("verify 20x4096x12800", q(E4M3, 20, 4096), q(E4M3, 12800, 4096, scale=0.02).T,
@@ -2371,10 +2665,10 @@ def _spec_gemm_entries(counts, q, table) -> list:
         _gemm_row("drafter decode logits 4x1024x49155 (table.T)", q(E4M3, 4, 1024), d_table.T,
                   FP16, calls[((4, 1, 1024), (1024, 49155))], **per_draft),
         # The MoE router: fp32, as in the reference, on the SIMT schedule.
-        _gemm_row("moe decode router 4x1024x32, fp32", q(FP32, 4, 1024),
-                  torch.randn((1024, 32), generator=torch.Generator(device="cuda").manual_seed(3),
-                              device="cuda") * 0.02, FP32, calls[((4, 1024), (1024, 32))],
-                  policy="fp32", **per_draft),
+        _gemm_row("moe decode router 4x1024x32, fp32", q(FP32, 4, 1024), router_w, FP32,
+                  calls[((4, 1024), (1024, 32))], policy="fp32", **per_draft),
+        _gemm_row("moe catch-up router 64x1024x32, fp32", q(FP32, 64, 1024), router_w, FP32,
+                  calls[((64, 1024), (1024, 32))], policy="fp32"),
     ]
     del d_table
     return rows
@@ -2437,33 +2731,52 @@ def _combine_entry(counts):
     }
 
 
-def _apsp_entry():
-    """One semiring pair on the SIMT schedule, off every model path, timed
-    for PERF.md: apsp at 64x4096x12800 on E4M3, bitwise against the plain
-    version, bound by its operations at the CUDA cores' fp32 peak."""
+def _simt_entries(counts) -> list:
+    """The SIMT schedule's rows off the model paths, each with the launches
+    of its path (phase 3c's semiring paths; phase 7's fp32 run): apsp
+    64x4096x12800 on E4M3 (h2, K split), one squaring of the 4096-node
+    closures under fp32 (apsp, f32) and redmule_fp16 (max_capacity_path,
+    h2), fp32 (mul, add) at the fp32 policy's widest product (f32, K split),
+    and the split-K combine with min, bitwise against its plain version."""
     from repro_torch.core import semiring
-    from repro_torch.core.precision import cast, get_policy
-    from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
+    from repro_torch.core.precision import E4M3, FP16, FP32, cast
+    from repro_torch.kernels import redmule_gemm as rg
 
-    pol = get_policy("redmule_hfp8")
+    paths = counts["simt_paths"]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    m, k, n = 64, 4096, 12800
-    xq = cast(torch.randn((m, k), generator=gen, device="cuda").half(), pol.storage_fwd)
-    wq = cast(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5, pol.storage_fwd)
-    kw = dict(gop=semiring.get("apsp"), policy=pol, out_dtype=pol.out)
-    got = redmule_gemm(xq, wq, None, **kw)
-    want = redmule_gemm_plain(xq, wq, None, **kw)
-    ms = time_ms(lambda: redmule_gemm(xq, wq, None, **kw), graph=True)
-    plain_ms = time_ms(lambda: redmule_gemm_plain(xq, wq, None, **kw), iters=5)
-    nbytes = xq.numel() + wq.numel() + got.numel() * got.element_size()
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, 2.0 * m * k * n / FP32_FLOP_S * 1e3
-    return {
-        "name": f"redmule_gemm[apsp {m}x{k}x{n}]", "route": "cuda",
-        "source": GEMM_SOURCE["simt"], "replaces": "src/repro/kernels/redmule_gemm.py:110",
-        "launches": 0, "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-    }
+    rand = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    d = _closure_graph(gen, "apsp")
+    c = _closure_graph(gen, "max_capacity_path")
+    rows = [
+        _gemm_row("apsp 64x4096x12800 e4m3", cast(rand(64, 4096).half(), E4M3),
+                  cast(rand(4096, 12800) * 4096 ** -0.5, E4M3), FP16,
+                  paths["gemm_op apsp"]["h2"], op="apsp"),
+        _gemm_row("apsp 4096x4096x4096 fp32 (closure squaring)", d, d, FP32,
+                  paths["closure apsp"]["f32"], policy="fp32", op="apsp", y=d),
+        _gemm_row("max_capacity_path 4096x4096x4096 fp16 (closure squaring)", c, c, FP16,
+                  paths["closure max_capacity_path"]["h2"], policy="redmule_fp16",
+                  op="max_capacity_path", y=c.float()),
+        _gemm_row("fp32 64x4096x12800", rand(64, 4096), rand(4096, 12800) * 4096 ** -0.5, FP32,
+                  counts["fp32_wide"], policy="fp32"),
+    ]
+    del d, c
+    ws = rand(1, 4, 64, 12800)
+    out = torch.empty((1, 64, 12800), dtype=FP16, device="cuda")
+    rg.splitk_combine(ws, out, star=semiring.Op.MIN)
+    if not same_bits(out, rg.splitk_combine_plain(ws, None, FP16, semiring.Op.MIN)):
+        raise AssertionError("the min split-K combine differs from its plain version")
+    t_bytes = (ws.numel() * 4 + out.numel() * 2) / HBM_BYTES_S * 1e3
+    rows.append({
+        "name": "splitk_combine[min, 4 x 64x12800 fp32 -> fp16]", "route": "cuda",
+        "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
+        "replaces": "src/repro/kernels/redmule_gemm.py:110",
+        "launches": paths["gemm_op apsp"]["aux"], "max_abs_err": 0.0,
+        "ms": time_ms(lambda: rg.splitk_combine(ws, out, star=semiring.Op.MIN), graph=True),
+        "plain_ms": time_ms(lambda: rg.splitk_combine_plain(ws, None, FP16, semiring.Op.MIN)),
+        "bound_ms": t_bytes, "bound_by": "bytes",
+        "library_ms": time_ms(lambda: ws.amin(1), graph=True),
+    })
+    return rows
 
 
 def _decode_row(counts, label, case, seed_note):
@@ -2598,7 +2911,9 @@ def _log_entry(e) -> None:
     extra = ""
     if "split" in e:
         smm = "none" if e["scaled_mm_ms"] is None else f"{e['scaled_mm_ms']:.4f} ms"
-        extra = (f"; schedule {e['schedule']} (split {e['split']}, {e['aux_launches_per_call']} "
+        form = f" {e['form']}" if "form" in e else ""
+        extra = (f"; schedule {e['schedule']}{form} (split {e['split']}, "
+                 f"{e['aux_launches_per_call']} "
                  f"auxiliary launches a call), eager calls {e['eager_ms']:.4f} ms, "
                  f"_scaled_mm {smm}, {e['tflop_s']:.1f} TFLOP/s, "
                  f"{e['share_differ']:.2%} of outputs differ"
@@ -2614,18 +2929,12 @@ def _log_entry(e) -> None:
 
 
 def phase_kernel_line(counts) -> list:
-    entries = [*_gemm_entries(counts), *_decode_entries(counts), _flash_entry(counts)]
+    entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
+               _flash_entry(counts)]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
         _log_entry(e)
-    # The semiring pairs share the kernel but are off the serving and
-    # training paths, so they stay out of the kernel line; one pair is
-    # timed for PERF.md.
-    apsp = _apsp_entry()
-    if apsp["max_abs_err"] != 0.0:
-        raise AssertionError(f"{apsp['name']}: not bitwise against the plain version")
-    _log_entry(apsp)
     return entries
 
 
@@ -2637,10 +2946,11 @@ def main() -> int:
         phase_build()
         phase_gemm()
         phase_gemm_schedules()
+        counts = phase_simt()
         phase_decode()
-        counts = phase_flash()
+        counts |= phase_flash()
         phase_backward_gemm()
-        phase_slice_parity()
+        counts |= phase_slice_parity()
         cfg, model, params = _serve_model()
         counts |= phase_serve(cfg, model, params)
         counts |= phase_serving_features(cfg, model, params)

@@ -13,7 +13,9 @@
   ``scaled_dot_product_attention``;
 - the dense flash attention (``kernels.flash_attention.flash_attention``)
   at granite-3-8b's training shape, B1 S2048 Hq32 Hkv8 hd128, causal,
-  fp16, beside ``scaled_dot_product_attention``.
+  fp16 (the tensor-core kernel) and fp32 (the SIMT kernel), and at
+  gemma2-9b's heads, Hq16 Hkv8 hd256, fp16 (the SIMT kernel), each beside
+  ``scaled_dot_product_attention``, with its route.
 
 It uses only the wrappers' common signatures, so the same script times
 an older checkout of the package (point ``PYTHONPATH`` at its ``src``).
@@ -113,25 +115,37 @@ def bench_decode(label: str, case, splits: list[int]) -> dict:
     }
 
 
-def bench_dense() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+def bench_dense(dtype=torch.float16, hq=32, hkv=8, hd=128) -> dict:
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        plan_flash,
+    )
 
-    b, s, hq, hkv, hd = 1, 2048, 32, 8, 128
+    b, s = 1, 2048
     gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").half()
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    route = plan_flash(q, k, v)
     got = flash_attention(q, k, v)
     want = flash_attention_plain(q, k, v)
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) for t in (k, v))
     flops = 4.0 * b * hq * hd * s * (s + 1) / 2
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    # fp32 has no tensor-core form that keeps its numerics: the CUDA cores'
+    # fp32 peak; fp16 and bf16 the tensor cores' 989 TFLOP/s.
+    peak = 67e12 if dtype == torch.float32 else 989e12
+    name = str(dtype).removeprefix("torch.")
     return {
-        "kernel": "flash_attention", "shape": f"B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal fp16",
+        "kernel": "flash_attention", "route": route,
+        "shape": f"B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal {name}",
+        "ms_graph": time_ms(lambda: flash_attention(q, k, v), iters=20, graph=True),
         "ms_eager": time_ms(lambda: flash_attention(q, k, v), iters=20),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=5),
         "library_ms": time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters=20),
-        "bound_ms": flops / 989e12 * 1e3,
+        "bound_ms": max(flops / peak, nbytes / 3.35e12) * 1e3,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
     }
 
@@ -155,6 +169,10 @@ def main() -> int:
             bench_decode("S16 Hq32 Hkv8 hd128 ps16 e4m3, 4096 tokens a slot, 256 pages",
                          decode_case(3, 16, [4095] * 16, 256), splits),
             bench_dense(),
+            # The SIMT kernel (csrc/flash_attention.cu): fp32, and hd 256
+            # (gemma2-9b's heads) in fp16.
+            bench_dense(torch.float32),
+            bench_dense(torch.float16, hq=16, hkv=8, hd=256),
         ]
     for r in rows:
         assert all(math.isfinite(v) for v in r.values() if isinstance(v, float)), r

@@ -28,11 +28,29 @@ class Op(enum.Enum):
 # Integer codes shared with csrc/redmule_gemm.cu (enum OpCode).
 OP_CODE: dict[Op, int] = {Op.MUL: 0, Op.ADD: 1, Op.MIN: 2, Op.MAX: 3}
 
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum``: NaN propagates and -0 orders below +0 (IEEE
+    754-2019), where ``torch.minimum`` returns whichever zero comes first.
+    Where both are zeros, -((-a) + (-b)) / 2 is -0 unless both are +0; its
+    gradient splits the tie half and half, as ``torch.minimum``'s does."""
+    zeros = (a == 0) & (b == 0)
+    return torch.where(zeros, -0.5 * (-a - b), torch.minimum(a, b))
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``: NaN propagates and +0 orders above -0; where both
+    are zeros, (a + b) / 2 is +0 unless both are -0."""
+    zeros = (a == 0) & (b == 0)
+    return torch.where(zeros, 0.5 * (a + b), torch.maximum(a, b))
+
+
 _OP_FN: dict[Op, Callable] = {
     Op.MUL: torch.mul,
     Op.ADD: torch.add,
-    Op.MIN: torch.minimum,
-    Op.MAX: torch.maximum,
+    Op.MIN: minimum,
+    Op.MAX: maximum,
 }
 
 # Identity element of each operator when used as a reduction (star).
@@ -50,6 +68,24 @@ def op_fn(op: Op) -> Callable:
 
 def reduce_identity(op: Op) -> float:
     return _REDUCE_IDENTITY[op]
+
+
+def star_reduce(op: Op, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Reduce ``x`` over ``dim`` with a star operator, as ``jnp.sum`` /
+    ``jnp.min`` / ``jnp.max`` do: min and max propagate NaN and give -0
+    (min) or +0 (max) whenever such a zero is among the zeros they pick
+    from, whatever the order (``amin``/``amax`` return any of them)."""
+    if op is Op.ADD:
+        return x.sum(dim)
+    if op is Op.MIN:
+        r = x.amin(dim)
+        signed = ((x == 0) & torch.signbit(x)).any(dim)
+        return torch.where((r == 0) & signed, -r.abs(), r)
+    if op is Op.MAX:
+        r = x.amax(dim)
+        signed = ((x == 0) & ~torch.signbit(x)).any(dim)
+        return torch.where((r == 0) & signed, r.abs(), r)
+    raise ValueError(f"{op} is no star operator")
 
 
 def finite_identity(op: Op, dtype: torch.dtype) -> float:

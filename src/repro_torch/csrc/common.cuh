@@ -15,6 +15,54 @@
 
 enum DType { DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2, DT_E4M3 = 3, DT_E5M2 = 4 };
 
+// Table-1 operators; the codes match repro_torch.core.semiring.OP_CODE.
+enum OpCode { OP_MUL = 0, OP_ADD = 1, OP_MIN = 2, OP_MAX = 3 };
+
+__device__ __forceinline__ int dtype_bytes(int dt) {
+  return dt == DT_F32 ? 4 : dt <= DT_BF16 ? 2 : 1;
+}
+
+// min and max as jnp.minimum / jnp.maximum compute them: NaN propagates and
+// -0 orders below +0 (IEEE 754-2019 minimum / maximum), one instruction each.
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// One operator in fp32, rounded once (no contraction into an FMA).
+template <int OP>
+__device__ __forceinline__ float op_f32(float a, float b) {
+  if constexpr (OP == OP_MUL) return __fmul_rn(a, b);
+  else if constexpr (OP == OP_ADD) return __fadd_rn(a, b);
+  else if constexpr (OP == OP_MIN) return fmin_nan(a, b);
+  else return fmax_nan(a, b);
+}
+
+// The same for an operator known only at run time (the split-K combine).
+__device__ __forceinline__ float op_f32(int op, float a, float b) {
+  switch (op) {
+    case OP_MUL: return __fmul_rn(a, b);
+    case OP_ADD: return __fadd_rn(a, b);
+    case OP_MIN: return fmin_nan(a, b);
+    default: return fmax_nan(a, b);
+  }
+}
+
+template <int OP>
+__device__ __forceinline__ float identity_f32() {
+  if constexpr (OP == OP_ADD) return 0.0f;
+  else if constexpr (OP == OP_MIN) return __int_as_float(0x7f800000);  // +inf
+  else if constexpr (OP == OP_MAX) return __int_as_float(0xff800000);  // -inf
+  else return 1.0f;
+}
+
 __device__ __forceinline__ float fp8_to_float(uint8_t bits, __nv_fp8_interpretation_t kind) {
   __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)bits, kind);
   return __half2float(__half(h));

@@ -166,21 +166,23 @@ __global__ void __launch_bounds__(SR_THREADS) redmule_gemm_sr_kernel(const SrArg
   }
 }
 
-// Z = Y + sum of the split partials, summed in split order.
+// Z = star(Y, star of the split partials), folded in split order: the sum
+// of the small-row and SIMT (mul, add) splits, min or max of the SIMT
+// semiring splits (NaN propagating, -0 below +0; any order gives their bits).
 __global__ void splitk_combine_kernel(const float* ws, const void* y, int y_dt, void* z, int z_dt,
-                                      int b2, int m, int n, int split, long long total,
+                                      int star, int b2, int m, int n, int split, long long total,
                                       long long sy1, long long sy2, long long sym, long long syn) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const long long mn = (long long)m * n;
   const long long bz = i / mn, r = i % mn;
   const float* p = ws + bz * split * mn + r;
-  float v = 0.0f;
-  for (int s = 0; s < split; ++s) v += p[s * mn];
+  float v = p[0];
+  for (int s = 1; s < split; ++s) v = op_f32(star, v, p[s * mn]);
   if (y != nullptr) {
     const int mm = (int)(r / n), nn = (int)(r % n);
     const int b1 = (int)(bz / b2), bb2 = (int)(bz % b2);
-    v += load_as_float(y, b1 * sy1 + bb2 * sy2 + mm * sym + nn * syn, y_dt);
+    v = op_f32(star, load_as_float(y, b1 * sy1 + bb2 * sy2 + mm * sym + nn * syn, y_dt), v);
   }
   store_from_float(z, i, z_dt, v);
 }
@@ -290,14 +292,15 @@ extern "C" int redmule_gemm_sr_launch(
   }
 }
 
+// star: the OpCode of the pair's star (OP_ADD for the (mul, add) splits).
 extern "C" int redmule_splitk_combine_launch(
-    const void* ws, const void* y, int y_dt, void* z, int z_dt, int b1, int b2, int m, int n,
-    int split, long long sy1, long long sy2, long long sym, long long syn, void* stream) {
+    const void* ws, const void* y, int y_dt, void* z, int z_dt, int star, int b1, int b2, int m,
+    int n, int split, long long sy1, long long sy2, long long sym, long long syn, void* stream) {
   const long long total = (long long)b1 * b2 * m * n;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   splitk_combine_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ws), y, y_dt, z, z_dt, b2, m, n, split, total,
+      static_cast<const float*>(ws), y, y_dt, z, z_dt, star, b2, m, n, split, total,
       sy1, sy2, sym, syn);
   return cudaGetLastError();
 }

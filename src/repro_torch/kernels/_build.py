@@ -49,13 +49,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "redmule_gemm_launch": [_I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                            _I, _I, _I, _I, _I] + [_L] * 12 + [_P],
+    "redmule_gemm_launch": [_I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P,
+                            _I, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_P],
     "redmule_gemm_tc_launch": [_I, _I, _P, _P, _P, _I, _P, _I,
                                _I, _I, _I, _I, _I] + [_L] * 10 + [_P],
     "redmule_gemm_sr_launch": [_I, _I, _P, _P, _P, _I, _P, _I, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 11 + [_P],
-    "redmule_splitk_combine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I]
+    "redmule_splitk_combine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I]
                                      + [_L] * 4 + [_P],
     "kmajor_copy_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 4 + [_P],
     "paged_decode_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -15,7 +15,12 @@ schedules from the shapes, formats and strides alone:
   split K, for the same pair on fp8 operands with at most
   :data:`SMALL_M_MAX` rows (the decode step);
 - ``"simt"`` (``csrc/redmule_gemm.cu``): every other case, the six semiring
-  pairs and the fp32 compute format among them.
+  pairs and the fp32 compute format among them, in one of three forms
+  (:data:`SIMT_FORMS`): ``"h2"``, packed 16-bit tiles for the semiring pairs
+  under a 16-bit compute format; ``"f32"``, fp32 tiles; ``"warp"``, warps
+  that split K for fp32 products with few outputs (the MoE router). The tiled
+  forms split K across blocks where their tiles are too few to fill the
+  card, and the split-K combine folds the partials with the pair's star.
 
 The two tensor-core schedules read K-major operands; the plan names the
 operands whose views are not, and the wrapper copies those with the K-major
@@ -53,6 +58,8 @@ small_row_launches = _build.LaunchCount()
 aux_launches = _build.LaunchCount()
 
 SCHEDULE_COUNTERS = {"simt": simt_launches, "tc": tc_launches, "small_row": small_row_launches}
+# One per SIMT launch of each form (beside simt_launches).
+simt_form_launches = {form: _build.LaunchCount() for form in ("warp", "f32", "h2")}
 
 # Rows at or below which fp8 (mul, add) takes the small-row schedule: the
 # decode step's slots. Above it a 64-row wgmma tile is worth its zeros.
@@ -71,6 +78,20 @@ SR_MIN_BLOCKS = 2 * 132
 SR_MIN_K_PER_SPLIT = 256
 # Operand kinds of the tensor-core schedules (enum Kind in the .cu files).
 MMA_KIND = {E4M3: 0, E5M2: 1, FP16: 2, BF16: 3}
+# The SIMT schedule's forms (enum Form in redmule_gemm.cu). Its tiled forms
+# cover SIMT_TILE_M x SIMT_TILE_N outputs a block and stage K in steps of
+# SIMT_BK, so K splits are multiples of it. Four of their blocks are
+# resident on an SM (launch bounds), so where the tiles are fewer than
+# SIMT_TARGET_BLOCKS, K is split until the grid comes nearest that one
+# full wave, keeping at least SIMT_MIN_K_PER_SPLIT of K in a split: 100
+# tiles take 5 splits (500 blocks, at most 4 an SM), where the small-row
+# rule's 4 (400 blocks) would leave a second wave of 4 on a 3-block SM.
+# fp32 products of at most SIMT_WARP_MAX_OUTPUTS outputs take the warp form.
+SIMT_FORMS = {form: code for code, form in enumerate(simt_form_launches)}
+SIMT_TILE_M, SIMT_TILE_N, SIMT_BK = 64, 128, 16
+SIMT_TARGET_BLOCKS = 4 * 132
+SIMT_MIN_K_PER_SPLIT = 256
+SIMT_WARP_MAX_OUTPUTS = 4096
 
 _MAX_GRID_YZ = 65535
 _MIN_TILE_M = 64  # the fewest rows a block of any schedule covers above SMALL_M_MAX
@@ -110,8 +131,24 @@ class GemmPlan:
     copy_x: bool = False  # X goes through the K-major copy first
     copy_w: bool = False  # W goes through the K-major copy first
     widen: bool = False  # the copies widen fp8 operands to fp16
-    split: int = 1  # K splits of the small-row schedule
+    split: int = 1  # K splits of the small-row and SIMT schedules
     k_per_split: int = 0
+    form: str = ""  # the SIMT schedule's form (a key of SIMT_FORMS)
+
+
+def plan_simt(m: int, n: int, k: int, batch: int, gop: GemmOp,
+              policy: PrecisionPolicy) -> GemmPlan:
+    """The SIMT schedule's form and K split: the warp form for fp32 products
+    with few outputs, packed 16-bit tiles for the semiring pairs under a
+    16-bit compute format, fp32 tiles otherwise."""
+    if policy.compute == torch.float32 and batch * m * n <= SIMT_WARP_MAX_OUTPUTS:
+        return GemmPlan("simt", form="warp", k_per_split=k)
+    form = "h2" if not gop.is_gemm and policy.compute in (FP16, BF16) else "f32"
+    tiles = -(-m // SIMT_TILE_M) * -(-n // SIMT_TILE_N) * batch
+    split = max(1, min(int(SIMT_TARGET_BLOCKS / tiles + 0.5), k // SIMT_MIN_K_PER_SPLIT))
+    k_per_split = -(-k // (split * SIMT_BK)) * SIMT_BK
+    split = -(-k // k_per_split) if k_per_split else 1
+    return GemmPlan("simt", form=form, split=split, k_per_split=k_per_split)
 
 
 def plan_gemm(m: int, n: int, k: int, batch: int, x: Operand, w: Operand, gop: GemmOp,
@@ -122,7 +159,7 @@ def plan_gemm(m: int, n: int, k: int, batch: int, x: Operand, w: Operand, gop: G
     sixteen = x.dtype == w.dtype == policy.compute
     if (not gop.is_gemm or k == 0 or policy.compute not in (FP16, BF16)
             or not (fp8 or sixteen)):
-        return GemmPlan("simt")
+        return plan_simt(m, n, k, batch, gop, policy)
     if fp8 and m <= SMALL_M_MAX:
         blocks = -(-n // SR_BLOCK_N) * batch
         split = 1
@@ -305,28 +342,30 @@ def kmajor_copy_plain(t: torch.Tensor, b1: int, b2: int, rows: int, k: int,
 
 
 def splitk_combine(ws: torch.Tensor, out: torch.Tensor, y: torch.Tensor | None = None,
-                   b2: int = 1, sy: list[int] = (0, 0, 0, 0)) -> None:
+                   b2: int = 1, sy: list[int] = (0, 0, 0, 0),
+                   star: semiring.Op = semiring.Op.ADD) -> None:
     """Launch the split-K combine: ``out`` (contiguous, b1 * b2 batches of
-    M x N) = Y + the sum of the (b1 * b2, split, M, N) fp32 partials ``ws``
-    in split order, through the output cast. Y is read through its
-    (b1, b2, row, column) strides ``sy``."""
+    M x N) = star(Y, the (b1 * b2, split, M, N) fp32 partials ``ws`` folded
+    with ``star`` in split order), through the output cast. Y is read
+    through its (b1, b2, row, column) strides ``sy``."""
     bz, split, m, n = ws.shape
     err = _build.library().redmule_splitk_combine_launch(
         ws.data_ptr(), None if y is None else y.data_ptr(),
         0 if y is None else _build.dtype_code(y), out.data_ptr(), _build.dtype_code(out),
-        bz // b2, b2, m, n, split, *sy, _build.stream_handle(ws))
+        semiring.OP_CODE[star], bz // b2, b2, m, n, split, *sy, _build.stream_handle(ws))
     _counted(err, "redmule_splitk_combine", aux_launches)
 
 
-def splitk_combine_plain(ws: torch.Tensor, y: torch.Tensor | None,
-                         out_dtype: torch.dtype) -> torch.Tensor:
-    """Z from the small-row schedule's (batch, split, M, N) fp32 partials
-    with plain PyTorch ops: summed in split order, then Y, then the cast."""
+def splitk_combine_plain(ws: torch.Tensor, y: torch.Tensor | None, out_dtype: torch.dtype,
+                         star: semiring.Op = semiring.Op.ADD) -> torch.Tensor:
+    """Z from (batch, split, M, N) fp32 partials with plain PyTorch ops:
+    folded with ``star`` in split order, then Y, then the cast."""
+    fold = semiring.op_fn(star)
     acc = ws[:, 0]
     for s in range(1, ws.shape[1]):
-        acc = acc + ws[:, s]
+        acc = fold(acc, ws[:, s])
     if y is not None:
-        acc = acc + y.float().reshape(acc.shape)
+        acc = fold(y.float().reshape(acc.shape), acc)
     return cast(acc, out_dtype)
 
 
@@ -352,13 +391,20 @@ def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
     y_dt = 0 if c.y is None else _build.dtype_code(c.y)
     z_args = (out.data_ptr(), _build.dtype_code(out))
     counter = SCHEDULE_COUNTERS[plan.schedule]
+    ws = None  # the K splits' fp32 partials, folded by the split-K combine
+    if plan.split > 1:
+        ws = torch.empty((c.b1 * c.b2, plan.split, c.m, c.n), dtype=torch.float32,
+                         device=x.device)
     if plan.schedule == "simt":
         err = lib.redmule_gemm_launch(
             semiring.OP_CODE[gop.circ], semiring.OP_CODE[gop.star],
-            _build.DTYPE_CODE[policy.compute],
+            _build.DTYPE_CODE[policy.compute], SIMT_FORMS[plan.form],
             c.x.data_ptr(), _build.dtype_code(c.x), c.w.data_ptr(), _build.dtype_code(c.w),
-            y_ptr, y_dt, *z_args, c.b1, c.b2, c.m, c.n, c.k, *c.sx, *c.sw, *c.sy, stream)
-        _counted(err, "redmule_gemm[simt]", counter)
+            y_ptr, y_dt, *z_args, None if ws is None else ws.data_ptr(),
+            c.b1, c.b2, c.m, c.n, c.k, plan.split, plan.k_per_split,
+            *c.sx, *c.sw, *c.sy, stream)
+        _counted(err, f"redmule_gemm[simt {plan.form}]", counter)
+        simt_form_launches[plan.form].n += 1
     else:
         xt, sx = c.x, c.sx
         if plan.copy_x:
@@ -375,17 +421,13 @@ def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
                 *sx[:3], *sw[:3], *c.sy, stream)
             _counted(err, "redmule_gemm[tc]", counter)
         else:
-            ws = None
-            if plan.split > 1:
-                ws = torch.empty((c.b1 * c.b2, plan.split, c.m, c.n), dtype=torch.float32,
-                                 device=x.device)
             err = lib.redmule_gemm_sr_launch(
                 *kinds, xt.data_ptr(), wt.data_ptr(), y_ptr, y_dt, *z_args,
                 None if ws is None else ws.data_ptr(), *shape, plan.split, plan.k_per_split,
                 int(c.x_operand().kmajor()), *sx, *sw[:3], *c.sy, stream)
             _counted(err, "redmule_gemm[small_row]", counter)
-            if ws is not None:
-                splitk_combine(ws, out, c.y, c.b2, c.sy)
+    if ws is not None:
+        splitk_combine(ws, out, c.y, c.b2, c.sy, gop.star)
     launches.n += 1
     return out
 
@@ -395,20 +437,13 @@ def _counted(err: int, name: str, counter: _build.LaunchCount) -> None:
     counter.n += 1
 
 
-def _star_reduce(op: semiring.Op, x: torch.Tensor, dim: int) -> torch.Tensor:
-    if op is semiring.Op.ADD:
-        return x.sum(dim)
-    if op is semiring.Op.MIN:
-        return x.amin(dim)
-    return x.amax(dim)
-
-
 def redmule_gemm_plain(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
                        gop: GemmOp, policy: PrecisionPolicy,
                        out_dtype: torch.dtype) -> torch.Tensor:
     """The GEMM-Op with plain PyTorch ops, on any device: the same operands,
     rules and result as :func:`redmule_gemm`, up to the order of the fp32
-    sums for the (mul, add) pair (min and max are exact)."""
+    sums for the (mul, add) pair (min and max are exact, and order their
+    zeros and NaNs as ``jnp.minimum``/``jnp.maximum`` do)."""
     compute = policy.compute
     xc = x.to(compute).float()
     wc = w.to(compute).float()
@@ -433,7 +468,7 @@ def redmule_gemm_plain(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None,
         xs = xb[..., :, k0:k0 + chunk, None]  # (..., M, c, 1)
         ws = wb[..., None, k0:k0 + chunk, :]  # (..., 1, c, N)
         prod = circ(xs, ws).to(compute).float()  # circ in the compute format
-        acc = star(acc, _star_reduce(gop.star, prod, -2))
+        acc = star(acc, semiring.star_reduce(gop.star, prod, -2))
     if y is not None:
         acc = star(y.float(), acc)
     return cast(acc, out_dtype)

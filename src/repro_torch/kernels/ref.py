@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core import semiring
 from repro_torch.core.precision import FP32_REF, PrecisionPolicy
-from repro_torch.core.semiring import GemmOp, Op
+from repro_torch.core.semiring import GemmOp
 
 
 def _matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,12 +48,7 @@ def gemm_op_ref(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None,
     # (M, K, N) circ product in the compute format, star over K in the
     # accumulator format.
     prod = circ(xc[:, :, None], wc[None, :, :]).to(policy.acc)
-    if gop.star is Op.ADD:
-        z = prod.sum(1)
-    elif gop.star is Op.MIN:
-        z = prod.amin(1)
-    else:
-        z = prod.amax(1)
+    z = semiring.star_reduce(gop.star, prod, 1)
     if y is not None:
         z = semiring.op_fn(gop.star)(y.to(policy.acc), z)
     return policy.cast_out(z)
