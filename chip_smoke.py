@@ -99,6 +99,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
     at temperature 1.0 with an acceptance above 0; (e) fp32 at 2 layers:
     greedy speculative tokens equal to plain decode with both drafters and
     no pages left held, and the planted off-by-one must fail that check;
+14. the other attention-only decoders, after phase 13, each built, run
+    and freed in turn (chatglm3-6b, deepseek-coder-33b, gemma2-2b,
+    phi3.5-moe-42b-a6.6b): (a) at full width with 2 layers (gemma2's one
+    local and one global), phase 7's run, kernels against the plain path
+    under fp32 (1e-4) and redmule_hfp8 (0), with the GEMM calls by shape
+    and schedule; (b) at full depth through the serve launcher with phase
+    8's flags (decode tok/s, prefill s, TTFT p50, peak memory), then the
+    decode graph against the eager step, tokens and decode logits bit for
+    bit; each run's launches read alone, a decode step's by shape at its
+    warm-up and capture; gemma2's 4600-token request in chunks of 512 at
+    26 layers, and at 2 layers kernels against plain under fp32 (1e-4) and
+    redmule_hfp8 (8.5e-3), the same tokens and the decode logits within
+    the bound, which the decode called without the window must leave, so
+    the local layers' window binds in the chunked prefill and the decode
+    kernel; (c) the new decode shapes in the kernel line (11), the
+    softcapped ones beside a compiled ``flex_attention``; (d) after phase 10: chatglm3-6b's train parity at 2 layers
+    (phase 9's bounds), chatglm3-6b at 4 layers, deepseek-coder-33b at 2
+    and gemma2-2b at the depth whose training state fits (26) through the
+    train launcher;
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -115,7 +134,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
     SIMT forms at the router's two shapes, phase 3c's semiring paths and
     phase 7's widest fp32 product, and the split-K combine with min; the
     paged decode at the serving and the long-context shape, as CUDA-graph
-    replays with eager calls beside; the dense attention with its route).
+    replays with eager calls beside; the dense attention with its route;
+    phase 14's decode shapes).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither JAX nor the JAX package.
@@ -126,6 +146,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -1209,77 +1230,93 @@ def _recording_plans(calls: collections.Counter):
         rg.plan_call = plan_call
 
 
-def phase_slice_parity() -> dict:
-    """granite-3-8b at full width, 2 layers: the kernels' path against the
-    plain path on the card, fed the same tokens, over whole-prompt prefill
-    and decode and over chunked and batched prefill. The bound holds the plain
-    path with the paged attention's plain version (fp32 over dequantized
-    pages, the kernel's semantics). The plain gathered decode, which rounds
-    q and the probabilities to E4M3 in its engine GEMMs under an fp8
-    policy, is printed beside it; the JAX package's XLA and Pallas decode
-    paths differ the same way (tests/test_torch_model.py holds each of the
-    port's two paths against the reference's path of the same semantics).
+# Phase 7's policies and bounds on max|dlogit|/max|logit|, the kernels'
+# path against the plain path at 2 layers (phase 14(a) holds the other
+# decoders to them). Under redmule_hfp8 with E4M3 weights the two paths
+# agree bit for bit: every E4M3 product is exact in fp16, both sides sum
+# in fp32 and round once to fp16, and the run is deterministic. Its bound
+# is therefore 0: any difference means one side changed its arithmetic,
+# and one E4M3 rounding flipped by it reaches the logits.
+SLICE_PARITY = (("fp32", "fp32", False, 1e-4), ("redmule_hfp8", "e4m3", True, 0.0))
 
-    Under redmule_hfp8 with E4M3 weights the two paths agree bit for bit:
-    every E4M3 product is exact in fp16, both sides sum in fp32 and round
-    once to fp16, and the run is deterministic. Its bound is therefore 0:
-    any difference means one side changed its arithmetic, and one E4M3
-    rounding flipped by it reaches the logits.
 
-    Returns the fp32 run's SIMT calls of its widest product (the 64-row
-    prefill's 64 x 4096 x 12800), for the kernel line."""
+def _kernels_against_plain(arch, pol, kv, fp8_params, bound, calls, label,
+                           gathered=False) -> None:
+    """``arch`` at full width, 2 layers, under ``pol``: the kernels' path
+    against the plain path on the card, fed the same tokens, over
+    whole-prompt prefill and 4 decode steps and over chunked and batched
+    prefill, within ``bound``. The plain path runs the paged attention's
+    plain version (fp32 over dequantized pages, the kernel's semantics);
+    with ``gathered`` the plain gathered decode, which rounds q and the
+    probabilities to E4M3 in its engine GEMMs under an fp8 policy, is
+    printed beside it (and bound under fp32). ``calls`` records the
+    kernels' GEMM calls of the whole-prompt run by (M, K, N, schedule,
+    form)."""
     from repro_torch.configs import get_config
     from repro_torch.engine import Engine
     from repro_torch.models import build
     from repro_torch.models.transformer import Transformer
 
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, policy=pol, kv_cache_dtype=kv,
+                              fp8_params=fp8_params)
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, 49155, size=n) for n in (64, 32)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (64, 32)]
     page_table = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
     page_table[0, :5] = torch.arange(1, 6)
     page_table[1, :3] = torch.arange(6, 9)
+    cuda_model = build(cfg, device="cuda")
+    params = cuda_model.init(0)
+    plain = Engine(policy=pol, backend="torch")
+    paths = {"plain": Transformer(cfg, engine=plain, device="cuda", fused_decode=True)}
+    if gathered:
+        paths["plain, gathered decode"] = Transformer(cfg, engine=plain, device="cuda")
+    with _recording_plans(calls):
+        got, chosen = _slice_run(cuda_model, params, prompts, page_table)
+    forced = chosen[:-1]  # decode step i was fed chosen[i]
+    if not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"{label} {pol}: non-finite logits on the kernels' path")
+    errs = {}
+    for name, model in paths.items():
+        want, _ = _slice_run(model, params, prompts, page_table, forced=forced)
+        errs[name] = ([rel_err(a, b) for a, b in zip(got[:2], want[:2])],
+                      [rel_err(a, b) for a, b in zip(got[2:], want[2:])])
+    for name, (pre, dec) in errs.items():
+        log(f"{label} {pol} vs {name}: max|dlogit|/max|logit| prefill {max(pre):.3g}, "
+            f"decode {max(dec):.3g}")
+    worst = max(max(errs["plain"][0]), max(errs["plain"][1]))
+    # Chunked and batched prefill: both attention products over
+    # [gathered pages | fresh chunk] through the GEMM-Op kernel, and the
+    # (2, 32)-row dense layers, against the plain path.
+    got_c = _chunk_run(cuda_model, params, prompts, page_table)
+    if not all(torch.isfinite(g).all() for g in got_c):
+        raise AssertionError(f"{label} {pol}: non-finite chunked-prefill logits")
+    chunk_err = max(rel_err(a, b) for a, b in
+                    zip(got_c, _chunk_run(paths["plain"], params, prompts, page_table)))
+    log(f"{label} {pol} vs plain, chunked and batched prefill (chunk 32): "
+        f"max|dlogit|/max|logit| {chunk_err:.3g}")
+    worst = max(worst, chunk_err)
+    if gathered and pol == "fp32":
+        worst = max(worst, max(errs["plain, gathered decode"][1]))
+    if not worst <= bound:
+        raise AssertionError(f"{label} {pol}: {worst:.3g} > {bound}")
+    log(f"{label} {pol}: {worst:.3g} within {bound:g}")
+    del cuda_model, paths, params
+    torch.cuda.empty_cache()
+
+
+def phase_slice_parity() -> dict:
+    """granite-3-8b at full width, 2 layers, kernels against plain under
+    fp32 and redmule_hfp8 (``SLICE_PARITY``), the gathered decode printed
+    beside (the JAX package's XLA and Pallas decode paths differ the same
+    way; tests/test_torch_model.py holds each of the port's two paths
+    against the reference's path of the same semantics). Returns the fp32
+    run's SIMT calls of its widest product (the 64-row prefill's 64 x 4096
+    x 12800), for the kernel line."""
     fp32_calls = collections.Counter()
-    for pol, kv, fp8p, bound in (("fp32", "fp32", False, 1e-4),
-                                 ("redmule_hfp8", "e4m3", True, 0.0)):
-        cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy=pol,
-                                  kv_cache_dtype=kv, fp8_params=fp8p)
-        cuda_model = build(cfg, device="cuda")
-        params = cuda_model.init(0)
-        plain = Engine(policy=pol, backend="torch")
-        fused = Transformer(cfg, engine=plain, device="cuda", fused_decode=True)
-        gather = Transformer(cfg, engine=plain, device="cuda")
-        with _recording_plans(fp32_calls if pol == "fp32" else collections.Counter()):
-            got, chosen = _slice_run(cuda_model, params, prompts, page_table)
-        forced = chosen[:-1]  # decode step i was fed chosen[i]
-        if not all(torch.isfinite(g).all() for g in got):
-            raise AssertionError(f"slice parity {pol}: non-finite logits on the kernels' path")
-        errs = {}
-        for name, model in (("plain", fused), ("plain, gathered decode", gather)):
-            want, _ = _slice_run(model, params, prompts, page_table, forced=forced)
-            errs[name] = ([rel_err(a, b) for a, b in zip(got[:2], want[:2])],
-                          [rel_err(a, b) for a, b in zip(got[2:], want[2:])])
-        for name, (pre, dec) in errs.items():
-            log(f"slice parity {pol} vs {name}: max|dlogit|/max|logit| prefill "
-                f"{max(pre):.3g}, decode {max(dec):.3g}")
-        worst = max(max(errs["plain"][0]), max(errs["plain"][1]))
-        # Chunked and batched prefill: both attention products over
-        # [gathered pages | fresh chunk] through the GEMM-Op kernel, and the
-        # (2, 32)-row dense layers, against the plain path.
-        got_c = _chunk_run(cuda_model, params, prompts, page_table)
-        if not all(torch.isfinite(g).all() for g in got_c):
-            raise AssertionError(f"slice parity {pol}: non-finite chunked-prefill logits")
-        chunk_err = max(rel_err(a, b) for a, b in
-                        zip(got_c, _chunk_run(fused, params, prompts, page_table)))
-        log(f"slice parity {pol} vs plain, chunked and batched prefill (chunk 32): "
-            f"max|dlogit|/max|logit| {chunk_err:.3g}")
-        worst = max(worst, chunk_err)
-        if pol == "fp32":
-            worst = max(worst, max(errs["plain, gathered decode"][1]))
-        if not worst <= bound:
-            raise AssertionError(f"slice parity {pol}: {worst:.3g} > {bound}")
-        log(f"slice parity {pol}: {worst:.3g} within {bound:g}")
-        del cuda_model, fused, gather, params
-        torch.cuda.empty_cache()
+    for pol, kv, fp8p, bound in SLICE_PARITY:
+        _kernels_against_plain("granite-3-8b", pol, kv, fp8p, bound,
+                               fp32_calls if pol == "fp32" else collections.Counter(),
+                               "slice parity", gathered=True)
     log("slice parity fp32: the kernels' GEMMs by (M, K, N, schedule, form): "
         + ", ".join(f"{k} x{v}" for k, v in sorted(fp32_calls.items())))
     return {"fp32_wide": fp32_calls[(64, 4096, 12800, "simt", "f32")]}
@@ -2348,6 +2385,328 @@ def phase_spec(cfg, model, params) -> dict:
     return counts
 
 
+# -- phase 14 --------------------------------------------------------------------
+
+FAMILIES = ("chatglm3-6b", "deepseek-coder-33b", "gemma2-2b", "phi3.5-moe-42b-a6.6b")
+# gemma2's long request: a prompt past its window of 4096, prefilled in
+# chunks of 512, so the local layers' window binds in the chunked prefill
+# and in the decode kernel.
+GEMMA_LONG, GEMMA_CHUNK = 4600, 512
+# Its check at 2 layers, kernels against plain: (policy, KV pages, E4M3
+# weights, bound on max|dlogit|/max|logit| over the decode steps). fp32
+# keeps phase 7's bound. Under redmule_hfp8 the two paths' sums over ~4600
+# keys round to fp16 in another order, and an fp16 ulp that crosses an
+# E4M3 boundary before the next product reaches the logits, so phase 7's
+# bound of 0 does not carry over: the bound lies between the sound
+# reading and the planted window fault's (PERF.md, phase 14).
+GEMMA_LONG_PARITY = (("fp32", "fp32", False, 1e-4), ("redmule_hfp8", "e4m3", True, 8.5e-3))
+# The launcher flags of the families' serve runs (phase 8's workload).
+FAMILY_SERVE_ARGS = ["--fp8-kv", "--fp8-params", "--policy", "redmule_hfp8", "--page-size",
+                     "16", "--prompt-len", "64", "--requests", "8", "--max-new", str(MAX_NEW),
+                     "--num-slots", "4"]
+
+
+@contextlib.contextmanager
+def _recording_decodes(calls: collections.Counter):
+    """Count the paged-decode kernel's launches made through the model path
+    while the context is open, by (Hq, Hkv, hd, window, softcap)."""
+    from repro_torch.kernels import ops
+
+    launch = ops.paged_flash_decode
+
+    def recording(q, *args, window=None, softcap=None, **kw):
+        _, hkv, g, hd = q.shape
+        calls[(hkv * g, hkv, hd, window, softcap)] += 1
+        return launch(q, *args, window=window, softcap=softcap, **kw)
+
+    ops.paged_flash_decode = recording
+    try:
+        yield calls
+    finally:
+        ops.paged_flash_decode = launch
+
+
+def _family_parity(arch: str) -> None:
+    """(a) ``arch`` at full width with 2 layers (gemma2's one ``attn_local``
+    and one ``attn``): phase 7's run and bounds (``SLICE_PARITY``), with
+    the kernels' GEMM calls by (M, K, N, schedule, form)."""
+    for pol, kv, fp8p, bound in SLICE_PARITY:
+        calls = collections.Counter()
+        _kernels_against_plain(arch, pol, kv, fp8p, bound, calls, f"families (a) {arch}")
+        log(f"families (a) {arch} {pol}: the kernels' GEMMs by (M, K, N, schedule, form): "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(calls.items(), key=str)))
+
+
+@contextlib.contextmanager
+def _reading_servers(readings: dict, calls: collections.Counter,
+                     decodes: collections.Counter):
+    """Read every Server warmed up while the context is open, from its
+    warm-up on: ``_count_launches`` (``READING`` around each prefill and
+    each eager run of the decode step), and beside each eager decode step
+    the GEMM calls (``calls``, by shape) and paged-decode launches
+    (``decodes``, by shape and branch) it added. A launcher builds its
+    server and warms it up inside ``main``, so the readers go in there."""
+    from repro_torch.serving import Server
+
+    warmup = Server.warmup
+
+    def reading(server, *args, **kw):
+        eng = server.engine
+        _count_launches(eng, readings)
+        forward = eng.decode_step.forward
+
+        def by_shape(*a, **k):
+            c0, d0 = collections.Counter(calls), collections.Counter(decodes)
+            out = forward(*a, **k)
+            readings["decode shapes"].append((calls - c0, decodes - d0))
+            return out
+
+        eng.decode_step.forward = by_shape
+        return warmup(server, *args, **kw)
+
+    Server.warmup = reading
+    try:
+        yield readings
+    finally:
+        Server.warmup = warmup
+
+
+def _family_serve(arch: str) -> tuple:
+    """(b) ``arch`` at full width and depth through the serve launcher
+    (``FAMILY_SERVE_ARGS``: E4M3 weights and pages, the decode graph), with
+    the launch counters zeroed just before it and read at its decode
+    step's warm-up and capture (a replay ticks no counter): the GEMM calls
+    and paged-decode launches a decode step, by shape. Then the same
+    prompts through two servers on the launcher's model, the decode step as
+    the graph and eager: the same greedy tokens and every decode step's
+    logits bit for bit. Returns the launcher's server (its model and
+    parameters live) and the run's counts for the kernel line."""
+    from repro_torch.kernels import flash_attention, redmule_gemm
+    from repro_torch.launch import serve
+
+    calls, decodes = collections.Counter(), collections.Counter()
+    readings = {"prefill": [], "decode": [], "decode shapes": []}
+    torch.cuda.reset_peak_memory_stats()
+    with _recording_plans(calls), _recording_decodes(decodes), \
+            _reading_servers(readings, calls, decodes):
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        server, results = serve.main(["--arch", arch, *FAMILY_SERVE_ARGS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gemm_n, decode_n = redmule_gemm.launches.n, flash_attention.launches.n
+    mem = torch.cuda.max_memory_allocated()
+    cfg, s, eng = server.model.cfg, server.stats, server.engine
+    if len(results) != 8 or any(r.num_generated != MAX_NEW for r in results.values()):
+        raise AssertionError(f"families (b) {arch}: {len(results)} requests finished, "
+                             f"{[r.num_generated for r in results.values()]} tokens")
+    graph_ok = eng.graph_captures == 1 and eng.graph_replays >= s.decode_steps
+    if s.nonfinite_steps or not eng.graph_decode or not graph_ok:
+        raise AssertionError(f"families (b) {arch}: {s.nonfinite_steps} non-finite steps, "
+                             f"{eng.graph_captures} captures, {eng.graph_replays} replays for "
+                             f"{s.decode_steps} decode steps")
+    if not all(0 <= t < cfg.vocab_size for r in results.values() for t in r.out_tokens):
+        raise AssertionError(f"families (b) {arch}: a token outside the vocabulary")
+    # The decode step runs eagerly twice (warm-up, capture); both readings
+    # must agree, and each layer launches the paged decode once a step.
+    shapes = readings["decode shapes"]
+    if len(shapes) != 2 or shapes[0] != shapes[1] or len(readings["decode"]) != 2:
+        raise AssertionError(f"families (b) {arch}: {len(shapes)} eager decode steps read, "
+                             f"expected 2 alike: {shapes}")
+    step_calls, step_decodes = shapes[0]
+    per_step = readings["decode"][0]
+    if (sum(step_calls.values()), sum(step_decodes.values())) != per_step[:2] or \
+            per_step[1] != cfg.n_layers:
+        raise AssertionError(f"families (b) {arch}: a decode step's launches {per_step[:2]}, "
+                             f"by shape {sum(step_calls.values())} and "
+                             f"{sum(step_decodes.values())}, for {cfg.n_layers} layers")
+    if (sum(calls.values()), sum(decodes.values())) != (gemm_n, decode_n):
+        raise AssertionError(f"families (b) {arch}: launches gemm {gemm_n}, paged decode "
+                             f"{decode_n} differ from the calls recorded by shape "
+                             f"{sum(calls.values())}, {sum(decodes.values())}")
+    ttft = server.ttft_percentiles()
+    step_ms = 1e3 * s.decode_s / s.decode_steps
+    log(f"families (b) {arch}: {cfg.n_layers} layers d{cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.2f} B parameters in E4M3; decode {s.decode_tok_s:.1f} tok/s "
+        f"({step_ms:.2f} ms a step, {s.decode_steps} steps), prefill {s.prefill_s:.3f} s, TTFT p50 "
+        f"{ttft[0] * 1e3:.1f} ms, peak memory {mem / 1e9:.2f} GB; launcher wall {wall:.1f} s "
+        f"(weights, warm-up and capture included); launches gemm {gemm_n}, paged decode "
+        f"{decode_n}; read at the decode step's warm-up and capture: gemm {per_step[0]}, paged "
+        f"decode {per_step[1]} "
+        + str({f"window {w} softcap {c}": n for (*_, w, c), n in step_decodes.items()}))
+    prompts = [results[rid].prompt for rid in sorted(results)]
+    model, params = server.model, server.params
+    _, graph, graph_rows = _feature_run(f"families (b) {arch} graph", model, params, prompts)
+    _, eager, eager_rows = _feature_run(f"families (b) {arch} eager", model, params, prompts,
+                                        graph=False)
+    label = f"families (b) {arch}: the decode graph against eager decode"
+    _same_tokens(label, _tokens(graph), _tokens(eager))
+    _same_rows(label, graph_rows, eager_rows)
+    _same_tokens(f"families (b) {arch}: the launcher's run against the graph run",
+                 _tokens(results), _tokens(graph))
+    log(f"{label}: the same greedy tokens and decode logits bit for bit ({len(eager_rows)} "
+        f"rows; the launcher's run gave the same tokens)")
+    return server, {"calls": calls, "decodes": decodes, "step_calls": step_calls,
+                    "step_decodes": step_decodes}
+
+
+@contextlib.contextmanager
+def _window_dropped():
+    """A planted fault for the long request's check: the paged decode
+    called without the local layers' window."""
+    from repro_torch.kernels import ops
+
+    launch = ops.paged_flash_decode
+
+    def faulty(q, *args, window=None, **kw):
+        return launch(q, *args, window=None, **kw)
+
+    ops.paged_flash_decode = faulty
+    try:
+        yield
+    finally:
+        ops.paged_flash_decode = launch
+
+
+def _gemma_long_parity(cfg, prompt, pol, kv, fp8p, bound) -> collections.Counter:
+    """gemma2 at 2 layers (one local, one global) under ``pol``, the long
+    request with the decode step eager: the kernels' path against the plain
+    path, the same greedy tokens and every decode step's logits within
+    ``bound``; the kernels' path with the window dropped from the decode
+    (``_window_dropped``) must leave it. Returns the kernels' run's
+    paged-decode launches by shape and branch, its warm-up left out."""
+    from repro_torch.engine import Engine
+    from repro_torch.models import build
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(cfg, n_layers=2, policy=pol, kv_cache_dtype=kv, fp8_params=fp8p)
+    short = build(cfg, device="cuda")
+    sparams = short.init(0)
+    plain = Transformer(cfg, engine=Engine(policy=pol, backend="torch"), device="cuda",
+                        fused_decode=True)
+    label = f"families (b) gemma2-2b 2 layers {pol}, long request"
+    decodes = collections.Counter()
+    with _recording_decodes(decodes):
+        _, got, got_rows = _feature_run(f"{label}, kernels", short, sparams, [prompt],
+                                        graph=False, prefill_chunk=GEMMA_CHUNK,
+                                        setup=lambda server: decodes.clear())
+    _, want, want_rows = _feature_run(f"{label}, plain", plain, sparams, [prompt],
+                                      graph=False, prefill_chunk=GEMMA_CHUNK)
+    with _window_dropped():
+        _, _, bad_rows = _feature_run(f"{label}, kernels, window dropped", short, sparams,
+                                      [prompt], graph=False, prefill_chunk=GEMMA_CHUNK)
+    _same_tokens(f"{label}, kernels against plain", _tokens(got), _tokens(want))
+    err = max(rel_err(got_rows[k], want_rows[k]) for k in want_rows)
+    planted = max(rel_err(bad_rows[k], want_rows[k]) for k in want_rows)
+    log(f"{label}: tokens {got[0].out_tokens} equal the plain path's; decode logits "
+        f"max|dlogit|/max|logit| {err:.3g} over {len(want_rows)} rows, {planted:.3g} with the "
+        f"window dropped from the decode (bound {bound:g}); windowed decode launches "
+        f"{decodes[(8, 4, 256, cfg.sliding_window, cfg.attn_softcap)]}")
+    if not err <= bound:
+        raise AssertionError(f"{label}: {err:.3g} > {bound}")
+    if not planted > bound:
+        raise AssertionError(f"{label}: the planted window fault ({planted:.3g}) passes the "
+                             f"bound {bound}")
+    del short, sparams, plain
+    torch.cuda.empty_cache()
+    return decodes
+
+
+def _gemma_long(model, params) -> collections.Counter:
+    """(b) gemma2's 4600-token request, chunked at 512, at full depth (the
+    decode graph); then at 2 layers the kernels' path against the plain
+    path (``_gemma_long_parity``) under ``GEMMA_LONG_PARITY``. The local
+    layers' window binds in the chunked prefill and in the decode kernel,
+    launched eagerly at 2 layers. Returns the redmule_hfp8 run's
+    paged-decode launches (E4M3 pages, the serve run's format)."""
+    prompt = list(np.random.default_rng(7).integers(0, model.cfg.vocab_size, size=GEMMA_LONG))
+    _, res, _ = _feature_run(f"families (b) gemma2-2b {model.cfg.n_layers} layers, a "
+                             f"{GEMMA_LONG}-token prompt in chunks of {GEMMA_CHUNK}", model,
+                             params, [prompt], prefill_chunk=GEMMA_CHUNK)
+    log(f"families (b) gemma2-2b long request tokens {res[0].out_tokens}")
+    decodes = {pol: _gemma_long_parity(model.cfg, prompt, pol, kv, fp8p, bound)
+               for pol, kv, fp8p, bound in GEMMA_LONG_PARITY}
+    return decodes["redmule_hfp8"]
+
+
+def phase_families() -> dict:
+    """Phase 14: the other attention-only decoders (chatglm3-6b,
+    deepseek-coder-33b, gemma2-2b, phi3.5-moe), each built, run and freed
+    in turn (one large model fits beside nothing else). Returns each serve
+    run's counts (``_family_serve``) and the long request's, for the
+    kernel line."""
+    runs = {}
+    for arch in FAMILIES:
+        # A server's decode graph and its engine reference each other, so
+        # the models of earlier servers go only when the collector runs:
+        # collect before each model, so its peak memory is its own.
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _family_parity(arch)
+        server, runs[arch] = _family_serve(arch)
+        if arch == "gemma2-2b":
+            runs["gemma2-2b long"] = _gemma_long(server.model, server.params)
+        del server
+        log(f"families {arch}: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"families": runs}
+
+
+def _train_depth(cfg) -> int:
+    """The most layers of ``cfg`` whose training state fits the card: 24
+    bytes a parameter at the optimizer step (fp16 weights, gradients and
+    their clipped copy, the fp32 moments twice, the new weights) and 10 GB
+    for activations and the logits chunks."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for n in range(cfg.n_layers, 0, -1):
+        if dataclasses.replace(cfg, n_layers=n).param_count() * 24 + 10e9 <= total:
+            return n
+    raise AssertionError(f"{cfg.name}: not one layer's training state fits the card")
+
+
+def phase_families_train() -> None:
+    """(d) chatglm3-6b's train parity at 2 layers (phase 9's bounds; its
+    untied head's dW is a 4096 x 2048 x 65024 E4M3^T x E5M2 product), then
+    through the train launcher (redmule_hfp8, remat block, 2 x 1024
+    tokens, 4 steps) chatglm3-6b at 4 layers, deepseek-coder-33b at 2 (its
+    62 layers' training state is ~0.8 TB) and gemma2-2b at the depth that
+    fits (its full 26 if it does)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    phase_train_parity("chatglm3-6b")
+    for arch, layers in (("chatglm3-6b", 4), ("deepseek-coder-33b", 2), ("gemma2-2b", None)):
+        full = get_config(arch)
+        n = layers or _train_depth(full)
+        if n < full.n_layers and layers is None:
+            log(f"families (d) {arch}: {n} of {full.n_layers} layers fit the card's training state")
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = train.parse_args([
+            "--arch", arch, "--layers", str(n), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--policy", "redmule_hfp8",
+            "--remat", "block", "--log-every", "1", "--seed", "0"])
+        out = train.train(args)
+        hist = out["history"]
+        if len(hist) != TRAIN_STEPS or out["state"].skipped != 0:
+            raise AssertionError(f"families (d) {arch}: {len(hist)} steps, "
+                                 f"{out['state'].skipped} skipped")
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+            raise AssertionError(f"families (d) {arch}: non-finite loss or grad norm: {hist}")
+        schedules = sorted({(h["gemm_simt_launches"], h["gemm_tc_launches"],
+                             h["gemm_small_row_launches"]) for h in hist})
+        log(f"families (d) {arch}: {n} layers d{full.d_model}, redmule_hfp8, remat block, "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens; ms per step {[round(h['ms'], 1) for h in hist]} "
+            f"(steady mean {np.mean([h['ms'] for h in hist[1:]]):.1f}); losses "
+            f"{[round(h['loss'], 4) for h in hist]}; skipped 0; max memory "
+            f"{out['max_memory_bytes'] / 1e9:.2f} GB; GEMM launches a step by schedule (simt, "
+            f"tensor-core, small-row) {schedules}")
+        del out
+        torch.cuda.empty_cache()
+
+
 # -- phase 9 ---------------------------------------------------------------------
 
 # The train run of phase 10; phase 9 holds one step at its batch.
@@ -2373,8 +2732,8 @@ def _step_grads(model, params, tokens, backend):
     return float(loss.detach()), grads
 
 
-def phase_train_parity() -> None:
-    """granite-3-8b at full width, 2 layers, remat "block", one step's loss
+def phase_train_parity(arch: str = "granite-3-8b") -> None:
+    """``arch`` at full width, 2 layers, remat "block", one step's loss
     and gradients on the train run's 2 x 1024 tokens (so every forward and
     backward GEMM shape of phase 10 is compared): the kernels' path ("cuda": every
     forward GEMM and both backward GEMMs of each on the GEMM-Op kernel)
@@ -2386,8 +2745,7 @@ def phase_train_parity() -> None:
     from repro_torch.optim import global_norm
 
     for pol, (b_loss, b_gnorm, b_grad) in TRAIN_PARITY_BOUND.items():
-        cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2, policy=pol,
-                                  remat="block")
+        cfg = dataclasses.replace(get_config(arch), n_layers=2, policy=pol, remat="block")
         model = build(cfg, device="cuda")
         params = model.init(0)
         tokens = for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch(0)["tokens"]
@@ -2401,14 +2759,14 @@ def phase_train_parity() -> None:
                         for g, w in zip(grads, want))
         d_loss = abs(loss - want_loss) / abs(want_loss)
         d_gnorm = abs(gnorm - want_gnorm) / want_gnorm
-        log(f"train parity {pol}: loss {loss:.6f} vs {want_loss:.6f} (rel {d_loss:.3g}), "
+        log(f"train parity {arch} {pol}: loss {loss:.6f} vs {want_loss:.6f} (rel {d_loss:.3g}), "
             f"grad norm {gnorm:.6f} vs {want_gnorm:.6f} (rel {d_gnorm:.3g}), worst per-tensor "
             f"|dg|/|g| {max(per_tensor):.3g} (max|dg|/max|g| {worst_max:.3g}) over {len(grads)} "
             f"tensors; bounds {b_loss:g} / {b_gnorm:g} / {b_grad:g}")
         if not all(np.isfinite([loss, want_loss, gnorm, want_gnorm])):
-            raise AssertionError(f"train parity {pol}: non-finite loss or grad norm")
+            raise AssertionError(f"train parity {arch} {pol}: non-finite loss or grad norm")
         if not (d_loss <= b_loss and d_gnorm <= b_gnorm and max(per_tensor) <= b_grad):
-            raise AssertionError(f"train parity {pol}: outside its bounds")
+            raise AssertionError(f"train parity {arch} {pol}: outside its bounds")
         del model, params, grads, want
         torch.cuda.empty_cache()
 
@@ -2779,13 +3137,15 @@ def _simt_entries(counts) -> list:
     return rows
 
 
-def _decode_row(counts, label, case, seed_note):
+def _decode_row(counts, label, case, seed_note, window=None, softcap=None):
     """One paged-decode row: the kernel on the planner's split count, as a
     CUDA-graph replay (the card's time) and eager calls (the wrapper's host
     work included), beside the plain version and a gather of the pages plus
-    ``scaled_dot_product_attention``. Bound: the live pages' K and V bytes,
-    q, out, the page table and the lengths, each moved once, at 3.35 TB/s,
-    against 4 * Hq * (len + 1) * hd operations a slot at the fp32 peak."""
+    ``scaled_dot_product_attention``, or with a softcap, which SDPA does not
+    take, ``flex_attention`` (``_gather_flex``). Bound: the live pages' K
+    and V bytes (inside the window, if any), q, out, the page table and the
+    lengths, each moved once, at 3.35 TB/s, against 4 * Hq * hd operations
+    a live token a slot at the fp32 peak."""
     import torch.nn.functional as F
 
     from repro_torch.core.precision import take_rows
@@ -2800,30 +3160,41 @@ def _decode_row(counts, label, case, seed_note):
     hkv, ps = kp.shape[1], 16
     qg = q.reshape(s, hkv, hq // hkv, hd)
     args = (qg, kp, vp, pt, lens, act)
-    got = paged_flash_decode(*args, page_size=ps)
-    want = paged_flash_decode_plain(*args, page_size=ps)
+    kw = dict(page_size=ps, window=window, softcap=softcap)
+    got = paged_flash_decode(*args, **kw)
+    want = paged_flash_decode_plain(*args, **kw)
     if not torch.allclose(got.float(), want.float(), rtol=DECODE_TOL[got.dtype],
                           atol=DECODE_TOL[got.dtype]):
         raise AssertionError(f"paged decode at {label} disagrees with its plain version")
-    ms = time_ms(lambda: paged_flash_decode(*args, page_size=ps), iters=100, graph=True)
-    eager_ms = time_ms(lambda: paged_flash_decode(*args, page_size=ps), iters=100)
-    plain_ms = time_ms(lambda: paged_flash_decode_plain(*args, page_size=ps), iters=5)
+    ms = time_ms(lambda: paged_flash_decode(*args, **kw), iters=100, graph=True)
+    eager_ms = time_ms(lambda: paged_flash_decode(*args, **kw), iters=100)
+    plain_ms = time_ms(lambda: paged_flash_decode_plain(*args, **kw), iters=5)
 
     n_tok = pt.shape[1] * ps
     read_idx = (pt.long()[:, :, None] * ps + torch.arange(ps, device="cuda")).reshape(s, n_tok)
-    mask = (torch.arange(n_tok, device="cuda")[None] <= lens.long()[:, None])[:, None, None, :]
+    pos = torch.arange(n_tok, device="cuda")[None]
+    mask = pos <= lens.long()[:, None]
+    if window is not None:
+        mask &= pos > lens.long()[:, None] - window
+    mask = mask[:, None, None, :]
 
     def gather_sdpa():
         k = take_rows(kp, read_idx).half().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
         v = take_rows(vp, read_idx).half().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
         return F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask)
 
-    library_ms = time_ms(gather_sdpa, iters=5)
-    lens_list = lens.tolist()
-    live_pages = sum(int(n) // ps + 1 for n in lens_list)
+    library = gather_sdpa
+    if softcap is not None:
+        library = _gather_flex(q, kp, vp, read_idx, lens, window, softcap)
+    library_err = float((library()[:, :, 0].float() - want.reshape(s, hq, hd).float())
+                        .abs().max())
+    library_ms = time_ms(library, iters=5)
+    lens_list = [int(n) for n in lens.tolist()]
+    first = [0 if window is None else max(0, n - window + 1) for n in lens_list]
+    live_pages = sum(n // ps - f // ps + 1 for n, f in zip(lens_list, first))
     nbytes = (2 * live_pages * ps * hkv * hd * kp.element_size()
               + 2 * q.numel() * q.element_size() + pt.numel() * 4 + 2 * s * 4)
-    flops = sum(4.0 * hq * (int(n) + 1) * hd for n in lens_list)
+    flops = sum(4.0 * hq * (n + 1 - f) * hd for n, f in zip(lens_list, first))
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
     return {
         "name": f"paged_flash_decode[{label}]", "route": "cuda",
@@ -2836,8 +3207,49 @@ def _decode_row(counts, label, case, seed_note):
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_max_abs_err": library_err,
+        "library": "gather + " + ("flex_attention (softcap score_mod, compiled)"
+                                  if softcap is not None else "scaled_dot_product_attention"),
     }
+
+
+def _gather_flex(q, kp, vp, read_idx, lens, window, softcap):
+    """The softcapped decode as one library call, which SDPA cannot give: a
+    gather of the pages (as the SDPA rows time it) and ``flex_attention``
+    compiled, the cap as its ``score_mod``, the lengths and the window as
+    its block mask, the KV heads shared through ``enable_gqa``. Inductor
+    writes its caches under ``build/``, beside the kernels'."""
+    import os
+
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from repro_torch.core.precision import take_rows
+
+    build = Path(__file__).resolve().parent / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
+    last = lens.long()
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        live = kv_idx <= last[b]
+        return live if window is None else live & (kv_idx > last[b] - window)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    s = q.shape[0]
+    n_tok = read_idx.shape[1]
+    block_mask = create_block_mask(mask_mod, B=s, H=None, Q_LEN=1, KV_LEN=n_tok,
+                                   device="cuda")
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        k = take_rows(kp, read_idx).half().permute(0, 2, 1, 3)
+        v = take_rows(vp, read_idx).half().permute(0, 2, 1, 3)
+        return flex(q[:, :, None, :], k, v, score_mod=score_mod, block_mask=block_mask,
+                    enable_gqa=True)
+
+    return call
 
 
 def _decode_entries(counts) -> list:
@@ -2861,6 +3273,83 @@ def _decode_entries(counts) -> list:
         _decode_row(drafter_counts, "S4 Hq16 Hkv8 hd64 ps16 e4m3", drafter,
                     "phase 13's drafter decode shape"),
     ]
+
+
+def _family_entries(counts) -> list:
+    """Phase 14's new decode shapes, one row each: the untied heads' and
+    gemma2's tied logits (phi's 32064 columns end in half a 128-column
+    tile), the dense-MoE's 102400-wide up/gate and its down, phi's fp32
+    router, the widest dense decode layers of d 7168 and d 2304, and the
+    paged decode at deepseek's 56/8 and chatglm's 32/2 heads and gemma2's
+    hd 256 with softcap 50, windowed (its local layers) and not (its
+    global ones), at lengths past the window. Each row reads its model's
+    serve run alone (``_family_serve``): its launches over the run and a
+    decode step's, by shape; the windowed row adds the long request's
+    launches at 2 layers apart."""
+    from repro_torch.core.precision import E4M3, FP16, FP32, cast
+
+    runs = counts["families"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def q(fmt, *shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device="cuda") * scale, FP16), fmt)
+
+    def w(k, n):  # a K-major E4M3 weight (K, N), as cfg.fp8_params stores it
+        return q(E4M3, n, k, scale=k ** -0.5).T
+
+    def gemm_counts(arch, m, k, n):
+        run = runs[arch]
+        return (sum(v for key, v in run["calls"].items() if key[:3] == (m, k, n)),
+                {"launches_per_decode_step": sum(
+                    v for key, v in run["step_calls"].items() if key[:3] == (m, k, n)),
+                 "model": arch})
+
+    rows = []
+    for arch, label, k, n in (
+            ("deepseek-coder-33b", "deepseek decode logits 4x7168x32256 (head)", 7168, 32256),
+            ("chatglm3-6b", "chatglm decode logits 4x4096x65024 (head)", 4096, 65024),
+            ("phi3.5-moe-42b-a6.6b", "phi decode logits 4x4096x32064 (head, ragged N)", 4096,
+             32064),
+            ("phi3.5-moe-42b-a6.6b", "phi moe decode up/gate 4x4096x102400", 4096, 102400),
+            ("phi3.5-moe-42b-a6.6b", "phi moe decode down 4x102400x4096", 102400, 4096),
+            ("deepseek-coder-33b", "deepseek decode 4x7168x19200 (gate, up)", 7168, 19200),
+            ("gemma2-2b", "gemma decode 4x2304x9216 (gate, up)", 2304, 9216)):
+        launches, extra = gemm_counts(arch, 4, k, n)
+        rows.append(_gemm_row(label, q(E4M3, 4, k), w(k, n), FP16, launches, **extra))
+    table = q(E4M3, 256000, 2304, scale=0.02)
+    launches, extra = gemm_counts("gemma2-2b", 4, 2304, 256000)
+    rows.append(_gemm_row("gemma decode logits 4x2304x256000 (table.T)", q(E4M3, 4, 2304),
+                          table.T, FP16, launches, **extra))
+    del table
+    router = torch.randn((4096, 16), generator=gen, device="cuda") * 0.02
+    launches, extra = gemm_counts("phi3.5-moe-42b-a6.6b", 4, 4096, 16)
+    rows.append(_gemm_row("phi moe decode router 4x4096x16, fp32", q(FP32, 4, 4096), router,
+                          FP32, launches, policy="fp32", **extra))
+    rng = np.random.default_rng(12)
+    serve_lens, long_lens = [70, 40, 100, 65], [4600, 4200, 5000, 300]
+    for arch, label, hq, hkv, hd, window, cap, lens in (
+            ("deepseek-coder-33b", "S4 Hq56 Hkv8 hd128 ps16 e4m3 (deepseek)", 56, 8, 128, None,
+             None, serve_lens),
+            ("chatglm3-6b", "S4 Hq32 Hkv2 hd128 ps16 e4m3 (chatglm)", 32, 2, 128, None, None,
+             serve_lens),
+            ("gemma2-2b", "S4 Hq8 Hkv4 hd256 ps16 e4m3 window 4096 softcap 50 (gemma local)", 8,
+             4, 256, 4096, 50.0, long_lens),
+            ("gemma2-2b", "S4 Hq8 Hkv4 hd256 ps16 e4m3 softcap 50 (gemma global)", 8, 4, 256,
+             None, 50.0, long_lens)):
+        pps = max(lens) // 16 + 1
+        case = make_decode_case(rng, s=4, hq=hq, hkv=hkv, hd=hd, page_size=16,
+                                pages_per_slot=pps, n_pages=4 * pps + 1, dtype=E4M3,
+                                q_dtype=FP16, seq_lens=lens, window=window)
+        key = (hq, hkv, hd, window, cap)
+        c = {"decode": runs[arch]["decodes"][key],
+             "decode_per_decode_step": runs[arch]["step_decodes"][key], "decode_per_prefill": 0}
+        row = _decode_row(c, label, case, f"phase 14's decode, lengths {lens}",
+                          window=window, softcap=cap)
+        row["model"] = arch
+        if window is not None:
+            row["long_request_launches"] = runs["gemma2-2b long"][key]
+        rows.append(row)
+    return rows
 
 
 def _flash_entry(counts):
@@ -2930,7 +3419,7 @@ def _log_entry(e) -> None:
 
 def phase_kernel_line(counts) -> list:
     entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
-               _flash_entry(counts)]
+               _flash_entry(counts), *_family_entries(counts)]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
@@ -2957,8 +3446,10 @@ def main() -> int:
         counts |= phase_spec(cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
+        counts |= phase_families()
     phase_train_parity()
     train = phase_train()
+    phase_families_train()
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
                "train_copies": train["copies"]}
     with torch.inference_mode():

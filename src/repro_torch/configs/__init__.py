@@ -1,15 +1,31 @@
 """Architecture config registry of the port: ``--arch <id>`` resolves here.
 
-The port covers the dense decoder granite-3-8b and the dense-MoE decoder
-granite-moe-1b-a400m (its draft model); every other architecture of the
-JAX package raises.
+The port covers the attention-only decoders of the JAX package: the dense
+granite-3-8b, chatglm3-6b, deepseek-coder-33b and gemma2-2b, and the
+dense-MoE granite-moe-1b-a400m (granite-3-8b's draft model) and
+phi3.5-moe-42b-a6.6b (MoE models serve only). The recurrent,
+encoder-decoder and VLM architectures of the JAX package raise.
 """
 from __future__ import annotations
 
-from repro_torch.configs import granite3_8b, granite_moe_1b
+from repro_torch.configs import (
+    chatglm3_6b,
+    deepseek_coder_33b,
+    gemma2_2b,
+    granite3_8b,
+    granite_moe_1b,
+    phi35_moe,
+)
 from repro_torch.configs.base import ModelConfig
 
-_ARCHS = {"granite-3-8b": granite3_8b, "granite-moe-1b-a400m": granite_moe_1b}
+_ARCHS = {
+    "granite-3-8b": granite3_8b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "chatglm3-6b": chatglm3_6b,
+    "deepseek-coder-33b": deepseek_coder_33b,
+    "gemma2-2b": gemma2_2b,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
+}
 
 ARCH_IDS = tuple(_ARCHS)
 

@@ -56,6 +56,10 @@ class ModelConfig:
     norm: str = "rmsnorm"
     act: str = "swiglu"
     tie_embeddings: bool = True
+    # Scale the embedding rows by sqrt(d_model) (gemma). The reference
+    # decides this on "gemma" in the name; the port's gemma configs set it,
+    # so a renamed config keeps it.
+    embed_scale: bool = False
     supports_500k: bool = False  # sub-quadratic context handling
 
     # Precision / engine

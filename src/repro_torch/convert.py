@@ -1,9 +1,10 @@
 """Parameters of the JAX reference, turned into the port's parameter dict.
 
-The reference's ``Transformer.init`` stacks the repeated layer unit on a
-leading axis (``decoder.units.b0``, made by ``jax.vmap``); the port keeps
-one dict per layer. The caller hands over the reference's tree with every
-leaf already a numpy array (``jax.tree.map(np.asarray, params)``), so this
+The reference's ``Transformer.init`` stacks the repeated unit of its block
+pattern on a leading axis (``decoder.units.b{j}``, made by ``jax.vmap``)
+and keeps the remainder layers apart; the port keeps one dict per layer.
+The caller hands over the reference's tree with every leaf already a numpy
+array (``jax.tree.map(np.asarray, params)``), so this
 module needs neither JAX nor the reference package. ml_dtypes leaves
 (bfloat16, float8_e4m3fn, float8_e5m2) travel bit for bit through a
 same-width unsigned-integer view.
@@ -36,14 +37,23 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     """The port's parameters from the reference's ``Transformer.init`` tree
-    (numpy leaves) for a decoder with block pattern ("attn",), dense or
-    MoE. An MoE layer's router stays fp32 (d, E); its experts' ``up`` and
-    ``gate`` (E, d, f) become (d, E*f) and ``down`` (E, f, d) becomes
-    (E*f, d), the shapes the reference's ``apply_dense`` reshapes them to
-    in every call (``models/moe.py`` stores them so)."""
-    if tuple(cfg.block_pattern) != ("attn",) or tree["decoder"]["rem"]:
-        raise NotImplementedError("params_from_jax covers the ('attn',) decoder stack")
-    unit = tree["decoder"]["units"]["b0"]
+    (numpy leaves) for an attention-only decoder, dense or MoE, of any
+    block pattern. The reference stacks its units, ``decoder.units.b{j}``
+    holding the j-th layer of every unit on a leading axis, then keeps the
+    ``n_layers % len(pattern)`` remainder layers as ``decoder.rem.r{i}``;
+    unit u's layer j becomes port layer ``u * len(pattern) + j`` and
+    remainder layer i the ``i``-th after the units. An untied ``head`` is
+    carried across like every weight. An MoE layer's router stays fp32
+    (d, E); its experts' ``up`` and ``gate`` (E, d, f) become (d, E*f) and
+    ``down`` (E, f, d) becomes (E*f, d), the shapes the reference's
+    ``apply_dense`` reshapes them to in every call (``models/moe.py``
+    stores them so)."""
+    pattern = tuple(cfg.block_pattern)
+    dec = tree["decoder"]
+    n_units, n_rem = divmod(cfg.n_layers, len(pattern))
+    if len(dec["rem"]) != n_rem:
+        raise ValueError(f"the tree has {len(dec['rem'])} remainder layers, the config "
+                         f"{n_rem}")
 
     def t(a):
         return tensor_from_numpy(a, device)
@@ -51,26 +61,39 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     def weight(a):
         return {"w": kmajor_weight(t(a))}
 
-    def layer(i):
+    def layer(p):
         out = {
-            "norm1": {"scale": t(unit["norm1"]["scale"][i])},
-            "attn": {n: weight(unit["attn"][n]["w"][i]) for n in ("q", "k", "v", "o")},
-            "norm2": {"scale": t(unit["norm2"]["scale"][i])},
+            "norm1": {"scale": t(p["norm1"]["scale"])},
+            "attn": {n: weight(p["attn"][n]["w"]) for n in ("q", "k", "v", "o")},
+            "norm2": {"scale": t(p["norm2"]["scale"])},
         }
-        if "moe" in unit:
-            m = unit["moe"]
-            out["moe"] = moe_params_from_jax(
-                {"router": {"w": m["router"]["w"][i]},
-                 **{n: m[n][i] for n in ("up", "gate", "down")}}, device)
+        if "moe" in p:
+            out["moe"] = moe_params_from_jax(p["moe"], device)
         else:
-            out["ffn"] = {n: weight(unit["ffn"][n]["w"][i]) for n in ("up", "gate", "down")}
+            out["ffn"] = {n: weight(w["w"]) for n, w in p["ffn"].items()}
         return out
 
-    return {
+    def unit_layer(j, u):
+        stacked = dec["units"][f"b{j}"]
+        return layer(_map_leaves(stacked, lambda a: a[u]))
+
+    layers = [unit_layer(j, u) for u in range(n_units) for j in range(len(pattern))]
+    layers += [layer(dec["rem"][f"r{i}"]) for i in range(n_rem)]
+    out = {
         "embed": {"table": t(tree["embed"]["table"])},
-        "layers": [layer(i) for i in range(cfg.n_layers)],
+        "layers": layers,
         "final_norm": {"scale": t(tree["final_norm"]["scale"])},
     }
+    if "head" in tree:
+        out["head"] = weight(tree["head"]["w"])
+    return out
+
+
+def _map_leaves(tree, fn):
+    """``fn`` on every array of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def moe_params_from_jax(p, device="cpu") -> dict:

@@ -137,9 +137,7 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
         kp = k_pos[:, c0:c0 + chunk]
         c = kc.shape[2]
         s = engine.matmul(qh, kc.transpose(-1, -2))  # (B, Hkv, G*Sq, C)
-        s = s.float().reshape(b, hkv, g, sq, c) * scale
-        if cfg.softcap is not None:
-            s = cfg.softcap * torch.tanh(s / cfg.softcap)
+        s = common.softcap(s.float().reshape(b, hkv, g, sq, c) * scale, cfg.softcap)
         mask = kp[:, None, :] != POS_SENTINEL  # (B|1, 1, C)
         if causal:
             mask = mask & (kp[:, None, :] <= q_pos[:, :, None])

@@ -57,6 +57,39 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation x/2 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))),
+    the reference's ``jax.nn.gelu(approximate=True)``. In a 16-bit format
+    each step is rounded to that format as XLA's compiled CPU code rounds it
+    (the reference's layers run inside ``lax.scan`` or ``jit``), with the
+    constants rounded to the format first: x^3 as (x x) x, then every later
+    step, except that in fp16 XLA keeps the product 0.044715 x^3 in fp32
+    for the add that follows. Under fp32 the formula is evaluated in fp32,
+    and XLA's tanh differs from torch's by an ulp or so
+    (tests/test_torch_families.py states the bounds)."""
+    if x.dtype not in (torch.float16, torch.bfloat16):
+        return x * (0.5 * (1.0 + torch.tanh(_GELU_C * (x + 0.044715 * (x * x * x)))))
+    dt = x.dtype
+    k, c = (torch.tensor(v, dtype=dt) for v in (0.044715, _GELU_C))
+    x3 = (x * x) * x
+    if dt == torch.float16:
+        b = (x.float() + x3.float() * k.float()).to(dt)
+    else:
+        b = x + k * x3
+    return x * (0.5 * (1 + torch.tanh(c * b)))
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """cap * tanh(x / cap), or x when ``cap`` is None (gemma2's attention
+    and final-logit caps; the callers apply it to fp32 scores and logits)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
 def rope_freqs(head_dim: int, theta: float, fraction: float, device):
     rot = int(head_dim * fraction)
     rot -= rot % 2

@@ -5,15 +5,25 @@ for training and for continuous-batching serving (counterpart of
 Parameters are a plain dict of tensors: ``embed.table``, one dict per
 layer under ``layers`` (the reference stacks them on a leading axis for
 ``lax.scan``; the port runs a Python loop over a list), and
-``final_norm.scale``. A layer holds ``ffn``, or ``moe`` when the config
-has experts (``models/moe.py``; serving only so far: MoE training raises).
-With ``cfg.remat == "block"`` the training forward recomputes each block
-in the backward pass (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` of its scan body does. Other families (recurrent,
-sliding-window-only, encoder-decoder, VLM) raise ``NotImplementedError``.
+``final_norm.scale``, and ``head.w`` (d, V) when the embeddings are
+untied. A layer holds ``ffn``, or ``moe`` when the config has experts
+(``models/moe.py``; serving only so far: MoE training raises).
+
+Layer ``i`` has the kind ``block_pattern[i % len(block_pattern)]``, the
+order the reference's stacked units and remainder layers give: ``attn``
+(global) or ``attn_local`` (``cfg.sliding_window``), each with the
+config's attention softcap, and every path takes the layer's own
+attention config. gemma2's embeddings are scaled by sqrt(d_model)
+(``cfg.embed_scale``; the reference keys it on the name), and
+``cfg.final_softcap`` caps the fp32 logits. With ``cfg.remat == "block"`` the training forward
+recomputes each block in the backward pass (``torch.utils.checkpoint``),
+as the reference's ``jax.checkpoint`` of its scan body does. Other
+families (recurrent, encoder-decoder, VLM, LayerNorm) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -26,6 +36,8 @@ from repro_torch.models import attention, common, ffn, moe
 from repro_torch.models.attention import AttnConfig, PagedInfo
 
 Params = dict[str, Any]
+
+ATTN_KINDS = {"attn", "attn_local"}
 
 
 class CBProfile(NamedTuple):
@@ -46,15 +58,11 @@ class Transformer:
 
     def __init__(self, cfg: ModelConfig, *, engine: Engine, device,
                  fused_decode: bool = False):
-        # gemma's embedding scale (keyed on the name, as in the reference),
-        # its final softcap and sliding windows are not ported yet.
-        if (cfg.family not in ("dense", "moe") or tuple(cfg.block_pattern) != ("attn",)
-                or cfg.is_encoder_decoder or cfg.norm != "rmsnorm"
-                or not cfg.tie_embeddings or "gemma" in cfg.name
-                or cfg.final_softcap is not None or cfg.sliding_window is not None):
+        if (cfg.family not in ("dense", "moe") or not set(cfg.block_pattern) <= ATTN_KINDS
+                or cfg.is_encoder_decoder or cfg.norm != "rmsnorm"):
             raise NotImplementedError(
                 f"{cfg.name}: the port covers the dense decoder-only family and its "
-                "dense-MoE variant (pattern ('attn',), RMSNorm, tied embeddings) so far"
+                "dense-MoE variant (layers 'attn' and 'attn_local', RMSNorm) so far"
             )
         self.cfg = cfg
         self.engine = engine
@@ -66,17 +74,27 @@ class Transformer:
             raise ValueError("fused_decode is for the plain backend; the 'cuda' backend "
                              "always decodes through the paged kernel")
         self.fused_decode = engine.backend == "cuda" or fused_decode
-        self.attn_cfg = AttnConfig(
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
-            softcap=cfg.attn_softcap,
-        )
+        self.pattern = tuple(cfg.block_pattern)
+        self.kinds = [self.pattern[i % len(self.pattern)] for i in range(cfg.n_layers)]
+        self.layer_cfgs = [self.attn_cfg(kind) for kind in self.kinds]
+        self.embed_scale = math.sqrt(cfg.d_model) if cfg.embed_scale else 1.0
         self.moe_cfg = moe.MoEConfig(
             cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff, cfg.capacity_factor,
             cfg.moe_impl, cfg.act,
         ) if cfg.is_moe else None
         if self.moe_cfg is not None:
             moe.check_impl(self.moe_cfg)
+
+    def attn_cfg(self, kind: str) -> AttnConfig:
+        """The attention config of a layer of ``kind``: ``attn_local``
+        layers carry the sliding window, both kinds the softcap."""
+        cfg = self.cfg
+        return AttnConfig(
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
+            softcap=cfg.attn_softcap,
+            window=cfg.sliding_window if kind == "attn_local" else None,
+        )
 
     # -- parameters ---------------------------------------------------------
     def init(self, seed: int) -> Params:
@@ -90,20 +108,24 @@ class Transformer:
             "layers": [],
             "final_norm": common.norm_init(cfg.d_model, dev),
         }
-        for _ in range(cfg.n_layers):
+        for acfg in self.layer_cfgs:
             params["layers"].append({
                 "norm1": common.norm_init(cfg.d_model, dev),
-                "attn": attention.init(gen, cfg.d_model, self.attn_cfg, self.dtype, dev),
+                "attn": attention.init(gen, cfg.d_model, acfg, self.dtype, dev),
                 "norm2": common.norm_init(cfg.d_model, dev),
                 **({"moe": moe.init(gen, self.moe_cfg, self.dtype, dev)} if cfg.is_moe
-                   else {"ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev)}),
+                   else {"ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev,
+                                         cfg.act)}),
             })
+        if not cfg.tie_embeddings:
+            params["head"] = common.dense_init(gen, cfg.d_model, cfg.vocab_size, self.dtype, dev)
         return params
 
     # -- blocks ---------------------------------------------------------------
-    def _block(self, lp, x, positions, engine: Engine, pool=None, paged=None, cache=None):
+    def _block(self, lp, x, positions, engine: Engine, acfg: AttnConfig, pool=None,
+               paged=None, cache=None):
         h = common.norm_apply(lp["norm1"], x)
-        x = x + attention.apply(lp["attn"], h, positions, self.attn_cfg, engine,
+        x = x + attention.apply(lp["attn"], h, positions, acfg, engine,
                                 pool=pool, paged=paged, cache=cache)
         h2 = common.norm_apply(lp["norm2"], x)
         if "moe" in lp:
@@ -111,16 +133,30 @@ class Transformer:
         return x + ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
 
     def _run_stack(self, params, x, positions, pools, paged: PagedInfo):
-        for lp, pool in zip(params["layers"], pools):
-            x = self._block(lp, x, positions, self.engine, pool, paged)
+        for lp, pool, acfg in zip(params["layers"], pools, self.layer_cfgs):
+            x = self._block(lp, x, positions, self.engine, acfg, pool, paged)
         return x
 
     def embed(self, params, tokens: torch.Tensor, engine: Engine | None = None) -> torch.Tensor:
+        """The rows of the embedding table in the compute format, times
+        sqrt(d_model) under ``cfg.embed_scale`` (the scale rounded to that format first, as
+        the reference's weakly typed product rounds it; a host scalar, so
+        the decode graph captures no copy)."""
         compute = (engine or self.engine).policy.compute
-        return common.embed_apply(params["embed"], tokens).to(compute)
+        x = common.embed_apply(params["embed"], tokens).to(compute)
+        if self.embed_scale != 1.0:
+            x = x * float(torch.tensor(self.embed_scale, dtype=compute))
+        return x
 
     def logits(self, params, h: torch.Tensor, engine: Engine | None = None) -> torch.Tensor:
-        return common.unembed_apply(params["embed"], h, engine or self.engine).float()
+        """fp32 logits through the tied table or the untied head, then the
+        final softcap, in the reference's order."""
+        eng = engine or self.engine
+        if self.cfg.tie_embeddings:
+            out = common.unembed_apply(params["embed"], h, eng)
+        else:
+            out = common.dense_apply(params["head"], h, eng)
+        return common.softcap(out.float(), self.cfg.final_softcap)
 
     # -- training -------------------------------------------------------------
     def forward(self, params, batch, *, engine: Engine | None = None):
@@ -136,24 +172,31 @@ class Transformer:
         tokens = batch["tokens"]
         x = self.embed(params, tokens, eng)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        for lp in params["layers"]:
+        for lp, acfg in zip(params["layers"], self.layer_cfgs):
             if self.cfg.remat == "block":
-                x = checkpoint(self._block, lp, x, positions, eng, use_reentrant=False)
+                x = checkpoint(self._block, lp, x, positions, eng, acfg, use_reentrant=False)
             else:
-                x = self._block(lp, x, positions, eng)
+                x = self._block(lp, x, positions, eng, acfg)
         x = common.norm_apply(params["final_norm"], x)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # -- serving state --------------------------------------------------------
     def cb_profile(self) -> CBProfile:
-        return CBProfile(needs_kv_pages=True, kv_window=None)
+        """The reference's rule: a window only when every attention layer is
+        ``attn_local`` (gemma2 alternates, so it gets none and keeps every
+        page of a request)."""
+        window = None
+        if all(k == "attn_local" for k in self.pattern) and self.cfg.sliding_window:
+            window = self.cfg.sliding_window
+        return CBProfile(needs_kv_pages=True, kv_window=window)
 
     def init_state_store(self, num_slots: int, num_pages: int, page_size: int):
         """One flat KV token pool per layer (num_pages * page_size slots;
-        page 0 is the serving layer's null page)."""
+        page 0 is the serving layer's null page), shaped by the layer's own
+        attention config."""
         n_tok = num_pages * page_size
-        return [attention.init_paged_pool(n_tok, self.attn_cfg, self.kv_dtype, self.device)
-                for _ in range(self.cfg.n_layers)]
+        return [attention.init_paged_pool(n_tok, acfg, self.kv_dtype, self.device)
+                for acfg in self.layer_cfgs]
 
     def prefill_cb(self, params, tokens: torch.Tensor, pools, page_row: torch.Tensor,
                    slot, start, length, *, page_size: int, chunked: bool = False,
@@ -304,11 +347,13 @@ class Transformer:
 
     # -- static-batch serving (ring-buffer cache) -----------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """The ring-buffer cache of static-batch serving: one buffer of
-        ``max_len`` positions a layer, and the batch's shared position."""
+        """The ring-buffer cache of static-batch serving: one buffer a layer,
+        of ``max_len`` positions (a local layer's of at most its window, as
+        the reference allocates it), and the batch's shared position."""
         return {"pos": 0, "layers": [
-            attention.init_cache(batch, max_len, self.attn_cfg, self.kv_dtype, self.device)
-            for _ in range(self.cfg.n_layers)]}
+            attention.init_cache(batch, min(max_len, acfg.window or max_len), acfg,
+                                 self.kv_dtype, self.device)
+            for acfg in self.layer_cfgs]}
 
     def prefill(self, params, batch, cache: dict) -> torch.Tensor:
         """Run the prompt through the decoder, filling the cache in place.
@@ -317,8 +362,8 @@ class Transformer:
         tokens = batch["tokens"]
         x = self.embed(params, tokens)
         positions = cache["pos"] + torch.arange(tokens.shape[1], device=tokens.device)
-        for lp, c in zip(params["layers"], cache["layers"]):
-            x = self._block(lp, x, positions, self.engine, cache=c)
+        for lp, c, acfg in zip(params["layers"], cache["layers"], self.layer_cfgs):
+            x = self._block(lp, x, positions, self.engine, acfg, cache=c)
         x = common.norm_apply(params["final_norm"], x)
         cache["pos"] += tokens.shape[1]
         return self.logits(params, x[:, -1:])
@@ -328,8 +373,8 @@ class Transformer:
         logits (B, 1, V); the cache is updated in place."""
         x = self.embed(params, tokens)
         positions = cache["pos"] + torch.arange(1, device=tokens.device)
-        for lp, c in zip(params["layers"], cache["layers"]):
-            x = self._block(lp, x, positions, self.engine, cache=c)
+        for lp, c, acfg in zip(params["layers"], cache["layers"], self.layer_cfgs):
+            x = self._block(lp, x, positions, self.engine, acfg, cache=c)
         x = common.norm_apply(params["final_norm"], x)
         cache["pos"] += 1
         return self.logits(params, x)

@@ -131,20 +131,39 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("change", [
-    {"name": "gemma2-2b-smoke"}, {"final_softcap": 30.0}, {"sliding_window": 8},
-    {"tie_embeddings": False}, {"block_pattern": ("attn", "rglru")},
+    {"block_pattern": ("attn", "rglru")}, {"block_pattern": ("mlstm",)},
+    {"norm": "layernorm"}, {"family": "vlm"}, {"n_encoder_layers": 2},
 ])
 def test_unported_archs_raise(change):
+    """The recurrent, encoder-decoder and VLM families and LayerNorm are
+    not ported: their arch ids and configs raise."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import build
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma2-2b")
+    for arch in ("xlstm-125m", "recurrentgemma-2b"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
     cfg = dataclasses.replace(get_config("granite-3-8b", smoke=True), **change)
     with pytest.raises(NotImplementedError, match="dense decoder-only"):
         build(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b"])
+def test_moe_training_still_raises(arch):
+    """MoE models serve; their training (the aux loss in the loss) is not
+    ported, in the model and in the train launcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build
+
+    model = build(get_config(arch, smoke=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        model.forward(model.init(0), {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+    args = train.parse_args(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1"])
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        train.train(args)
 
 
 def test_moe_expert_parallel_impl_raises():
