@@ -118,6 +118,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
     (phase 9's bounds), chatglm3-6b at 4 layers, deepseek-coder-33b at 2
     and gemma2-2b at the depth whose training state fits (26) through the
     train launcher;
+15. the recurrent families, after phase 14, each built, run and freed in
+    turn: (a) recurrentgemma-2b at 3 layers and xlstm-125m at 2, full
+    width, kernels against plain under fp32 (1e-4) and redmule_hfp8 (0)
+    over phase 7's whole, chunked and batched runs and a recycled slot,
+    where a planted fault (the recycled rows not reset at position 0) must
+    leave each bound; (b) both through the serve launcher at full depth
+    with phase 8's flags (E4M3 weights for xlstm only), the decode graph
+    against eager bit for bit, xlstm with no paged decode, no KV bytes and
+    no pages; (c) recurrentgemma's 3000-token request in chunks of 512
+    with 64 new tokens, its pages within the windowed reservation, and at
+    3 layers under fp32 kernels against plain, which the decode called
+    without the window must leave; (d) after phase 14(d): granite-moe's
+    train parity at 2 layers with the aux loss, then through the train
+    launcher xlstm-125m (12 layers), recurrentgemma-2b and phi3.5-moe at
+    the depth that fits, granite-moe (24 layers), with each scan's share
+    of its train step; the new shapes in the kernel line (11);
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -135,7 +151,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
     phase 7's widest fp32 product, and the split-K combine with min; the
     paged decode at the serving and the long-context shape, as CUDA-graph
     replays with eager calls beside; the dense attention with its route;
-    phase 14's decode shapes).
+    phase 14's and phase 15's shapes).
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither JAX nor the JAX package.
@@ -2471,7 +2487,7 @@ def _reading_servers(readings: dict, calls: collections.Counter,
         Server.warmup = warmup
 
 
-def _family_serve(arch: str) -> tuple:
+def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS) -> tuple:
     """(b) ``arch`` at full width and depth through the serve launcher
     (``FAMILY_SERVE_ARGS``: E4M3 weights and pages, the decode graph), with
     the launch counters zeroed just before it and read at its decode
@@ -2491,7 +2507,7 @@ def _family_serve(arch: str) -> tuple:
             _reading_servers(readings, calls, decodes):
         _reset_launch_counts()
         t0 = time.perf_counter()
-        server, results = serve.main(["--arch", arch, *FAMILY_SERVE_ARGS])
+        server, results = serve.main(["--arch", arch, *serve_args])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     gemm_n, decode_n = redmule_gemm.launches.n, flash_attention.launches.n
@@ -2508,7 +2524,9 @@ def _family_serve(arch: str) -> tuple:
     if not all(0 <= t < cfg.vocab_size for r in results.values() for t in r.out_tokens):
         raise AssertionError(f"families (b) {arch}: a token outside the vocabulary")
     # The decode step runs eagerly twice (warm-up, capture); both readings
-    # must agree, and each layer launches the paged decode once a step.
+    # must agree, and each attention layer launches the paged decode once a
+    # step (a recurrent layer none).
+    n_attn = sum(acfg is not None for acfg in server.model.layer_cfgs)
     shapes = readings["decode shapes"]
     if len(shapes) != 2 or shapes[0] != shapes[1] or len(readings["decode"]) != 2:
         raise AssertionError(f"families (b) {arch}: {len(shapes)} eager decode steps read, "
@@ -2516,10 +2534,10 @@ def _family_serve(arch: str) -> tuple:
     step_calls, step_decodes = shapes[0]
     per_step = readings["decode"][0]
     if (sum(step_calls.values()), sum(step_decodes.values())) != per_step[:2] or \
-            per_step[1] != cfg.n_layers:
+            per_step[1] != n_attn:
         raise AssertionError(f"families (b) {arch}: a decode step's launches {per_step[:2]}, "
                              f"by shape {sum(step_calls.values())} and "
-                             f"{sum(step_decodes.values())}, for {cfg.n_layers} layers")
+                             f"{sum(step_decodes.values())}, for {n_attn} attention layers")
     if (sum(calls.values()), sum(decodes.values())) != (gemm_n, decode_n):
         raise AssertionError(f"families (b) {arch}: launches gemm {gemm_n}, paged decode "
                              f"{decode_n} differ from the calls recorded by shape "
@@ -2527,7 +2545,10 @@ def _family_serve(arch: str) -> tuple:
     ttft = server.ttft_percentiles()
     step_ms = 1e3 * s.decode_s / s.decode_steps
     log(f"families (b) {arch}: {cfg.n_layers} layers d{cfg.d_model}, "
-        f"{cfg.param_count() / 1e9:.2f} B parameters in E4M3; decode {s.decode_tok_s:.1f} tok/s "
+        f"{cfg.param_count() / 1e9:.2f} B parameters in "
+        f"{'E4M3' if cfg.fp8_params else server.model.dtype}; KV pools "
+        f"{server.cache.kv_bytes() / 1e6:.1f} MB, state rows {server.cache.state_bytes() / 1e6:.1f} "
+        f"MB; decode {s.decode_tok_s:.1f} tok/s "
         f"({step_ms:.2f} ms a step, {s.decode_steps} steps), prefill {s.prefill_s:.3f} s, TTFT p50 "
         f"{ttft[0] * 1e3:.1f} ms, peak memory {mem / 1e9:.2f} GB; launcher wall {wall:.1f} s "
         f"(weights, warm-up and capture included); launches gemm {gemm_n}, paged decode "
@@ -2654,57 +2675,383 @@ def phase_families() -> dict:
     return {"families": runs}
 
 
-def _train_depth(cfg) -> int:
+def _train_depth(cfg, spare: float = 10e9) -> int:
     """The most layers of ``cfg`` whose training state fits the card: 24
     bytes a parameter at the optimizer step (fp16 weights, gradients and
-    their clipped copy, the fp32 moments twice, the new weights) and 10 GB
-    for activations and the logits chunks."""
+    their clipped copy, the fp32 moments twice, the new weights) and
+    ``spare`` bytes for activations and the logits chunks."""
     total = torch.cuda.get_device_properties(0).total_memory
     for n in range(cfg.n_layers, 0, -1):
-        if dataclasses.replace(cfg, n_layers=n).param_count() * 24 + 10e9 <= total:
+        if dataclasses.replace(cfg, n_layers=n).param_count() * 24 + spare <= total:
             return n
     raise AssertionError(f"{cfg.name}: not one layer's training state fits the card")
+
+
+def _launcher_train(label: str, arch: str, layers: int | None = None, **depth) -> dict:
+    """``arch`` through the train launcher (redmule_hfp8, remat block,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, ``TRAIN_STEPS`` steps) at
+    ``layers``, or at the depth whose training state fits the card
+    (``_train_depth(**depth)``; its full depth if it does): every step
+    finite and none skipped. Returns the launcher's history."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    full = get_config(arch)
+    n = layers or _train_depth(full, **depth)
+    if n < full.n_layers and layers is None:
+        log(f"{label} {arch}: {n} of {full.n_layers} layers fit the card's training state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = train.parse_args([
+        "--arch", arch, "--layers", str(n), "--seq", str(TRAIN_SEQ), "--batch",
+        str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--policy", "redmule_hfp8",
+        "--remat", "block", "--log-every", "1", "--seed", "0"])
+    out = train.train(args)
+    hist = out["history"]
+    if len(hist) != TRAIN_STEPS or out["state"].skipped != 0:
+        raise AssertionError(f"{label} {arch}: {len(hist)} steps, "
+                             f"{out['state'].skipped} skipped")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"{label} {arch}: non-finite loss or grad norm: {hist}")
+    schedules = sorted({(h["gemm_simt_launches"], h["gemm_tc_launches"],
+                         h["gemm_small_row_launches"]) for h in hist})
+    log(f"{label} {arch}: {n} layers d{full.d_model}, redmule_hfp8, remat block, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens; ms per step {[round(h['ms'], 1) for h in hist]} "
+        f"(steady mean {np.mean([h['ms'] for h in hist[1:]]):.1f}); losses "
+        f"{[round(h['loss'], 4) for h in hist]}; skipped 0; max memory "
+        f"{out['max_memory_bytes'] / 1e9:.2f} GB; GEMM launches a step by schedule (simt, "
+        f"tensor-core, small-row) {schedules}")
+    del out
+    torch.cuda.empty_cache()
+    return hist
 
 
 def phase_families_train() -> None:
     """(d) chatglm3-6b's train parity at 2 layers (phase 9's bounds; its
     untied head's dW is a 4096 x 2048 x 65024 E4M3^T x E5M2 product), then
-    through the train launcher (redmule_hfp8, remat block, 2 x 1024
-    tokens, 4 steps) chatglm3-6b at 4 layers, deepseek-coder-33b at 2 (its
-    62 layers' training state is ~0.8 TB) and gemma2-2b at the depth that
-    fits (its full 26 if it does)."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train
-
+    through the train launcher chatglm3-6b at 4 layers, deepseek-coder-33b
+    at 2 (its 62 layers' training state is ~0.8 TB) and gemma2-2b at the
+    depth that fits (its full 26 if it does)."""
     phase_train_parity("chatglm3-6b")
     for arch, layers in (("chatglm3-6b", 4), ("deepseek-coder-33b", 2), ("gemma2-2b", None)):
-        full = get_config(arch)
-        n = layers or _train_depth(full)
-        if n < full.n_layers and layers is None:
-            log(f"families (d) {arch}: {n} of {full.n_layers} layers fit the card's training state")
+        _launcher_train("families (d)", arch, layers)
+
+
+# -- phase 15 --------------------------------------------------------------------
+
+# The recurrent families: recurrentgemma-2b (RG-LRU with windowed local
+# attention, one KV head for 10 query heads) and xlstm-125m (mLSTM and
+# sLSTM, no attention), then MoE training.
+RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
+# (a) at full width, one unit of the block pattern: (policy, KV pages, E4M3
+# weights, bound on max|dlogit|/max|logit|), kernels against plain.
+# recurrentgemma takes no E4M3 weights (the JAX package's conv refuses
+# them; ROADMAP queue 3). fp32 keeps phase 7's bound, and so does
+# both models under redmule_hfp8 (0: the same bits). The scans and gates
+# are the same torch ops on both paths; xlstm's fp32 state products (the
+# reference's einsums, sLSTM's recurrence) take the GEMM-Op kernel's fp32
+# SIMT schedule against torch.matmul and sum in another order, but no
+# such fp32 ulp moved a 16-bit rounding at these shapes (PERF.md, phase
+# 15), so any difference means one side changed its arithmetic.
+RECURRENT_LAYERS = {"recurrentgemma-2b": 3, "xlstm-125m": 2}
+RECURRENT_PARITY = {
+    "recurrentgemma-2b": (("fp32", "fp32", False, 1e-4), ("redmule_hfp8", "e4m3", False, 0.0)),
+    "xlstm-125m": (("fp32", "fp32", False, 1e-4), ("redmule_hfp8", "e4m3", True, 0.0)),
+}
+# (b) the serve launcher with phase 8's flags, E4M3 weights for xlstm only.
+RECURRENT_SERVE_ARGS = {
+    "recurrentgemma-2b": [a for a in FAMILY_SERVE_ARGS if a != "--fp8-params"],
+    "xlstm-125m": FAMILY_SERVE_ARGS,
+}
+# (c) recurrentgemma's long request: past its window of 2048, in chunks.
+RG_LONG, RG_CHUNK, RG_LONG_NEW = 3000, 512, 64
+# (d) granite-moe's train parity at 2 layers, the aux loss in the loss:
+# fp32 keeps phase 9's bounds. Under redmule_hfp8 the router's fp32 GEMM
+# (SIMT kernel against torch.matmul) moves a probability by an ulp, now
+# and then an fp16 gate, and through E4M3 activations and E5M2 cotangents
+# (two mantissa bits) single tensors' gradients move by up to their own
+# size: on the CPU at this width a 1e-7 relative change of the router
+# weights moved them by up to 0.57 and the loss by 2.7e-5 (PERF.md, phase
+# 15). So under redmule_hfp8 the loss and the global grad norm are held
+# (read 5.5e-6 and 7.6e-4 on the card) and the per-tensor error is read,
+# not held (None).
+MOE_TRAIN_PARITY_BOUND = {"fp32": (1e-5, 1e-4, 1e-3), "redmule_hfp8": (1e-4, 5e-3, None)}
+
+
+@contextlib.contextmanager
+def _no_reset(model):
+    """A planted fault in ``model``'s recurrent layers: a prefill from
+    position 0 continues from the slot's stored rows instead of the init
+    state."""
+    recurrent = model._recurrent
+
+    def faulty(cell, p, h, engine, store, paged, decode):
+        if paged is not None and not decode:
+            paged = paged._replace(starts=paged.starts + 1)
+        return recurrent(cell, p, h, engine, store, paged, decode)
+
+    model._recurrent = faulty
+    try:
+        yield
+    finally:
+        del model._recurrent
+
+
+def _recycle_run(model, params, prompts, page_table, ps=16) -> list:
+    """Slot 0 serves prompt 0 (a whole-prompt prefill and 2 decode steps),
+    then is recycled for the first 4 tokens of prompt 1 from position 0
+    (few enough that a stale state would not have decayed: the random
+    models forget about half of it a token): the second request's logits
+    (its prefill and 2 decode steps, fed fixed tokens)."""
+    prompts = [prompts[0], prompts[1][:4]]
+    pools = model.init_state_store(1, 17, ps)
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    for p in prompts:
+        toks = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
+        toks[0, :len(p)] = torch.from_numpy(p)
+        out = [model.prefill_cb(params, toks, pools, page_table[0], 0, 0, len(p), page_size=ps)]
+        seq = torch.tensor([len(p)], dtype=torch.int32, device="cuda")
+        for t in (7, 11):
+            tok = torch.full((1, 1), t, dtype=torch.int64, device="cuda")
+            out.append(model.decode_cb(params, tok, pools, page_table[:1], seq, active,
+                                       page_size=ps))
+            seq = seq + 1
+    torch.cuda.synchronize()
+    return out
+
+
+def _recurrent_parity(arch: str) -> list:
+    """(a) ``arch`` at full width, one unit of its pattern, kernels against
+    plain (the paged attention's plain version) under
+    ``RECURRENT_PARITY``: phase 7's whole-prompt prefill and 4 decode
+    steps, its chunked and batched prefill (state rows carried between
+    chunks, a pad row's rows untouched) and a recycled slot. A planted
+    fault, the recycled slot's rows not reset at position 0, must leave
+    each bound. Returns the failed checks (every policy runs first)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.models import build
+    from repro_torch.models.transformer import Transformer
+
+    rng = np.random.default_rng(1)
+    base = dataclasses.replace(get_config(arch), n_layers=RECURRENT_LAYERS[arch])
+    prompts = [rng.integers(0, base.vocab_size, size=n) for n in (64, 32)]
+    page_table = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    page_table[0, :5] = torch.arange(1, 6)
+    page_table[1, :3] = torch.arange(6, 9)
+    failed = []
+    for pol, kv, fp8p, bound in RECURRENT_PARITY[arch]:
+        label = f"recurrent (a) {arch} {base.n_layers} layers {pol}"
+        cfg = dataclasses.replace(base, policy=pol, kv_cache_dtype=kv, fp8_params=fp8p)
+        model = build(cfg, device="cuda")
+        params = model.init(0)
+        plain = Transformer(cfg, engine=Engine(policy=pol, backend="torch"), device="cuda",
+                            fused_decode=True)
+        calls = collections.Counter()
+        with _recording_plans(calls):
+            got, chosen = _slice_run(model, params, prompts, page_table)
+        want, _ = _slice_run(plain, params, prompts, page_table, forced=chosen[:-1])
+        got_c = _chunk_run(model, params, prompts, page_table)
+        want_c = _chunk_run(plain, params, prompts, page_table)
+        got_r = _recycle_run(model, params, prompts, page_table)
+        want_r = _recycle_run(plain, params, prompts, page_table)
+        if not all(torch.isfinite(g).all() for g in got + got_c + got_r):
+            raise AssertionError(f"{label}: non-finite logits on the kernels' path")
+        errs = {name: max(rel_err(a, b) for a, b in zip(g, w)) for name, g, w in (
+            ("whole prefill and decode", got, want), ("chunked and batched prefill", got_c, want_c),
+            ("recycled slot", got_r, want_r))}
+        with _no_reset(model):
+            bad = _recycle_run(model, params, prompts, page_table)
+        planted = max(rel_err(a, b) for a, b in zip(bad, want_r))
+        log(f"{label}: kernels against plain, max|dlogit|/max|logit| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; a recycled row not reset {planted:.3g} (bound {bound:g}); the kernels' GEMMs "
+            "by (M, K, N, schedule, form): "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(calls.items(), key=str)))
+        if not max(errs.values()) <= bound < planted:
+            failed.append(f"{label}: {max(errs.values()):.3g} and the planted fault "
+                          f"{planted:.3g} against the bound {bound}")
+        del model, params, plain
+        torch.cuda.empty_cache()
+    return failed
+
+
+def _rg_long(model, params) -> collections.Counter:
+    """(c) recurrentgemma's 3000-token request in chunks of 512, 64 new
+    tokens, at full depth (the decode graph): the pages it holds never
+    exceed its windowed reservation (window + chunk + 2 pages) and stay
+    below the request's full span, so out-of-window pages went back to the
+    pool mid-request. Then at 3 layers under fp32 the kernels' path
+    against the plain path, decode eager: the same tokens and decode logits
+    within phase 7's bound, which the decode called without the window
+    must leave. Returns the 3-layer kernels' run's paged-decode launches."""
+    from repro_torch.engine import Engine
+    from repro_torch.models import build
+    from repro_torch.models.transformer import Transformer
+
+    cfg = model.cfg
+    prompt = list(np.random.default_rng(7).integers(0, cfg.vocab_size, size=RG_LONG))
+    total = RG_LONG + RG_LONG_NEW
+    held = []
+
+    def drive(server):
+        server.submit(prompt, max_new_tokens=RG_LONG_NEW)
+        while server.scheduler.has_work():
+            server.step()
+            held.append(server.cache.allocator.num_held)
+        server.run()
+
+    label = f"recurrent (c) recurrentgemma-2b {cfg.n_layers} layers"
+    server, res, _ = _feature_run(f"{label}, a {RG_LONG}-token prompt in chunks of {RG_CHUNK}",
+                                  model, params, [prompt], drive=drive, prefill_chunk=RG_CHUNK,
+                                  max_seq_len=total)
+    cap, span = server.scheduler.worst_pages(total), server.cache.allocator.pages_for(total)
+    (out,) = res.values()
+    log(f"{label}: {out.num_generated} tokens {out.out_tokens[:8]}...; pages held at most "
+        f"{max(held)} (reservation {cap} = window {cfg.sliding_window} + chunk {RG_CHUNK} + 2 "
+        f"pages of 16; the request spans {span})")
+    if out.num_generated != RG_LONG_NEW or not max(held) <= cap < span:
+        raise AssertionError(f"{label}: {out.num_generated} tokens, {max(held)} pages held "
+                             f"against a reservation of {cap} and a span of {span}")
+    short_cfg = dataclasses.replace(cfg, n_layers=3, policy="fp32", kv_cache_dtype="fp32",
+                                    fp8_params=False)
+    short = build(short_cfg, device="cuda")
+    sparams = short.init(0)
+    plain = Transformer(short_cfg, engine=Engine(policy="fp32", backend="torch"),
+                        device="cuda", fused_decode=True)
+    label = "recurrent (c) recurrentgemma-2b 3 layers fp32, long request"
+    decodes = collections.Counter()
+    with _recording_decodes(decodes):
+        _, got, got_rows = _feature_run(f"{label}, kernels", short, sparams, [prompt],
+                                        graph=False, prefill_chunk=RG_CHUNK,
+                                        setup=lambda server: decodes.clear())
+    _, want, want_rows = _feature_run(f"{label}, plain", plain, sparams, [prompt], graph=False,
+                                      prefill_chunk=RG_CHUNK)
+    with _window_dropped():
+        _, _, bad_rows = _feature_run(f"{label}, kernels, window dropped", short, sparams,
+                                      [prompt], graph=False, prefill_chunk=RG_CHUNK)
+    bound = RECURRENT_PARITY["recurrentgemma-2b"][0][-1]
+    _same_tokens(f"{label}, kernels against plain", _tokens(got), _tokens(want))
+    err = max(rel_err(got_rows[k], want_rows[k]) for k in want_rows)
+    planted = max(rel_err(bad_rows[k], want_rows[k]) for k in want_rows)
+    log(f"{label}: tokens equal the plain path's; decode logits max|dlogit|/max|logit| "
+        f"{err:.3g} over {len(want_rows)} rows, {planted:.3g} with the window dropped from the "
+        f"decode (bound {bound:g}); windowed decode launches {sum(decodes.values())}")
+    if not err <= bound < planted:
+        raise AssertionError(f"{label}: {err:.3g} and planted {planted:.3g} against {bound}")
+    del short, sparams, plain
+    torch.cuda.empty_cache()
+    return decodes
+
+
+def phase_recurrent() -> dict:
+    """Phase 15 (a)-(c): each recurrent model's parity at one unit
+    (``_recurrent_parity``), then its serve run at full depth through the
+    launcher (``_family_serve``: the decode graph captures the state rows'
+    in-place commits; xlstm launches no paged decode and holds no KV
+    bytes), and recurrentgemma's long request (``_rg_long``). Returns the
+    serve runs' counts for the kernel line."""
+    runs, failed = {}, []
+    for arch in RECURRENT:
         gc.collect()
         torch.cuda.empty_cache()
-        args = train.parse_args([
-            "--arch", arch, "--layers", str(n), "--seq", str(TRAIN_SEQ), "--batch",
-            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--policy", "redmule_hfp8",
-            "--remat", "block", "--log-every", "1", "--seed", "0"])
-        out = train.train(args)
-        hist = out["history"]
-        if len(hist) != TRAIN_STEPS or out["state"].skipped != 0:
-            raise AssertionError(f"families (d) {arch}: {len(hist)} steps, "
-                                 f"{out['state'].skipped} skipped")
-        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
-            raise AssertionError(f"families (d) {arch}: non-finite loss or grad norm: {hist}")
-        schedules = sorted({(h["gemm_simt_launches"], h["gemm_tc_launches"],
-                             h["gemm_small_row_launches"]) for h in hist})
-        log(f"families (d) {arch}: {n} layers d{full.d_model}, redmule_hfp8, remat block, "
-            f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens; ms per step {[round(h['ms'], 1) for h in hist]} "
-            f"(steady mean {np.mean([h['ms'] for h in hist[1:]]):.1f}); losses "
-            f"{[round(h['loss'], 4) for h in hist]}; skipped 0; max memory "
-            f"{out['max_memory_bytes'] / 1e9:.2f} GB; GEMM launches a step by schedule (simt, "
-            f"tensor-core, small-row) {schedules}")
-        del out
-        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        failed += _recurrent_parity(arch)
+        server, runs[arch] = _family_serve(arch, RECURRENT_SERVE_ARGS[arch])
+        if not server.cache.state_bytes() or server.prefix_cache:
+            raise AssertionError(f"recurrent (b) {arch}: no state rows, or a prefix cache")
+        if arch == "xlstm-125m" and (server.cache.kv_bytes() or sum(runs[arch]["decodes"].values())
+                                     or server.scheduler.worst_pages(256)):
+            raise AssertionError("recurrent (b) xlstm-125m: KV bytes, pages or paged decodes")
+        if arch == "recurrentgemma-2b":
+            runs["recurrentgemma-2b long"] = _rg_long(server.model, server.params)
+        del server
+        log(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("recurrent (a): " + "; ".join(failed))
+    return {"recurrent": runs}
+
+
+def phase_recurrent_train() -> dict:
+    """Phase 15 (d): granite-moe's train parity at 2 layers (the aux loss
+    in the loss, ``MOE_TRAIN_PARITY_BOUND``), then through the train
+    launcher xlstm-125m and granite-moe-1b-a400m at full depth and
+    recurrentgemma-2b and phi3.5-moe at the depth that fits. Returns
+    granite-moe's GEMM calls by shape (the router's backward pair), for the
+    kernel line."""
+    from repro_torch.configs import get_config
+
+    phase_train_parity("granite-moe-1b-a400m", MOE_TRAIN_PARITY_BOUND)
+    moe_calls = collections.Counter()
+    rg = get_config("recurrentgemma-2b")
+    # recurrentgemma's tied 256000 x 2560 table: the update's fp32
+    # temporaries of it (2.6 GB each) fragment the pool, and at 26 layers
+    # the fourth step ran out of memory on an H100 with 5.1 GB reserved
+    # but free (PERF.md, phase 15): four such copies more are kept spare.
+    for arch, layers, depth in (("xlstm-125m", 12, {}),
+                                ("recurrentgemma-2b", None,
+                                 {"spare": 10e9 + 16 * rg.vocab_size * rg.d_model}),
+                                ("granite-moe-1b-a400m", 24, {}),
+                                ("phi3.5-moe-42b-a6.6b", None, {})):
+        calls = moe_calls if arch == "granite-moe-1b-a400m" else collections.Counter()
+        with _recording_plans(calls):
+            hist = _launcher_train("recurrent (d)", arch, layers, **depth)
+        if arch in RECURRENT:
+            _scan_share(arch, float(np.mean([h["ms"] for h in hist[1:]])))
+    return {"moe_train_calls": moe_calls}
+
+
+def _scan_share(arch: str, step_ms: float) -> None:
+    """The share of a train step that the sequential scans take, the
+    fused-kernel candidates of ROADMAP queue 2: sLSTM's whole cell (1024
+    steps of host-launched kernels) or RG-LRU's associative scan alone, at
+    the train batch (2 x 1024) under redmule_hfp8, its forward and its
+    forward with backward timed apart on the host clock to a synchronise,
+    summed over the kind's layers as remat block runs them (the forward
+    twice, the backward once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.models import rglru, xlstm
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    eng = Engine(policy="redmule_hfp8", backend="cuda")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    if arch == "xlstm-125m":
+        kind, ccfg = "slstm", xlstm.XLSTMConfig(cfg.d_model, cfg.n_heads)
+        p = xlstm.slstm_init(gen, ccfg, torch.float16, "cuda")
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").half()
+
+        def run(x):
+            return xlstm.slstm_apply(p, x, ccfg, eng)[0]
+    else:
+        kind = "rglru"
+        a = torch.rand((b, s, cfg.d_rnn), generator=gen, device="cuda")
+        x = torch.randn((b, s, cfg.d_rnn), generator=gen, device="cuda")
+
+        def run(x):
+            return rglru.associative_scan(a, x)
+    n = sum(k == kind for k in (cfg.block_pattern[i % len(cfg.block_pattern)]
+                                for i in range(cfg.n_layers)))
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        fwd = timed(lambda: run(x))
+    xg = x.detach().requires_grad_()
+    both = timed(lambda: run(xg).float().sum().backward())
+    share = n * (fwd + both) / step_ms
+    log(f"recurrent (d) {arch}: the {kind} scan at {b}x{s}, forward {fwd:.1f} ms, forward and "
+        f"backward {both:.1f} ms; x {n} layers under remat block {n * (fwd + both):.0f} ms of a "
+        f"{step_ms:.0f} ms step ({share:.0%})")
 
 
 # -- phase 9 ---------------------------------------------------------------------
@@ -2720,6 +3067,15 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 1024, 2, 4
 TRAIN_PARITY_BOUND = {"fp32": (1e-5, 1e-4, 1e-3), "redmule_hfp8": (0.0, 0.0, 0.0)}
 
 
+def _leaf_names(tree, prefix="") -> list:
+    """Dotted names of a parameter tree's tensors, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}.{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 def _step_grads(model, params, tokens, backend):
     """Loss and gradients of one train step's loss function on ``backend``."""
     from repro_torch.core.tree import leaves, tree_map
@@ -2732,7 +3088,7 @@ def _step_grads(model, params, tokens, backend):
     return float(loss.detach()), grads
 
 
-def phase_train_parity(arch: str = "granite-3-8b") -> None:
+def phase_train_parity(arch: str = "granite-3-8b", bounds=None) -> None:
     """``arch`` at full width, 2 layers, remat "block", one step's loss
     and gradients on the train run's 2 x 1024 tokens (so every forward and
     backward GEMM shape of phase 10 is compared): the kernels' path ("cuda": every
@@ -2744,7 +3100,7 @@ def phase_train_parity(arch: str = "granite-3-8b") -> None:
     from repro_torch.models import build
     from repro_torch.optim import global_norm
 
-    for pol, (b_loss, b_gnorm, b_grad) in TRAIN_PARITY_BOUND.items():
+    for pol, (b_loss, b_gnorm, b_grad) in (bounds or TRAIN_PARITY_BOUND).items():
         cfg = dataclasses.replace(get_config(arch), n_layers=2, policy=pol, remat="block")
         model = build(cfg, device="cuda")
         params = model.init(0)
@@ -2759,13 +3115,19 @@ def phase_train_parity(arch: str = "granite-3-8b") -> None:
                         for g, w in zip(grads, want))
         d_loss = abs(loss - want_loss) / abs(want_loss)
         d_gnorm = abs(gnorm - want_gnorm) / want_gnorm
+        names = _leaf_names(params)
+        worst = sorted(range(len(grads)), key=lambda i: -per_tensor[i])[:3]
+        log(f"train parity {arch} {pol}: worst tensors " + ", ".join(
+            f"{names[i]} {tuple(grads[i].shape)} |dg|/|g| {per_tensor[i]:.3g} "
+            f"(|g| {float(want[i].float().norm()):.3g})" for i in worst))
         log(f"train parity {arch} {pol}: loss {loss:.6f} vs {want_loss:.6f} (rel {d_loss:.3g}), "
             f"grad norm {gnorm:.6f} vs {want_gnorm:.6f} (rel {d_gnorm:.3g}), worst per-tensor "
             f"|dg|/|g| {max(per_tensor):.3g} (max|dg|/max|g| {worst_max:.3g}) over {len(grads)} "
-            f"tensors; bounds {b_loss:g} / {b_gnorm:g} / {b_grad:g}")
+            f"tensors; bounds {b_loss:g} / {b_gnorm:g} / {b_grad}")
         if not all(np.isfinite([loss, want_loss, gnorm, want_gnorm])):
             raise AssertionError(f"train parity {arch} {pol}: non-finite loss or grad norm")
-        if not (d_loss <= b_loss and d_gnorm <= b_gnorm and max(per_tensor) <= b_grad):
+        if not (d_loss <= b_loss and d_gnorm <= b_gnorm
+                and (b_grad is None or max(per_tensor) <= b_grad)):
             raise AssertionError(f"train parity {arch} {pol}: outside its bounds")
         del model, params, grads, want
         torch.cuda.empty_cache()
@@ -3352,6 +3714,89 @@ def _family_entries(counts) -> list:
     return rows
 
 
+def _recurrent_entries(counts) -> list:
+    """Phase 15's new shapes, one row each, with launches read from its
+    runs: recurrentgemma's decode GEMMs (an RG-LRU projection, the geglu
+    FFN's up and down, the tied 256000-column logits; its fp16 weights are
+    cast to E4M3 in each call, row-major, the tied table's transpose
+    K-major), xlstm's mLSTM chunk products at the serve prefill's 64-token
+    chunk (q C, q k^T and w v, batched over the 4 heads, E4M3) and its
+    sLSTM recurrence (fp32, batched over the 4 gates and 4 heads) at
+    decode, granite-moe's fp32 router backward pair at 2 x 1024 tokens
+    (g W^T and X^T g), and the paged decode at recurrentgemma's one KV head
+    for 10 query heads, hd 256, window 2048, at lengths past the window."""
+    from repro_torch.core.precision import E4M3, FP16, FP32, cast
+
+    runs = counts["recurrent"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def q(fmt, *shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device="cuda") * scale, FP16), fmt)
+
+    def serve_counts(arch, m, k, n, schedule=None):
+        def match(key):
+            return key[:3] == (m, k, n) and schedule in (None, key[3])
+
+        run = runs[arch]
+        return (sum(v for key, v in run["calls"].items() if match(key)),
+                {"launches_per_decode_step": sum(
+                    v for key, v in run["step_calls"].items() if match(key)),
+                 "model": arch})
+
+    rows = []
+    rg = "recurrentgemma-2b"
+    for label, k, n in (("rglru decode projection 4x2560x2560", 2560, 2560),
+                        ("recurrentgemma decode geglu up/gate 4x2560x7680", 2560, 7680),
+                        ("recurrentgemma decode geglu down 4x7680x2560", 7680, 2560)):
+        launches, extra = serve_counts(rg, 4, k, n)
+        rows.append(_gemm_row(label, q(E4M3, 4, k), q(E4M3, k, n, scale=k ** -0.5), FP16,
+                              launches, **extra))
+    table = q(E4M3, 256000, 2560, scale=0.02)
+    launches, extra = serve_counts(rg, 4, 2560, 256000)
+    rows.append(_gemm_row("recurrentgemma decode logits 4x2560x256000 (table.T)",
+                          q(E4M3, 4, 2560), table.T, FP16, launches, **extra))
+    del table
+    for label, m, k, n in (("mlstm prefill q.C (1x4)x64x192x192", 64, 192, 192),
+                           ("mlstm prefill q.k^T (1x4)x64x192x64", 64, 192, 64),
+                           ("mlstm prefill w.v (1x4)x64x64x192", 64, 64, 192)):
+        launches, extra = serve_counts("xlstm-125m", m, k, n, "tc")
+        rows.append(_gemm_row(label, q(E4M3, 1, 4, m, k), q(E4M3, 1, 4, k, n), FP16, launches,
+                              **extra))
+    # The recurrence reads each head's rows once for its four gates: x is
+    # broadcast over the gate axis, as the model passes it.
+    launches, extra = serve_counts("xlstm-125m", 4, 192, 192)
+    rows.append(_gemm_row("slstm decode recurrence (4x4)x4x192x192, fp32",
+                          q(FP32, 1, 4, 4, 192).expand(4, 4, 4, 192),
+                          q(FP32, 4, 4, 192, 192, scale=192 ** -0.5), FP32, launches,
+                          policy="fp32", **extra))
+    moe = counts["moe_train_calls"]
+    t, d, e = TRAIN_BATCH * TRAIN_SEQ, 1024, 32
+    x = q(FP32, t, d)
+    g = q(FP32, t, e, scale=1e-3)
+    router = torch.randn((d, e), generator=gen, device="cuda") * 0.02
+    for label, a, b in ((f"moe router backward g.W^T {t}x{e}x{d}, fp32", g, router.T),
+                        (f"moe router backward X^T.g {d}x{t}x{e}, fp32", x.T, g)):
+        launches = sum(v for key, v in moe.items() if key[:3] == (a.shape[0], a.shape[1],
+                                                                  b.shape[1]))
+        rows.append(_gemm_row(label, a, b, FP32, launches, policy="fp32",
+                              model="granite-moe-1b-a400m (train)"))
+    rng = np.random.default_rng(14)
+    lens = [3000, 2600, 2200, 300]
+    pps = max(lens) // 16 + 1
+    case = make_decode_case(rng, s=4, hq=10, hkv=1, hd=256, page_size=16, pages_per_slot=pps,
+                            n_pages=4 * pps + 1, dtype=E4M3, q_dtype=FP16, seq_lens=lens,
+                            window=2048)
+    key = (10, 1, 256, 2048, None)
+    c = {"decode": runs[rg]["decodes"][key],
+         "decode_per_decode_step": runs[rg]["step_decodes"][key], "decode_per_prefill": 0}
+    row = _decode_row(c, "S4 Hq10 Hkv1 hd256 ps16 e4m3 window 2048 (recurrentgemma, MQA)", case,
+                      f"phase 15's decode, lengths {lens}", window=2048)
+    row["model"] = rg
+    row["long_request_launches"] = sum(runs["recurrentgemma-2b long"].values())
+    rows.append(row)
+    return rows
+
+
 def _flash_entry(counts):
     """The dense flash attention at granite's training shape in fp16
     (causal), on the route ``plan_flash`` names (the tensor cores), as a
@@ -3419,7 +3864,7 @@ def _log_entry(e) -> None:
 
 def phase_kernel_line(counts) -> list:
     entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
-               _flash_entry(counts), *_family_entries(counts)]
+               _flash_entry(counts), *_family_entries(counts), *_recurrent_entries(counts)]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
@@ -3447,9 +3892,11 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
         counts |= phase_families()
+        counts |= phase_recurrent()
     phase_train_parity()
     train = phase_train()
     phase_families_train()
+    counts |= phase_recurrent_train()
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
                "train_copies": train["copies"]}
     with torch.inference_mode():

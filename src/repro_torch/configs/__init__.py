@@ -1,9 +1,10 @@
 """Architecture config registry of the port: ``--arch <id>`` resolves here.
 
-The port covers the attention-only decoders of the JAX package: the dense
-granite-3-8b, chatglm3-6b, deepseek-coder-33b and gemma2-2b, and the
+The port covers the decoder-only models of the JAX package: the dense
+granite-3-8b, chatglm3-6b, deepseek-coder-33b and gemma2-2b, the
 dense-MoE granite-moe-1b-a400m (granite-3-8b's draft model) and
-phi3.5-moe-42b-a6.6b (MoE models serve only). The recurrent,
+phi3.5-moe-42b-a6.6b, and the recurrent recurrentgemma-2b (RG-LRU with
+windowed local attention) and xlstm-125m (mLSTM and sLSTM). The
 encoder-decoder and VLM architectures of the JAX package raise.
 """
 from __future__ import annotations
@@ -15,6 +16,8 @@ from repro_torch.configs import (
     granite3_8b,
     granite_moe_1b,
     phi35_moe,
+    recurrentgemma_2b,
+    xlstm_125m,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -25,6 +28,8 @@ _ARCHS = {
     "deepseek-coder-33b": deepseek_coder_33b,
     "gemma2-2b": gemma2_2b,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "recurrentgemma-2b": recurrentgemma_2b,
+    "xlstm-125m": xlstm_125m,
 }
 
 ARCH_IDS = tuple(_ARCHS)

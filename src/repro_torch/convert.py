@@ -37,8 +37,12 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     """The port's parameters from the reference's ``Transformer.init`` tree
-    (numpy leaves) for an attention-only decoder, dense or MoE, of any
-    block pattern. The reference stacks its units, ``decoder.units.b{j}``
+    (numpy leaves) for a decoder-only model, dense, MoE or recurrent, of
+    any block pattern. A recurrent layer's ``cell`` is carried across as
+    it is: rglru's ``in_x``, ``in_gate``, ``conv_w``, ``gate_a``,
+    ``gate_x``, ``lam`` and ``out``, mlstm's ``qkv``, ``ifg``, ``ogate``
+    and ``out``, slstm's ``wx``, ``r`` (4, H, hd, hd) and ``out``, in
+    their formats (E4M3 under fp8 parameters). The reference stacks its units, ``decoder.units.b{j}``
     holding the j-th layer of every unit on a leading axis, then keeps the
     ``n_layers % len(pattern)`` remainder layers as ``decoder.rem.r{i}``;
     unit u's layer j becomes port layer ``u * len(pattern) + j`` and
@@ -62,15 +66,20 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
         return {"w": kmajor_weight(t(a))}
 
     def layer(p):
-        out = {
-            "norm1": {"scale": t(p["norm1"]["scale"])},
-            "attn": {n: weight(p["attn"][n]["w"]) for n in ("q", "k", "v", "o")},
-            "norm2": {"scale": t(p["norm2"]["scale"])},
-        }
+        out = {"norm1": {"scale": t(p["norm1"]["scale"])}}
+        if "attn" in p:
+            out["attn"] = {n: weight(p["attn"][n]["w"]) for n in ("q", "k", "v", "o")}
+        else:
+            # A recurrent cell: its projections ({"w"} dicts) as weights, its
+            # other leaves (rglru's conv_w and lam, slstm's r) as they are.
+            out["cell"] = {n: weight(v["w"]) if isinstance(v, dict) else t(v)
+                           for n, v in p["cell"].items()}
         if "moe" in p:
             out["moe"] = moe_params_from_jax(p["moe"], device)
-        else:
+        elif "ffn" in p:
             out["ffn"] = {n: weight(w["w"]) for n, w in p["ffn"].items()}
+        if "norm2" in p:
+            out["norm2"] = {"scale": t(p["norm2"]["scale"])}
         return out
 
     def unit_layer(j, u):

@@ -16,6 +16,11 @@ first decode step apart.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --chunked-prefill 4 --prefill-batch --prefix-cache --async-depth 1
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --mode static
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
+
+The recurrent models serve from per-slot state rows (xlstm-125m holds no
+KV pages at all); recurrentgemma-2b takes no ``--fp8-params``, which
+raises at its first step as the JAX package's model does.
 """
 from __future__ import annotations
 
@@ -214,7 +219,8 @@ def main(argv=None):
     ), seed=args.seed, device=args.device, spec=spec, draft_model=draft_model,
         draft_params=draft_params)
     print(f"state store: {server.cache.allocator.num_pages} pages x {args.page_size} "
-          f"tokens ({server.cache.kv_bytes() / 1e6:.2f} MB kv)")
+          f"tokens ({server.cache.kv_bytes() / 1e6:.2f} MB kv, "
+          f"{server.cache.state_bytes() / 1e6:.2f} MB state rows)")
     if spec is not None and args.async_depth:
         print("note: --async-depth is inert under speculative decoding: a round is "
               "host-synchronous, so the dispatch depth is 0")

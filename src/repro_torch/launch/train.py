@@ -8,8 +8,14 @@ the card, for comparison.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \\
       --layers 4 --seq 1024 --batch 2 --steps 4 --policy redmule_hfp8 [--profile]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --seq 1024 --batch 2 --steps 4 --policy redmule_hfp8
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 2 --seq 16 --batch 4 --log-every 1
+
+Every registered arch trains: the dense and dense-MoE decoders (the MoE
+layers' aux loss in the loss) and the recurrent recurrentgemma-2b and
+xlstm-125m.
 
 The reference's mesh, ZeRO sharding and heartbeat are not ported (one
 card; ROADMAP queue 7).
@@ -49,6 +55,9 @@ def parse_args(argv=None):
                     help="precision policy (default: the config's)")
     ap.add_argument("--remat", choices=("none", "block"), default=None,
                     help="recompute each block in the backward (default: the config's)")
+    ap.add_argument("--moe-impl", choices=("dense", "ep"), default="",
+                    help="MoE implementation (default: the config's; 'ep' needs a mesh and "
+                         "raises)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = the config's)")
     ap.add_argument("--backend", choices=("cuda", "torch"), default=None,
@@ -72,9 +81,8 @@ def train(args) -> dict:
         cfg, policy=args.policy or cfg.policy, remat=args.remat or cfg.remat,
         n_layers=args.layers or cfg.n_layers,
     )
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE training (the aux loss in the loss) is "
-                                  "not ported yet; the port serves MoE models only")
+    if args.moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     model = build(cfg, device=args.device)
     backend = args.backend or model.engine.backend
     on_card = model.device.type == "cuda"

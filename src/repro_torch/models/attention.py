@@ -69,6 +69,10 @@ class PagedInfo(NamedTuple):
     chunked: a chunked-prefill step: ``read_idx`` (B, L) is set and the
         layer attends over [gathered pages | fresh k/v], with ``k_pos``
         (B, L + Sq) covering both.
+    slots, starts, lengths: (B,) each row's state row, the position of its
+        first token and its valid tokens, for the recurrent layers' state
+        rows (``models/transformer.py``); ``active`` then marks the rows
+        whose state is committed.
     """
 
     write_idx: torch.Tensor
@@ -80,6 +84,9 @@ class PagedInfo(NamedTuple):
     page_size: int = 0
     fused: bool = False
     chunked: bool = False
+    slots: torch.Tensor | None = None
+    starts: torch.Tensor | None = None
+    lengths: torch.Tensor | None = None
 
 
 class AttnConfig(NamedTuple):

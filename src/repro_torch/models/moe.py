@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN, the ``dense`` implementation (counterpart of
 ``repro.models.moe``): every expert runs on every token, and the router's
 gates weight the results. ``impl="ep"`` (expert parallelism over a mesh)
-is not ported.
+is not ported. Training takes the load-balancing aux loss (``aux=True``)
+and differentiates through the router; serving leaves it out.
 
 The arithmetic is the reference's ``apply_dense``: the router in fp32
 (softmax, top-k, the top-k probabilities renormalised), the gate matrix
@@ -86,8 +87,8 @@ def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux:
     top_p, top_i, aux = _router(params, x2, cfg, engine, aux)
     # Gate matrix (T, E): each chosen expert's probability, zeros elsewhere
     # (one term per expert, so it is the reference's one-hot sum exactly).
-    gates = torch.zeros((b * s, e), dtype=torch.float32, device=x.device)
-    gates.scatter_(1, top_i, top_p)
+    # Out of place, so the gradient reaches the router in training.
+    gates = torch.zeros((b * s, e), dtype=torch.float32, device=x.device).scatter(1, top_i, top_p)
     up_all = engine.matmul(x2, params["up"])  # (T, E*f), all experts at once
     gate_all = engine.matmul(x2, params["gate"])
     h = common.silu(gate_all.float()).to(up_all.dtype) * up_all

@@ -1,25 +1,36 @@
-"""The decoder-only transformer of the port, dense or with a dense-MoE FFN,
-for training and for continuous-batching serving (counterpart of
+"""The decoder-only model of the port: attention layers, recurrent layers
+or both, each with a dense or dense-MoE FFN, for training and for
+continuous-batching and static-batch serving (counterpart of
 ``repro.models.transformer.Transformer``).
 
 Parameters are a plain dict of tensors: ``embed.table``, one dict per
 layer under ``layers`` (the reference stacks them on a leading axis for
 ``lax.scan``; the port runs a Python loop over a list), and
 ``final_norm.scale``, and ``head.w`` (d, V) when the embeddings are
-untied. A layer holds ``ffn``, or ``moe`` when the config has experts
-(``models/moe.py``; serving only so far: MoE training raises).
+untied. A layer holds ``attn`` or a recurrent ``cell``, then ``ffn``, or
+``moe`` when the config has experts (``models/moe.py``); a config with
+``d_ff == 0`` (xlstm) gives its layers no FFN and no second norm.
 
 Layer ``i`` has the kind ``block_pattern[i % len(block_pattern)]``, the
 order the reference's stacked units and remainder layers give: ``attn``
 (global) or ``attn_local`` (``cfg.sliding_window``), each with the
-config's attention softcap, and every path takes the layer's own
-attention config. gemma2's embeddings are scaled by sqrt(d_model)
-(``cfg.embed_scale``; the reference keys it on the name), and
-``cfg.final_softcap`` caps the fp32 logits. With ``cfg.remat == "block"`` the training forward
-recomputes each block in the backward pass (``torch.utils.checkpoint``),
-as the reference's ``jax.checkpoint`` of its scan body does. Other
-families (recurrent, encoder-decoder, VLM, LayerNorm) raise
-``NotImplementedError``.
+config's attention softcap, or a recurrent cell: ``rglru``
+(``models/rglru.py``), ``mlstm`` or ``slstm`` (``models/xlstm.py``).
+gemma's embeddings are scaled by sqrt(d_model) (``cfg.embed_scale``; the
+reference keys it on the name), and ``cfg.final_softcap`` caps the fp32
+logits. With ``cfg.remat == "block"`` the training forward recomputes
+each block in the backward pass (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` of its scan body does; the forward returns
+the sum of the MoE layers' aux losses. Encoder-decoder, VLM and LayerNorm
+models raise ``NotImplementedError``.
+
+Serving state: an attention layer keeps its KV token pool, a recurrent
+layer ``{"state": rows}``, one fp32 (num_slots, ...) tensor per state
+leaf. A prefill chunk gathers each row's state at its slot (the init
+state where the chunk starts at position 0, so a recycled slot forgets
+its last request), runs the masked scan and commits the active rows; a
+decode step commits the active rows in place, which the decode graph
+captures.
 """
 from __future__ import annotations
 
@@ -32,20 +43,40 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import E4M3, as_dtype
 from repro_torch.engine import Engine
-from repro_torch.models import attention, common, ffn, moe
+from repro_torch.models import attention, common, ffn, moe, rglru, xlstm
 from repro_torch.models.attention import AttnConfig, PagedInfo
 
 Params = dict[str, Any]
 
 ATTN_KINDS = {"attn", "attn_local"}
+RECURRENT_KINDS = {"rglru", "mlstm", "slstm"}
 
 
 class CBProfile(NamedTuple):
-    """What the serving StateStore must provision for a model."""
+    """What the serving StateStore must provision for a model: KV pages
+    (any attention layer), a window when every attention layer is
+    ``attn_local`` (out-of-window pages are recycled and admission reserves
+    only a window's worth), and state rows (any recurrent layer: the
+    prefix cache is then off)."""
 
     needs_kv_pages: bool
     kv_window: int | None
     has_state_rows: bool = False
+
+
+class _Cell(NamedTuple):
+    """A recurrent kind's functions and config."""
+
+    init: Any
+    apply: Any  # the scan: (params, x, cfg, engine, state=, lengths=) -> (y, state)
+    decode: Any  # one step: (params, x, state, cfg, engine) -> (y, state)
+    init_state: Any  # (batch, cfg, device) -> state
+    cfg: Any
+
+
+def _row_mask(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A (B,) mask broadcast over a (B, ...) state leaf."""
+    return mask.reshape(mask.shape + (1,) * (leaf.dim() - 1))
 
 
 class Transformer:
@@ -58,11 +89,13 @@ class Transformer:
 
     def __init__(self, cfg: ModelConfig, *, engine: Engine, device,
                  fused_decode: bool = False):
-        if (cfg.family not in ("dense", "moe") or not set(cfg.block_pattern) <= ATTN_KINDS
+        if (cfg.family not in ("dense", "moe", "hybrid", "ssm")
+                or not set(cfg.block_pattern) <= ATTN_KINDS | RECURRENT_KINDS
                 or cfg.is_encoder_decoder or cfg.norm != "rmsnorm"):
             raise NotImplementedError(
-                f"{cfg.name}: the port covers the dense decoder-only family and its "
-                "dense-MoE variant (layers 'attn' and 'attn_local', RMSNorm) so far"
+                f"{cfg.name}: the port covers the decoder-only families (dense, dense-MoE, "
+                "recurrent and hybrid: layers 'attn', 'attn_local', 'rglru', 'mlstm' and "
+                "'slstm', RMSNorm) so far"
             )
         self.cfg = cfg
         self.engine = engine
@@ -76,7 +109,17 @@ class Transformer:
         self.fused_decode = engine.backend == "cuda" or fused_decode
         self.pattern = tuple(cfg.block_pattern)
         self.kinds = [self.pattern[i % len(self.pattern)] for i in range(cfg.n_layers)]
-        self.layer_cfgs = [self.attn_cfg(kind) for kind in self.kinds]
+        self.layer_cfgs = [self.attn_cfg(kind) if kind in ATTN_KINDS else None
+                           for kind in self.kinds]
+        xl_cfg = xlstm.XLSTMConfig(cfg.d_model, cfg.n_heads)
+        self.cells = {
+            "rglru": _Cell(rglru.init, rglru.apply_scan, rglru.apply_decode, rglru.init_state,
+                           rglru.RGLRUConfig(cfg.d_model, cfg.d_rnn)),
+            "mlstm": _Cell(xlstm.mlstm_init, xlstm.mlstm_apply, xlstm.mlstm_decode,
+                           xlstm.mlstm_init_state, xl_cfg),
+            "slstm": _Cell(xlstm.slstm_init, xlstm.slstm_apply, xlstm.slstm_decode,
+                           xlstm.slstm_init_state, xl_cfg),
+        }
         self.embed_scale = math.sqrt(cfg.d_model) if cfg.embed_scale else 1.0
         self.moe_cfg = moe.MoEConfig(
             cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff, cfg.capacity_factor,
@@ -108,33 +151,86 @@ class Transformer:
             "layers": [],
             "final_norm": common.norm_init(cfg.d_model, dev),
         }
-        for acfg in self.layer_cfgs:
-            params["layers"].append({
-                "norm1": common.norm_init(cfg.d_model, dev),
-                "attn": attention.init(gen, cfg.d_model, acfg, self.dtype, dev),
-                "norm2": common.norm_init(cfg.d_model, dev),
-                **({"moe": moe.init(gen, self.moe_cfg, self.dtype, dev)} if cfg.is_moe
-                   else {"ffn": ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev,
-                                         cfg.act)}),
-            })
+        for kind, acfg in zip(self.kinds, self.layer_cfgs):
+            layer = {"norm1": common.norm_init(cfg.d_model, dev)}
+            if acfg is not None:
+                layer["attn"] = attention.init(gen, cfg.d_model, acfg, self.dtype, dev)
+            else:
+                cell = self.cells[kind]
+                layer["cell"] = cell.init(gen, cell.cfg, self.dtype, dev)
+            if cfg.d_ff > 0:
+                layer["norm2"] = common.norm_init(cfg.d_model, dev)
+                if cfg.is_moe:
+                    layer["moe"] = moe.init(gen, self.moe_cfg, self.dtype, dev)
+                else:
+                    layer["ffn"] = ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev, cfg.act)
+            params["layers"].append(layer)
         if not cfg.tie_embeddings:
             params["head"] = common.dense_init(gen, cfg.d_model, cfg.vocab_size, self.dtype, dev)
         return params
 
     # -- blocks ---------------------------------------------------------------
-    def _block(self, lp, x, positions, engine: Engine, acfg: AttnConfig, pool=None,
-               paged=None, cache=None):
+    def _block(self, i: int, lp, x, positions, engine: Engine, *, store=None,
+               paged: PagedInfo | None = None, decode: bool = False, aux: bool = False):
+        """Layer ``i``: its attention or recurrent cell, then its FFN.
+        ``store`` is the layer's serving state (the KV pool with ``paged``,
+        the ring buffer or state rows of static-batch serving without it;
+        None in training). Returns (x, the MoE aux loss or None)."""
         h = common.norm_apply(lp["norm1"], x)
-        x = x + attention.apply(lp["attn"], h, positions, acfg, engine,
-                                pool=pool, paged=paged, cache=cache)
-        h2 = common.norm_apply(lp["norm2"], x)
-        if "moe" in lp:
-            return x + moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=False)[0]
-        return x + ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
+        acfg = self.layer_cfgs[i]
+        if acfg is not None:
+            h = attention.apply(lp["attn"], h, positions, acfg, engine,
+                                pool=store if paged is not None else None, paged=paged,
+                                cache=store if paged is None else None)
+        else:
+            h = self._recurrent(self.cells[self.kinds[i]], lp["cell"], h, engine, store, paged,
+                                decode)
+        x = x + h
+        aux_loss = None
+        if "norm2" in lp:
+            h2 = common.norm_apply(lp["norm2"], x)
+            if "moe" in lp:
+                h2, aux_loss = moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=aux)
+            else:
+                h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
+            x = x + h2
+        return x, aux_loss
 
-    def _run_stack(self, params, x, positions, pools, paged: PagedInfo):
-        for lp, pool, acfg in zip(params["layers"], pools, self.layer_cfgs):
-            x = self._block(lp, x, positions, self.engine, acfg, pool, paged)
+    def _recurrent(self, cell: _Cell, p, h, engine: Engine, store, paged, decode: bool):
+        """One recurrent cell under every mode (the reference's
+        ``_recurrent_block``). Training (no store): the scan. Static batch
+        (no ``paged``): a prefill scans from the init state, a decode step
+        carries every batch row; the new state replaces ``store["state"]``.
+        Serving: a decode step runs every slot and commits the active rows
+        in place; a prefill chunk gathers each row's state at its slot (the
+        init state where it starts at position 0), runs the masked scan
+        and commits the active rows."""
+        if store is None:
+            return cell.apply(p, h, cell.cfg, engine)[0]
+        rows = store["state"]
+        if paged is None:
+            out, store["state"] = (cell.decode(p, h, rows, cell.cfg, engine) if decode
+                                   else cell.apply(p, h, cell.cfg, engine))
+            return out
+        if decode:
+            out, new = cell.decode(p, h, rows, cell.cfg, engine)
+            for k, leaf in rows.items():
+                leaf.copy_(torch.where(_row_mask(paged.active, leaf), new[k], leaf))
+            return out
+        old = {k: leaf.index_select(0, paged.slots) for k, leaf in rows.items()}
+        init = cell.init_state(h.shape[0], cell.cfg, h.device)
+        fresh = paged.starts == 0
+        state = {k: torch.where(_row_mask(fresh, v), init[k], v) for k, v in old.items()}
+        out, new = cell.apply(p, h, cell.cfg, engine, state=state, lengths=paged.lengths)
+        for k, leaf in rows.items():
+            leaf.index_copy_(0, paged.slots,
+                             torch.where(_row_mask(paged.active, leaf), new[k], old[k]))
+        return out
+
+    def _run_stack(self, params, x, positions, pools, paged: PagedInfo, decode: bool = False):
+        for i, (lp, pool) in enumerate(zip(params["layers"], pools)):
+            x, _ = self._block(i, lp, x, positions, self.engine, store=pool, paged=paged,
+                               decode=decode)
         return x
 
     def embed(self, params, tokens: torch.Tensor, engine: Engine | None = None) -> torch.Tensor:
@@ -161,42 +257,51 @@ class Transformer:
     # -- training -------------------------------------------------------------
     def forward(self, params, batch, *, engine: Engine | None = None):
         """Teacher-forced forward. batch: {"tokens": (B, S) int64}. Returns
-        (hidden (B, S, d) after the final norm, aux loss); the dense decoder
-        has no auxiliary loss, so aux is an fp32 zero. ``engine`` overrides
-        the model's engine for this call (the step factories' plumbing)."""
-        if self.cfg.is_moe:
-            raise NotImplementedError(
-                f"{self.cfg.name}: MoE training (the aux loss in the loss) is not ported yet; "
-                "the port serves MoE models only")
+        (hidden (B, S, d) after the final norm, aux loss): the sum of the
+        MoE layers' load-balancing losses, an fp32 zero without experts.
+        Recurrent layers run their scans. ``engine`` overrides the model's
+        engine for this call (the step factories' plumbing)."""
         eng = engine or self.engine
         tokens = batch["tokens"]
         x = self.embed(params, tokens, eng)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        for lp, acfg in zip(params["layers"], self.layer_cfgs):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, lp in enumerate(params["layers"]):
             if self.cfg.remat == "block":
-                x = checkpoint(self._block, lp, x, positions, eng, acfg, use_reentrant=False)
+                x, layer_aux = checkpoint(self._block, i, lp, x, positions, eng, aux=True,
+                                          use_reentrant=False)
             else:
-                x = self._block(lp, x, positions, eng, acfg)
-        x = common.norm_apply(params["final_norm"], x)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                x, layer_aux = self._block(i, lp, x, positions, eng, aux=True)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        return common.norm_apply(params["final_norm"], x), aux
 
     # -- serving state --------------------------------------------------------
     def cb_profile(self) -> CBProfile:
-        """The reference's rule: a window only when every attention layer is
-        ``attn_local`` (gemma2 alternates, so it gets none and keeps every
-        page of a request)."""
+        """The reference's rule, read from the attention layers alone: KV
+        pages when there is one, a window only when every one is
+        ``attn_local`` (recurrentgemma's are; gemma2 alternates, so it gets
+        none and keeps every page of a request), and state rows when a
+        recurrent layer is present (xlstm has no attention: no pages)."""
+        attn_kinds = [k for k in self.pattern if k in ATTN_KINDS]
         window = None
-        if all(k == "attn_local" for k in self.pattern) and self.cfg.sliding_window:
+        if attn_kinds and all(k == "attn_local" for k in attn_kinds) and self.cfg.sliding_window:
             window = self.cfg.sliding_window
-        return CBProfile(needs_kv_pages=True, kv_window=window)
+        return CBProfile(needs_kv_pages=bool(attn_kinds), kv_window=window,
+                         has_state_rows=any(k in RECURRENT_KINDS for k in self.pattern))
 
     def init_state_store(self, num_slots: int, num_pages: int, page_size: int):
-        """One flat KV token pool per layer (num_pages * page_size slots;
-        page 0 is the serving layer's null page), shaped by the layer's own
-        attention config."""
+        """Each layer's serving state: an attention layer's flat KV token
+        pool (num_pages * page_size slots, shaped by its own attention
+        config; page 0 is the serving layer's null page), a recurrent
+        layer's ``{"state": rows}``, one fp32 (num_slots, ...) tensor per
+        state leaf."""
         n_tok = num_pages * page_size
         return [attention.init_paged_pool(n_tok, acfg, self.kv_dtype, self.device)
-                for acfg in self.layer_cfgs]
+                if acfg is not None else
+                {"state": self.cells[kind].init_state(num_slots, self.cells[kind].cfg,
+                                                      self.device)}
+                for kind, acfg in zip(self.kinds, self.layer_cfgs)]
 
     def prefill_cb(self, params, tokens: torch.Tensor, pools, page_row: torch.Tensor,
                    slot, start, length, *, page_size: int, chunked: bool = False,
@@ -205,9 +310,9 @@ class Transformer:
         chunk for each of P slots at once; the pools are updated in place.
 
         Single-row form. tokens: (1, Tb) right-padded; page_row: (P,) the
-        slot's page ids; slot: its state row (the port's models keep none);
-        start, length: host integers, the absolute position of the first
-        token and the valid tokens. With ``chunked`` the layers also gather
+        slot's page ids; slot: its state row; start, length: host integers,
+        the absolute position of the first token (0 resets the slot's state
+        rows) and the valid tokens. With ``chunked`` the layers also gather
         the earlier chunks' K/V back through the page table and attend over
         [gathered | fresh]. Pad rows write the null page and are masked as
         keys. Returns logits (1, V) at the last valid token.
@@ -222,8 +327,8 @@ class Transformer:
             if not chunked:
                 raise ValueError("multi-row prefill_cb is always chunked (each row gathers its "
                                  "own committed K/V through its page row); pass chunked=True")
-            return self._prefill_cb_batched(params, tokens, pools, page_row, start, length,
-                                            active, page_size=page_size)
+            return self._prefill_cb_batched(params, tokens, pools, page_row, slot, start,
+                                            length, active, page_size=page_size)
         b, s = tokens.shape
         dev = tokens.device
         tok = torch.arange(s, dtype=torch.int64, device=dev)
@@ -238,17 +343,20 @@ class Transformer:
             lpos = torch.arange(read_idx.shape[1], device=dev)[None]
             read_pos = torch.where(lpos < start, lpos, attention.POS_SENTINEL)
             k_pos = torch.cat([read_pos, k_pos], dim=1)
+        row = lambda v: torch.full((1,), int(v), dtype=torch.int64, device=dev)  # noqa: E731
         paged = PagedInfo(write_idx=write_idx, k_pos=k_pos, read_idx=read_idx,
-                          page_size=page_size, chunked=chunked)
+                          page_size=page_size, chunked=chunked, slots=row(slot),
+                          starts=row(start), lengths=row(length),
+                          active=torch.ones((1,), dtype=torch.bool, device=dev))
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, pos[None].expand(b, s), pools, paged)
         x = common.norm_apply(params["final_norm"], x)
         return self.logits(params, x[:, length - 1:length])[:, 0]
 
-    def _prefill_cb_batched(self, params, tokens, pools, page_rows, starts, lengths, active, *,
-                            page_size: int) -> torch.Tensor:
+    def _prefill_cb_batched(self, params, tokens, pools, page_rows, slots, starts, lengths,
+                            active, *, page_size: int) -> torch.Tensor:
         """Multi-row body of :meth:`prefill_cb` (see its docstring)."""
-        x = self._chunk_rows(params, tokens, pools, page_rows, starts, lengths, active,
+        x = self._chunk_rows(params, tokens, pools, page_rows, slots, starts, lengths, active,
                              page_size=page_size)
         b, s = tokens.shape
         last = (lengths.long() - 1).clamp(0, s - 1)
@@ -274,20 +382,23 @@ class Transformer:
         Returns logits (S, T, V): ``[:, i]`` is the distribution after token
         i, which judges draft i + 1.
 
-        ``commit`` is the reference's switch for recurrent state rows (the
-        pass that scans the accepted tokens into them). The port's models
-        keep none, so it changes nothing; a model with state rows raises."""
+        ``commit`` is the reference's switch for recurrent state rows: each
+        row continues from its slot's state, and only ``commit=True`` (the
+        pass that scans the accepted tokens in) writes the rows back. That
+        pass is not ported yet, so a model with state rows raises there."""
         if commit and self.cb_profile().has_state_rows:
             raise NotImplementedError("the state-row commit pass is not ported yet")
-        x = self._chunk_rows(params, tokens, pools, page_table, seq_lens, lengths, active,
-                             page_size=page_size)
+        slots = torch.arange(tokens.shape[0], device=tokens.device)
+        x = self._chunk_rows(params, tokens, pools, page_table, slots, seq_lens, lengths,
+                             active, page_size=page_size, commit=commit)
         return self.logits(params, x)
 
-    def _chunk_rows(self, params, tokens, pools, page_rows, starts, lengths, active, *,
-                    page_size: int) -> torch.Tensor:
+    def _chunk_rows(self, params, tokens, pools, page_rows, slots, starts, lengths, active, *,
+                    page_size: int, commit: bool = True) -> torch.Tensor:
         """The stack over (P, Tb) rows, each a chunk of its own slot's
-        sequence from ``starts``: writes the fresh K/V and returns the final
-        hidden states (P, Tb, d) after the final norm."""
+        sequence from ``starts``: writes the fresh K/V, commits the active
+        rows' state rows (with ``commit``) and returns the final hidden
+        states (P, Tb, d) after the final norm."""
         b, s = tokens.shape
         dev = tokens.device
         act = (torch.ones((b,), dtype=torch.bool, device=dev) if active is None
@@ -304,7 +415,9 @@ class Transformer:
         lpos = torch.arange(read_idx.shape[1], device=dev)[None]
         read_pos = torch.where(lpos < starts[:, None], lpos, attention.POS_SENTINEL)
         paged = PagedInfo(write_idx=write_idx, k_pos=torch.cat([read_pos, fresh_pos], dim=1),
-                          read_idx=read_idx, page_size=page_size, chunked=True)
+                          read_idx=read_idx, page_size=page_size, chunked=True,
+                          slots=slots.long(), starts=starts, lengths=lengths,
+                          active=act if commit else torch.zeros_like(act))
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, pos, pools, paged)
         return common.norm_apply(params["final_norm"], x)
@@ -321,7 +434,8 @@ class Transformer:
                   page_size: int) -> torch.Tensor:
         """One-token decode of every slot. tokens: (S, 1); page_table: (S, P);
         seq_lens: (S,) the new token's position; active: (S,) bool. Inactive
-        rows write the null page and give discarded logits. Returns (S, V)."""
+        rows write the null page, keep their state rows and give discarded
+        logits. Returns (S, V)."""
         n_slots = tokens.shape[0]
         dev = tokens.device
         lens = seq_lens.long()
@@ -340,20 +454,23 @@ class Transformer:
             fused=self.fused_decode,
         )
         x = self.embed(params, tokens)
-        x = self._run_stack(params, x, lens[:, None], pools, paged)
+        x = self._run_stack(params, x, lens[:, None], pools, paged, decode=True)
         x = common.norm_apply(params["final_norm"], x)
         return self.logits(params, x)[:, 0]
 
 
     # -- static-batch serving (ring-buffer cache) -----------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """The ring-buffer cache of static-batch serving: one buffer a layer,
-        of ``max_len`` positions (a local layer's of at most its window, as
-        the reference allocates it), and the batch's shared position."""
+        """The cache of static-batch serving: a ring buffer an attention
+        layer, of ``max_len`` positions (a local layer's of at most its
+        window, as the reference allocates it), a recurrent layer's state a
+        batch row, and the batch's shared position."""
         return {"pos": 0, "layers": [
             attention.init_cache(batch, min(max_len, acfg.window or max_len), acfg,
                                  self.kv_dtype, self.device)
-            for acfg in self.layer_cfgs]}
+            if acfg is not None else
+            {"state": self.cells[kind].init_state(batch, self.cells[kind].cfg, self.device)}
+            for kind, acfg in zip(self.kinds, self.layer_cfgs)]}
 
     def prefill(self, params, batch, cache: dict) -> torch.Tensor:
         """Run the prompt through the decoder, filling the cache in place.
@@ -362,8 +479,8 @@ class Transformer:
         tokens = batch["tokens"]
         x = self.embed(params, tokens)
         positions = cache["pos"] + torch.arange(tokens.shape[1], device=tokens.device)
-        for lp, c, acfg in zip(params["layers"], cache["layers"], self.layer_cfgs):
-            x = self._block(lp, x, positions, self.engine, acfg, cache=c)
+        for i, (lp, c) in enumerate(zip(params["layers"], cache["layers"])):
+            x, _ = self._block(i, lp, x, positions, self.engine, store=c)
         x = common.norm_apply(params["final_norm"], x)
         cache["pos"] += tokens.shape[1]
         return self.logits(params, x[:, -1:])
@@ -373,8 +490,8 @@ class Transformer:
         logits (B, 1, V); the cache is updated in place."""
         x = self.embed(params, tokens)
         positions = cache["pos"] + torch.arange(1, device=tokens.device)
-        for lp, c, acfg in zip(params["layers"], cache["layers"], self.layer_cfgs):
-            x = self._block(lp, x, positions, self.engine, acfg, cache=c)
+        for i, (lp, c) in enumerate(zip(params["layers"], cache["layers"])):
+            x, _ = self._block(i, lp, x, positions, self.engine, store=c, decode=True)
         x = common.norm_apply(params["final_norm"], x)
         cache["pos"] += 1
         return self.logits(params, x)

@@ -1,8 +1,8 @@
 """The serving StateStore of the port: per-layer KV token pools on the
-device, a host-side refcounting page allocator with a content-addressable
-prefix index, and the host mirrors of the page table and sequence lengths
-(counterpart of ``repro.serving.cache``; the port's models keep no
-recurrent state rows).
+device, the recurrent layers' per-slot state rows, a host-side refcounting
+page allocator with a content-addressable prefix index, and the host
+mirrors of the page table and sequence lengths (counterpart of
+``repro.serving.cache``).
 
 Token t of a slot lives at ``pool[page_table[slot, t // page_size] *
 page_size + t % page_size]``. Page 0 is the **null page**: never handed
@@ -53,9 +53,14 @@ def copy_kv_page(pools, src: int, dst: int, *, page_size: int) -> None:
     wrote the source page."""
     s, d = src * page_size, dst * page_size
     for pool in pools:
-        for t in pool.values():
+        for t in _kv_leaves(pool):
             bits = t.view(torch.uint8) if t.dtype in FP8_DTYPES else t
             bits[d:d + page_size].copy_(bits[s:s + page_size])
+
+
+def _kv_leaves(pool: dict) -> list:
+    """A layer's KV token pools ("kp", "vp"); a recurrent layer has none."""
+    return [t for name, t in pool.items() if name in ("kp", "vp")]
 
 
 class OutOfPagesError(RuntimeError):
@@ -185,12 +190,13 @@ class PagePool:
 
 @dataclasses.dataclass
 class StateStore:
-    """Device KV pools + the host mirror of the page table and sequence
-    lengths (numpy, mutated in place by the server between steps).
-    ``seq_lens`` counts the tokens committed per slot (mid chunked prefill,
-    the prefix prefilled so far)."""
+    """Device pools (KV pages and recurrent state rows) + the host mirror
+    of the page table and sequence lengths (numpy, mutated in place by the
+    server between steps). ``seq_lens`` counts the tokens committed per
+    slot (mid chunked prefill, the prefix prefilled so far). Page-table
+    entries recycled out of a sliding window are NULL."""
 
-    pools: Any  # one {"kp", "vp"} dict of tensors per layer
+    pools: Any  # per layer: {"kp", "vp"} token pools, or {"state": {leaf: rows}}
     page_table: np.ndarray  # (num_slots, pages_per_slot) int32
     seq_lens: np.ndarray  # (num_slots,) int32
     allocator: PagePool
@@ -199,7 +205,8 @@ class StateStore:
     def build(cls, model, *, num_slots: int, num_pages: int, page_size: int,
               pages_per_slot: int, pools=None) -> "StateStore":
         """``pools`` reuses existing device pools (``Server.reset``) instead
-        of allocating fresh zeros: stale K/V are never read back as valid."""
+        of allocating fresh zeros: stale K/V are never read back as valid,
+        and a stale state row is replaced by the next start-0 prefill."""
         return cls(
             pools=(pools if pools is not None
                    else model.init_state_store(num_slots, num_pages, page_size)),
@@ -234,4 +241,10 @@ class StateStore:
 
     def kv_bytes(self) -> int:
         """Device bytes held by the KV token pools."""
-        return sum(t.numel() * t.element_size() for pool in self.pools for t in pool.values())
+        return sum(t.numel() * t.element_size() for pool in self.pools
+                   for t in _kv_leaves(pool))
+
+    def state_bytes(self) -> int:
+        """Device bytes held by the recurrent layers' per-slot state rows."""
+        return sum(t.numel() * t.element_size() for pool in self.pools
+                   for t in pool.get("state", {}).values())

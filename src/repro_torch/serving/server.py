@@ -39,6 +39,13 @@ up to ``async_depth`` stale decode steps in flight; their tokens are
 discarded, and their writes touched only the finished request's own
 frontier page.
 
+Recurrent models (recurrentgemma, xlstm) keep per-slot state rows in the
+StateStore beside or instead of KV pages; the prefix cache turns itself
+off for them, a model without attention holds no pages at all, and where
+every attention layer is windowed, pages that slide out of the window go
+back to the pool mid-request. Speculative decoding with state rows raises
+when the server is built.
+
 The static-batch path (:func:`generate_static`) lives here too: the
 ring-buffer baseline that ``launch/serve.py --mode static`` runs.
 """
@@ -209,13 +216,19 @@ class Server:
         self.params = params
         self.config = config
         self.profile = model.cb_profile()
-        if self.profile.has_state_rows or self.profile.kv_window is not None:
-            raise NotImplementedError(
-                "the port's StateStore holds full-length KV pages only (no state rows, no window)")
-        self.prefix_cache = config.prefix_cache  # the reference's auto-disable cases raise above
-        self.engine = EngineCore(model, params, config, self.profile, seed=seed)
+        # Prefix caching shares KV pages only: a model with state rows cannot
+        # skip prefill positions (their state updates would be skipped too),
+        # and one without pages has nothing to share, so it turns itself off.
+        self.prefix_cache = (config.prefix_cache and self.profile.needs_kv_pages
+                             and not self.profile.has_state_rows)
         if draft_model is not None and spec is None:
             spec = SpecConfig()
+        if spec is not None and (self.profile.has_state_rows or (
+                draft_model is not None and draft_model.cb_profile().has_state_rows)):
+            raise NotImplementedError(
+                "speculative decoding with recurrent state rows (the verify step's state-commit "
+                "pass, the drafter's state-row snapshots) is not ported yet")
+        self.engine = EngineCore(model, params, config, self.profile, seed=seed)
         self.spec = spec
         self.drafter = self.verifier = None
         if spec is not None:
@@ -397,6 +410,23 @@ class Server:
         for idx, page in grown:
             self.cache.set_page(req.slot, idx, page)
 
+    def _grow_pages(self, req: Request, end_position: int) -> None:
+        """Pages for writes at positions < ``end_position`` (none for a
+        model without KV pages), mirrored into the page table."""
+        if self.profile.needs_kv_pages:
+            self._mirror_pages(req, self.scheduler.ensure_pages(req, end_position))
+
+    def _recycle_window(self, req: Request) -> None:
+        """Return the request's pages that have slid wholly out of the
+        attention window to the pool, and NULL their page-table entries
+        (only for a model whose every attention layer is windowed)."""
+        window = self.profile.kv_window
+        if window is None:
+            return
+        freed = self.scheduler.release_out_of_window(req, int(self.cache.seq_lens[req.slot]),
+                                                     window)
+        self.cache.clear_pages(req.slot, freed)
+
     def _on_preempt(self, slot: int) -> None:
         """The scheduler evicted this slot's request: NULL its page-table
         row and drop its dispatch cursor (its steps in flight carry the old
@@ -442,7 +472,7 @@ class Server:
             n = min(cfg.prefill_chunk, req.prompt_len - start)
             tb = cfg.prefill_chunk
             kind = "prefill_chunk"
-        self._mirror_pages(req, self.scheduler.ensure_pages(req, start + n))
+        self._grow_pages(req, start + n)
         toks = np.zeros((1, tb), np.int32)
         toks[0, :n] = req.prompt[start:start + n]
         final = start + n == req.prompt_len
@@ -455,6 +485,7 @@ class Server:
         if final:
             ds.generated += 1  # the final chunk samples the first token
         self.cache.seq_lens[req.slot] = ds.prefilled
+        self._recycle_window(req)
 
     def _dispatch_prefill_batched(self, prefilling: list) -> int:
         """Dispatch every prefilling request's next chunk as (P, chunk)
@@ -489,7 +520,7 @@ class Server:
                 ds = self._disp[req.rid]
                 start = ds.prefilled
                 n = min(chunk, req.prompt_len - start)
-                self._mirror_pages(req, self.scheduler.ensure_pages(req, start + n))
+                self._grow_pages(req, start + n)
                 toks[r, :n] = req.prompt[start:start + n]
                 page_rows[r] = self.cache.page_table[req.slot]
                 slots[r] = req.slot
@@ -516,6 +547,7 @@ class Server:
                 if final:
                     ds.generated += 1
                 self.cache.seq_lens[req.slot] = ds.prefilled
+                self._recycle_window(req)
         return dispatched
 
     def _dispatch_decode(self, decoding: list) -> None:
@@ -524,9 +556,7 @@ class Server:
         params_list = [GREEDY] * n
         rows = []
         for slot, req, ds in decoding:
-            grown = self.scheduler.ensure_page(req, int(self.cache.seq_lens[slot]))
-            if grown is not None:
-                self._mirror_pages(req, [grown])
+            self._grow_pages(req, int(self.cache.seq_lens[slot]) + 1)
             active[slot] = True
             params_list[slot] = req.sampling
             rows.append((slot, req, ds.epoch))
@@ -534,6 +564,7 @@ class Server:
         for slot, req, ds in decoding:
             ds.generated += 1
             self.cache.seq_lens[slot] += 1
+            self._recycle_window(req)
 
     # -- speculative decoding ------------------------------------------------
     def _spec_decode_once(self, events: list[TokenEvent]) -> None:
@@ -603,6 +634,7 @@ class Server:
                 if ds is not None:
                     ds.generated += emitted
                 self.cache.seq_lens[slot] += a + 1
+                self._recycle_window(req)
 
     # -- harvest (authoritative commits) -----------------------------------
     def _drain(self, events: list[TokenEvent]) -> None:

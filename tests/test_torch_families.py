@@ -108,20 +108,20 @@ def _t(a):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_match_reference(arch, policy):
     """Teacher-forced forward and logits of two 24-token rows (past gemma's
-    window of 16). MoE training is not ported: the forward raises."""
+    window of 16); phi's aux loss (its MoE layers' load balance) to 1e-5
+    relative, the others' an fp32 zero."""
     model, params, tmodel, tparams = _models(arch, policy)
     toks = np.random.default_rng(1).integers(0, model.cfg.vocab_size, (2, 24)).astype(np.int32)
-    if tmodel.cfg.is_moe:
-        with pytest.raises(NotImplementedError, match="MoE training"):
-            tmodel.forward(tparams, {"tokens": _t(toks).long()})
-        return
-    h, _ = model.forward(params, {"tokens": jnp.asarray(toks)})
+    h, want_aux = model.forward(params, {"tokens": jnp.asarray(toks)})
     want = np.asarray(model.logits(params, h))
     with torch.no_grad():
         th, aux = tmodel.forward(tparams, {"tokens": _t(toks).long()})
         got = tmodel.logits(tparams, th)
     assert got.shape == want.shape == (2, 24, model.cfg.vocab_size)
-    assert float(aux) == 0.0
+    if tmodel.cfg.is_moe:
+        assert float(aux) > 0 and abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+    else:
+        assert float(aux) == 0.0
     assert _rel(want, got) <= (1e-5 if policy == "fp32" else 5e-2)
 
 
@@ -504,16 +504,19 @@ def test_chatglm_train_steps_match_reference(policy, remat):
 
 
 def test_train_launcher_trains_gemma_and_refuses_moe():
+    """gemma2 and phi3.5-moe train through the launcher; phi's expert
+    parallelism (``--moe-impl ep``) is refused."""
     from repro_torch.launch import train as ttrain
 
-    args = ttrain.parse_args(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
-                              "--steps", "2", "--seq", "24", "--batch", "2", "--log-every", "1"])
-    out = ttrain.train(args)
-    assert len(out["history"]) == 2
-    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    for arch in ("gemma2-2b", "phi3.5-moe-42b-a6.6b"):
+        args = ttrain.parse_args(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                                  "--seq", "24", "--batch", "2", "--log-every", "1"])
+        out = ttrain.train(args)
+        assert len(out["history"]) == 2
+        assert all(np.isfinite(h["loss"]) for h in out["history"])
     args = ttrain.parse_args(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--device", "cpu",
-                              "--steps", "1", "--seq", "8", "--batch", "2"])
-    with pytest.raises(NotImplementedError, match="MoE training"):
+                              "--steps", "1", "--seq", "8", "--batch", "2", "--moe-impl", "ep"])
+    with pytest.raises(NotImplementedError, match="distrib"):
         ttrain.train(args)
 
 

@@ -176,11 +176,73 @@ def test_smoke_model_prefill_and_decode_match_reference(case):
 
 
 def test_moe_training_and_train_launcher_raise():
+    """MoE training runs with the dense implementation; expert parallelism
+    raises in the model and through the train launcher's ``--moe-impl``."""
     from repro_torch.launch import train
 
-    tmodel = tbuild(tget_config("granite-moe-1b-a400m", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        tmodel.forward(tmodel.init(0), {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    cfg = dataclasses.replace(tget_config("granite-moe-1b-a400m", smoke=True), moe_impl="ep")
+    with pytest.raises(NotImplementedError, match="distrib"):
+        tbuild(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="distrib"):
         train.main(["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu",
-                    "--steps", "1", "--seq", "8", "--batch", "2"])
+                    "--steps", "1", "--seq", "8", "--batch", "2", "--moe-impl", "ep"])
+    out = train.main(["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu",
+                      "--steps", "2", "--seq", "8", "--batch", "2", "--moe-impl", "dense"])
+    assert len(out["history"]) == 2 and all(np.isfinite(h["loss"]) for h in out["history"])
+
+
+LR = 1e-3
+
+
+@pytest.mark.parametrize("policy,remat", [("fp32", "none"), ("redmule_hfp8", "block")])
+def test_moe_train_steps_match_reference(policy, remat):
+    """Two AdamW steps of the granite-moe smoke decoder from the
+    reference's parameters on the same batches, the aux loss (the router's
+    load balance, weighted 0.01) in the loss and its gradient through the
+    router's fp32 GEMM and the gates. fp32: loss, aux and grad norm to
+    1e-5 relative, every parameter to 2e-5 (the dense decoders' bounds);
+    redmule_hfp8: the first loss and aux to 1e-5, the second loss to 2e-3,
+    the grad norm to 5e-2 and the update to 0.3 in relative norm (the
+    dense decoders' hfp8 bounds: E5M2 cotangents round in another order)."""
+    from repro.data.pipeline import for_model as jfor_model
+    from repro.optim import AdamW as JAdamW
+    from repro.training import TrainState as JTrainState
+    from repro.training import make_train_step as jmake_train_step
+    from repro_torch.core.tree import leaves
+    from repro_torch.optim import AdamW
+    from repro_torch.training import TrainState, make_train_step
+
+    kw = dict(policy=policy, remat=remat)
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True), **kw)
+    tcfg = dataclasses.replace(tget_config("granite-moe-1b-a400m", smoke=True), **kw)
+    model = build(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    jopt, opt = JAdamW(lr=LR), AdamW(lr=LR)
+    jstate = JTrainState(jnp.zeros((), jnp.int32), params, jopt.init(params),
+                         jnp.zeros((), jnp.int32))
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    state = TrainState(0, tparams, opt.init(tparams), 0)
+    jstep = jax.jit(jmake_train_step(model, jopt))
+    step = make_train_step(tbuild(tcfg, device="cpu"), opt)
+    data = jfor_model(cfg, seq_len=16, global_batch=4)
+    start = leaves(state.params)
+    for i in range(2):
+        batch = data.batch(i)
+        jstate, jm = jstep(jstate, batch)
+        state, m = step(state, batch)
+        assert state.skipped == 0 and float(m["aux"]) > 0
+        rel = {k: abs(float(jm[k]) - float(m[k])) / abs(float(jm[k]))
+               for k in ("loss", "aux", "grad_norm")}
+        want = leaves(params_from_jax(jax.tree.map(np.asarray, jstate.params), tcfg))
+        got = leaves(state.params)
+        if policy == "fp32":
+            assert max(rel.values()) < 1e-5, rel
+            for w, g in zip(want, got):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=2e-5)
+            continue
+        assert rel["loss"] < (1e-5 if i == 0 else 2e-3) and rel["grad_norm"] < 5e-2, rel
+        if i == 0:
+            assert rel["aux"] < 1e-5, rel
+        dj = torch.cat([(w.float() - s.float()).ravel() for w, s in zip(want, start)])
+        dt = torch.cat([(g.float() - s.float()).ravel() for g, s in zip(got, start)])
+        assert float((dj - dt).norm() / dj.norm()) < 0.3
