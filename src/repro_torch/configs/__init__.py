@@ -1,11 +1,13 @@
 """Architecture config registry of the port: ``--arch <id>`` resolves here.
 
-The port covers the decoder-only models of the JAX package: the dense
+The port covers every language model of the JAX package: the dense
 granite-3-8b, chatglm3-6b, deepseek-coder-33b and gemma2-2b, the
 dense-MoE granite-moe-1b-a400m (granite-3-8b's draft model) and
-phi3.5-moe-42b-a6.6b, and the recurrent recurrentgemma-2b (RG-LRU with
-windowed local attention) and xlstm-125m (mLSTM and sLSTM). The
-encoder-decoder and VLM architectures of the JAX package raise.
+phi3.5-moe-42b-a6.6b, the recurrent recurrentgemma-2b (RG-LRU with
+windowed local attention) and xlstm-125m (mLSTM and sLSTM), the
+encoder-decoder seamless-m4t-large-v2 (stub audio frames, LayerNorm) and
+the VLM internvl2-76b (stub image patches). The JAX package's
+``paper_tinyml`` configs are not ported.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ from repro_torch.configs import (
     gemma2_2b,
     granite3_8b,
     granite_moe_1b,
+    internvl2_76b,
     phi35_moe,
     recurrentgemma_2b,
+    seamless_m4t_v2,
     xlstm_125m,
 )
 from repro_torch.configs.base import ModelConfig
@@ -30,6 +34,8 @@ _ARCHS = {
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "recurrentgemma-2b": recurrentgemma_2b,
     "xlstm-125m": xlstm_125m,
+    "seamless-m4t-large-v2": seamless_m4t_v2,
+    "internvl2-76b": internvl2_76b,
 }
 
 ARCH_IDS = tuple(_ARCHS)

@@ -37,8 +37,8 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     """The port's parameters from the reference's ``Transformer.init`` tree
-    (numpy leaves) for a decoder-only model, dense, MoE or recurrent, of
-    any block pattern. A recurrent layer's ``cell`` is carried across as
+    (numpy leaves), for every family the port covers, of any block
+    pattern. A recurrent layer's ``cell`` is carried across as
     it is: rglru's ``in_x``, ``in_gate``, ``conv_w``, ``gate_a``,
     ``gate_x``, ``lam`` and ``out``, mlstm's ``qkv``, ``ifg``, ``ogate``
     and ``out``, slstm's ``wx``, ``r`` (4, H, hd, hd) and ``out``, in
@@ -51,13 +51,11 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     (d, E); its experts' ``up`` and ``gate`` (E, d, f) become (d, E*f) and
     ``down`` (E, f, d) becomes (E*f, d), the shapes the reference's
     ``apply_dense`` reshapes them to in every call (``models/moe.py``
-    stores them so)."""
-    pattern = tuple(cfg.block_pattern)
-    dec = tree["decoder"]
-    n_units, n_rem = divmod(cfg.n_layers, len(pattern))
-    if len(dec["rem"]) != n_rem:
-        raise ValueError(f"the tree has {len(dec['rem'])} remainder layers, the config "
-                         f"{n_rem}")
+    stores them so). Every norm carries its leaves (LayerNorm's ``bias``
+    beside the scale). An encoder-decoder's ``encoder`` stack (pattern
+    ("attn",)) becomes the list ``encoder``, its decoder layers keep
+    ``norm_x`` and ``cross``, and ``enc_final_norm``, ``enc_proj`` and
+    the VLM's ``vis_proj`` come across as they are."""
 
     def t(a):
         return tensor_from_numpy(a, device)
@@ -65,8 +63,11 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
     def weight(a):
         return {"w": kmajor_weight(t(a))}
 
+    def norm(p):
+        return {n: t(a) for n, a in p.items()}
+
     def layer(p):
-        out = {"norm1": {"scale": t(p["norm1"]["scale"])}}
+        out = {"norm1": norm(p["norm1"])}
         if "attn" in p:
             out["attn"] = {n: weight(p["attn"][n]["w"]) for n in ("q", "k", "v", "o")}
         else:
@@ -74,27 +75,37 @@ def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
             # other leaves (rglru's conv_w and lam, slstm's r) as they are.
             out["cell"] = {n: weight(v["w"]) if isinstance(v, dict) else t(v)
                            for n, v in p["cell"].items()}
+        if "cross" in p:
+            out["norm_x"] = norm(p["norm_x"])
+            out["cross"] = {n: weight(p["cross"][n]["w"]) for n in ("q", "k", "v", "o")}
         if "moe" in p:
             out["moe"] = moe_params_from_jax(p["moe"], device)
         elif "ffn" in p:
             out["ffn"] = {n: weight(w["w"]) for n, w in p["ffn"].items()}
         if "norm2" in p:
-            out["norm2"] = {"scale": t(p["norm2"]["scale"])}
+            out["norm2"] = norm(p["norm2"])
         return out
 
-    def unit_layer(j, u):
-        stacked = dec["units"][f"b{j}"]
-        return layer(_map_leaves(stacked, lambda a: a[u]))
+    def stack(st, n_layers, pattern):
+        n_units, n_rem = divmod(n_layers, len(pattern))
+        if len(st["rem"]) != n_rem:
+            raise ValueError(f"the tree has {len(st['rem'])} remainder layers, the config "
+                             f"{n_rem}")
+        layers = [layer(_map_leaves(st["units"][f"b{j}"], lambda a: a[u]))
+                  for u in range(n_units) for j in range(len(pattern))]
+        return layers + [layer(st["rem"][f"r{i}"]) for i in range(n_rem)]
 
-    layers = [unit_layer(j, u) for u in range(n_units) for j in range(len(pattern))]
-    layers += [layer(dec["rem"][f"r{i}"]) for i in range(n_rem)]
     out = {
         "embed": {"table": t(tree["embed"]["table"])},
-        "layers": layers,
-        "final_norm": {"scale": t(tree["final_norm"]["scale"])},
+        "layers": stack(tree["decoder"], cfg.n_layers, tuple(cfg.block_pattern)),
+        "final_norm": norm(tree["final_norm"]),
     }
-    if "head" in tree:
-        out["head"] = weight(tree["head"]["w"])
+    if "encoder" in tree:
+        out["encoder"] = stack(tree["encoder"], cfg.n_encoder_layers, ("attn",))
+        out["enc_final_norm"] = norm(tree["enc_final_norm"])
+    for name in ("head", "enc_proj", "vis_proj"):
+        if name in tree:
+            out[name] = weight(tree[name]["w"])
     return out
 
 

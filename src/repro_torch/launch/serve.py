@@ -19,8 +19,17 @@ first decode step apart.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
 
 The recurrent models serve from per-slot state rows (xlstm-125m holds no
-KV pages at all); recurrentgemma-2b takes no ``--fp8-params``, which
-raises at its first step as the JAX package's model does.
+KV pages at all), with speculative decoding too (``--spec-k``, or
+``--draft-model xlstm-125m`` for xlstm); recurrentgemma-2b takes no
+``--fp8-params``, which raises at its first step as the JAX package's
+model does. The encoder-decoder (seamless-m4t-large-v2) and VLM
+(internvl2-76b) families serve static-batch only, as in the reference:
+the launcher falls back to ``--mode static`` for them and passes their
+stub frontends, random frames or image patches made from ``--seed`` as
+the data pipeline makes them.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
+      --fp8-kv --fp8-params --policy redmule_hfp8 --requests 4 --prompt-len 64
 """
 from __future__ import annotations
 
@@ -44,6 +53,21 @@ def mixed_prompt_lens(base: int, n: int) -> list[int]:
     the same as the reference launcher's."""
     cycle = [base, max(2, base // 2), base + base // 2, max(2, base - 2)]
     return [cycle[i % len(cycle)] for i in range(n)]
+
+
+def frontend_inputs(cfg, batch: int, prompt_len: int, rng: np.random.Generator) -> dict:
+    """The stub modality inputs of a static batch, fp16 draws from ``rng``
+    as ``data/pipeline.py`` makes them: an encoder-decoder's frames
+    (batch, prompt_len * enc_dec_ratio, d), the decoder length being the
+    frames' over the ratio, and a VLM's ``n_frontend_tokens`` patches."""
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal((batch, prompt_len * cfg.enc_dec_ratio, cfg.d_model),
+                                            dtype=np.float32).astype(np.float16)
+    if cfg.family == "vlm":
+        out["vis_embeds"] = rng.standard_normal((batch, cfg.n_frontend_tokens, cfg.d_model),
+                                                dtype=np.float32).astype(np.float16)
+    return out
 
 
 def parse_args(argv=None):
@@ -159,6 +183,10 @@ def main(argv=None):
     cfg = config(args.arch)
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     model = build(cfg, device=args.device)
+    if args.mode == "continuous" and not model.supports_cb():
+        print(f"note: {cfg.name} ({cfg.family}) serves static-batch only; falling back to "
+              "--mode static")
+        args.mode = "static"
     if model.engine.backend == "cuda":
         t0 = time.perf_counter()
         _build.library()  # build the kernels before the clocks start
@@ -185,11 +213,17 @@ def main(argv=None):
     sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
     if args.mode == "static":
         tokens = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
+        batch = {"tokens": tokens, **frontend_inputs(cfg, args.requests, args.prompt_len, rng)}
+        if model.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         seqs, stats = generate_static(
-            model, params, {"tokens": torch.from_numpy(tokens).to(model.device)},
+            model, params, {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()},
             max_new_tokens=args.max_new, sampling=sampling, seed=args.seed)
-        print(f"static: {args.requests} seqs x {args.max_new} tokens (prefill "
+        shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        print(f"static: {args.requests} seqs x {args.max_new} tokens, {shapes} (prefill "
               f"{stats.prefill_s:.3f} s, first decode {stats.first_decode_s:.3f} s)")
+        if model.device.type == "cuda":
+            print(f"peak memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         print(f"steady-state decode: {stats.decode_tok_s:.1f} tok/s over "
               f"{stats.steady_steps} steps")
         print(seqs)

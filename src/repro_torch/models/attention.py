@@ -164,16 +164,27 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
 
 def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
           engine: Engine, *, pool: dict | None = None,
-          paged: PagedInfo | None = None, cache: dict | None = None) -> torch.Tensor:
+          paged: PagedInfo | None = None, cache: dict | None = None,
+          causal: bool = True, cross_kv: tuple | None = None) -> torch.Tensor:
     """One attention layer. x: (B, S, D); positions: (S,) or (B, S) absolute
     positions. With ``pool`` (the layer's {"kp", "vp"} flat (n_tok, Hkv, hd)
     token pools, updated in place) and ``paged``, the serving paths; with
     ``cache`` (the layer's ring buffer, :func:`init_cache`, updated in
-    place), static-batch serving; with neither, the causal full-sequence
-    path of the training forward."""
+    place), static-batch serving; with neither, the full-sequence path of
+    the training forward, causal unless ``causal=False`` (an encoder).
+
+    ``cross_kv`` = (k, v, k_pos): an encoder-decoder's cross-attention
+    over the encoder's keys and values (B, Se, Hkv, hd) in the compute
+    format at positions k_pos (Se,), under a config without a window. Only
+    q is projected here; neither q nor k is rotated, and the mask is not
+    causal."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = common.dense_apply(params["q"], x, engine).reshape(b, s, hq, hd)
+    if cross_kv is not None:
+        k, v, k_pos = cross_kv
+        out = _online_attention(q, k, v, positions, k_pos, cfg, engine, causal=False)
+        return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
     k = common.dense_apply(params["k"], x, engine).reshape(b, s, hkv, hd)
     v = common.dense_apply(params["v"], x, engine).reshape(b, s, hkv, hd)
     pos2d = positions if positions.dim() == 2 else positions[None]
@@ -182,7 +193,7 @@ def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     if cache is not None:
         out = _ring_attention(q, k, v, positions, cache, cfg, engine)
     elif pool is None:
-        out = _online_attention(q, k, v, positions, positions, cfg, engine)
+        out = _online_attention(q, k, v, positions, positions, cfg, engine, causal=causal)
     else:
         out = _paged_attention(q, k, v, positions, pool, paged, cfg, engine)
     return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)

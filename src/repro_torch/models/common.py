@@ -25,24 +25,54 @@ def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
     return w.T.contiguous().T
 
 
+def cast_rows(w: torch.Tensor, dtype: torch.dtype, rows_elems: int = 1 << 26) -> torch.Tensor:
+    """``cast(w, dtype)`` of a 2-D ``w``, about ``rows_elems`` elements of
+    rows at a time (the same bits: the cast is elementwise). The cast
+    unit's temporaries are several times its input, which for a 128256 x
+    8192 head would not fit beside a 70 GB model's weights."""
+    out = torch.empty(w.shape, dtype=dtype, device=w.device)
+    step = max(1, rows_elems // max(w.shape[1], 1))
+    for r in range(0, w.shape[0], step):
+        out[r:r + step] = cast(w[r:r + step], dtype)
+    return out
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
                device, scale: float | None = None) -> Params:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=device) * scale
-    return {"w": kmajor_weight(cast(w, dtype))}
+    w = torch.randn((d_in, d_out), generator=gen, device=device).mul_(scale)
+    return {"w": kmajor_weight(cast_rows(w, dtype))}
 
 
 def dense_apply(p: Params, x: torch.Tensor, engine: Engine) -> torch.Tensor:
     return engine.linear(x, p["w"], p.get("b"))
 
 
-def norm_init(d: int, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def norm_init(d: int, device, kind: str = "rmsnorm") -> Params:
+    """RMSNorm's fp32 scale, or LayerNorm's (``kind="layernorm"``) scale
+    and bias."""
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
 
 
-def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm, computed in fp32 and cast back to x's dtype."""
+def norm_apply(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm, or LayerNorm with ``kind="layernorm"`` (the mean, the
+    variance of the centred values, ``rsqrt``, then scale and bias), each
+    computed in fp32 and cast back to x's dtype. LayerNorm's last step is
+    one fused multiply-add, ``(x - mu) r`` times the scale plus the bias,
+    as XLA's compiled code contracts it; its two means sum in torch's
+    order, not XLA's, so an fp32 output may differ from the reference's by
+    an ulp or two, which the 16-bit cast rarely keeps
+    (tests/test_torch_encdec.py states the bounds)."""
     xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        c = xf - mu
+        r = torch.rsqrt(c.square().mean(-1, keepdim=True) + eps)
+        return torch.addcmul(p["bias"], c * r, p["scale"]).to(x.dtype)
     ms = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
 
@@ -118,8 +148,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
                device) -> Params:
-    table = torch.randn((vocab, d), generator=gen, device=device) * 0.02
-    return {"table": cast(table, dtype)}
+    table = torch.randn((vocab, d), generator=gen, device=device).mul_(0.02)
+    return {"table": cast_rows(table, dtype)}
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:

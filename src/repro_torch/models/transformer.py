@@ -1,7 +1,8 @@
-"""The decoder-only model of the port: attention layers, recurrent layers
-or both, each with a dense or dense-MoE FFN, for training and for
-continuous-batching and static-batch serving (counterpart of
-``repro.models.transformer.Transformer``).
+"""The model of the port: a decoder of attention layers, recurrent layers
+or both, each with a dense or dense-MoE FFN, behind an optional encoder
+(the encoder-decoder family) or image prefix (the VLM family), for
+training and for continuous-batching and static-batch serving
+(counterpart of ``repro.models.transformer.Transformer``).
 
 Parameters are a plain dict of tensors: ``embed.table``, one dict per
 layer under ``layers`` (the reference stacks them on a leading axis for
@@ -21,8 +22,18 @@ reference keys it on the name), and ``cfg.final_softcap`` caps the fp32
 logits. With ``cfg.remat == "block"`` the training forward recomputes
 each block in the backward pass (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint`` of its scan body does; the forward returns
-the sum of the MoE layers' aux losses. Encoder-decoder, VLM and LayerNorm
-models raise ``NotImplementedError``.
+the sum of the MoE layers' aux losses. ``cfg.norm`` is RMSNorm or
+LayerNorm (scale and bias) for every norm of the model.
+
+The encoder-decoder family (seamless-m4t; ``cfg.n_encoder_layers > 0``)
+runs its stub audio frames (B, Se, d) through ``enc_proj``, an encoder of
+``n_encoder_layers`` non-causal attention layers and ``enc_final_norm``;
+each decoder layer then adds a cross-attention block (``norm_x``,
+``cross`` {q, k, v, o}) between its self-attention and its FFN. The VLM
+family (internvl2) puts its stub image patches (B, P, d) through
+``vis_proj`` ahead of the token embeddings and drops them from the final
+hidden states. Both serve through the static-batch path only, as in the
+reference: ``init_state_store`` raises for them, and with it ``Server``.
 
 Serving state: an attention layer keeps its KV token pool, a recurrent
 layer ``{"state": rows}``, one fp32 (num_slots, ...) tensor per state
@@ -41,7 +52,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.precision import E4M3, as_dtype
+from repro_torch.core.precision import E4M3, as_dtype, cast
 from repro_torch.engine import Engine
 from repro_torch.models import attention, common, ffn, moe, rglru, xlstm
 from repro_torch.models.attention import AttnConfig, PagedInfo
@@ -89,13 +100,13 @@ class Transformer:
 
     def __init__(self, cfg: ModelConfig, *, engine: Engine, device,
                  fused_decode: bool = False):
-        if (cfg.family not in ("dense", "moe", "hybrid", "ssm")
+        if (cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
                 or not set(cfg.block_pattern) <= ATTN_KINDS | RECURRENT_KINDS
-                or cfg.is_encoder_decoder or cfg.norm != "rmsnorm"):
+                or cfg.norm not in ("rmsnorm", "layernorm")):
             raise NotImplementedError(
-                f"{cfg.name}: the port covers the decoder-only families (dense, dense-MoE, "
-                "recurrent and hybrid: layers 'attn', 'attn_local', 'rglru', 'mlstm' and "
-                "'slstm', RMSNorm) so far"
+                f"{cfg.name}: the port covers the families dense, moe, hybrid, ssm, audio and "
+                "vlm, the layers 'attn', 'attn_local', 'rglru', 'mlstm' and 'slstm', and "
+                "RMSNorm and LayerNorm"
             )
         self.cfg = cfg
         self.engine = engine
@@ -111,6 +122,8 @@ class Transformer:
         self.kinds = [self.pattern[i % len(self.pattern)] for i in range(cfg.n_layers)]
         self.layer_cfgs = [self.attn_cfg(kind) if kind in ATTN_KINDS else None
                            for kind in self.kinds]
+        # The encoder's self-attention and the decoder's cross-attention.
+        self.enc_cfg = self.attn_cfg("attn") if cfg.is_encoder_decoder else None
         xl_cfg = xlstm.XLSTMConfig(cfg.d_model, cfg.n_heads)
         self.cells = {
             "rglru": _Cell(rglru.init, rglru.apply_scan, rglru.apply_decode, rglru.init_state,
@@ -146,37 +159,57 @@ class Transformer:
         reference's parameters with :func:`repro_torch.convert.params_from_jax`)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
+        d = cfg.d_model
         params: Params = {
-            "embed": common.embed_init(gen, cfg.vocab_size, cfg.d_model, self.dtype, dev),
-            "layers": [],
-            "final_norm": common.norm_init(cfg.d_model, dev),
+            "embed": common.embed_init(gen, cfg.vocab_size, d, self.dtype, dev),
+            "layers": [self._init_layer(gen, kind, acfg, cfg.is_encoder_decoder)
+                       for kind, acfg in zip(self.kinds, self.layer_cfgs)],
+            "final_norm": common.norm_init(d, dev, cfg.norm),
         }
-        for kind, acfg in zip(self.kinds, self.layer_cfgs):
-            layer = {"norm1": common.norm_init(cfg.d_model, dev)}
-            if acfg is not None:
-                layer["attn"] = attention.init(gen, cfg.d_model, acfg, self.dtype, dev)
-            else:
-                cell = self.cells[kind]
-                layer["cell"] = cell.init(gen, cell.cfg, self.dtype, dev)
-            if cfg.d_ff > 0:
-                layer["norm2"] = common.norm_init(cfg.d_model, dev)
-                if cfg.is_moe:
-                    layer["moe"] = moe.init(gen, self.moe_cfg, self.dtype, dev)
-                else:
-                    layer["ffn"] = ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev, cfg.act)
-            params["layers"].append(layer)
         if not cfg.tie_embeddings:
-            params["head"] = common.dense_init(gen, cfg.d_model, cfg.vocab_size, self.dtype, dev)
+            params["head"] = common.dense_init(gen, d, cfg.vocab_size, self.dtype, dev)
+        if cfg.family == "vlm":
+            params["vis_proj"] = common.dense_init(gen, d, d, self.dtype, dev)
+        if cfg.is_encoder_decoder:
+            params["encoder"] = [self._init_layer(gen, "attn", self.enc_cfg, False)
+                                 for _ in range(cfg.n_encoder_layers)]
+            params["enc_final_norm"] = common.norm_init(d, dev, cfg.norm)
+            params["enc_proj"] = common.dense_init(gen, d, d, self.dtype, dev)
         return params
 
+    def _init_layer(self, gen, kind: str, acfg, cross: bool) -> Params:
+        cfg, dev = self.cfg, self.device
+        layer = {"norm1": common.norm_init(cfg.d_model, dev, cfg.norm)}
+        if acfg is not None:
+            layer["attn"] = attention.init(gen, cfg.d_model, acfg, self.dtype, dev)
+        else:
+            cell = self.cells[kind]
+            layer["cell"] = cell.init(gen, cell.cfg, self.dtype, dev)
+        if cross:
+            layer["norm_x"] = common.norm_init(cfg.d_model, dev, cfg.norm)
+            layer["cross"] = attention.init(gen, cfg.d_model, self.enc_cfg, self.dtype, dev)
+        if cfg.d_ff > 0:
+            layer["norm2"] = common.norm_init(cfg.d_model, dev, cfg.norm)
+            if cfg.is_moe:
+                layer["moe"] = moe.init(gen, self.moe_cfg, self.dtype, dev)
+            else:
+                layer["ffn"] = ffn.init(gen, cfg.d_model, cfg.d_ff, self.dtype, dev, cfg.act)
+        return layer
+
     # -- blocks ---------------------------------------------------------------
+    def _norm(self, p, x):
+        return common.norm_apply(p, x, self.cfg.norm)
+
     def _block(self, i: int, lp, x, positions, engine: Engine, *, store=None,
-               paged: PagedInfo | None = None, decode: bool = False, aux: bool = False):
-        """Layer ``i``: its attention or recurrent cell, then its FFN.
-        ``store`` is the layer's serving state (the KV pool with ``paged``,
-        the ring buffer or state rows of static-batch serving without it;
-        None in training). Returns (x, the MoE aux loss or None)."""
-        h = common.norm_apply(lp["norm1"], x)
+               paged: PagedInfo | None = None, decode: bool = False, aux: bool = False,
+               enc=None):
+        """Layer ``i``: its attention or recurrent cell, its cross-attention
+        (an encoder-decoder's; ``enc`` = (encoder output or None, its
+        positions)), then its FFN. ``store`` is the layer's serving state
+        (the KV pool with ``paged``, the ring buffer or state rows of
+        static-batch serving without it; None in training). Returns (x, the
+        MoE aux loss or None)."""
+        h = self._norm(lp["norm1"], x)
         acfg = self.layer_cfgs[i]
         if acfg is not None:
             h = attention.apply(lp["attn"], h, positions, acfg, engine,
@@ -186,15 +219,74 @@ class Transformer:
             h = self._recurrent(self.cells[self.kinds[i]], lp["cell"], h, engine, store, paged,
                                 decode)
         x = x + h
+        if "cross" in lp:
+            x = x + self._cross(lp["cross"], self._norm(lp["norm_x"], x), positions, engine,
+                                store, enc)
         aux_loss = None
         if "norm2" in lp:
-            h2 = common.norm_apply(lp["norm2"], x)
+            h2 = self._norm(lp["norm2"], x)
             if "moe" in lp:
                 h2, aux_loss = moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=aux)
             else:
                 h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
             x = x + h2
         return x, aux_loss
+
+    def _cross(self, p, h, positions, engine: Engine, store, enc):
+        """The cross-attention block over the encoder's output (the
+        reference's ``_apply_block``). Given the encoder output, its K and
+        V are projected, stored rounded to the KV format in the static
+        cache's ``cross_k``/``cross_v`` (a prefill), and attended in the
+        compute format unrounded; without it (a decode step) they are read
+        back from the cache."""
+        enc_out, enc_pos = enc
+        compute = engine.policy.compute
+        if enc_out is None:
+            ck, cv = store["cross_k"].to(compute), store["cross_v"].to(compute)
+        else:
+            acfg = self.enc_cfg
+            shape = enc_out.shape[:2] + (acfg.n_kv_heads, acfg.head_dim)
+            ck = common.dense_apply(p["k"], enc_out, engine).reshape(shape)
+            cv = common.dense_apply(p["v"], enc_out, engine).reshape(shape)
+            if store is not None:
+                store["cross_k"].copy_(cast(ck, store["cross_k"].dtype))
+                store["cross_v"].copy_(cast(cv, store["cross_v"].dtype))
+            ck, cv = ck.to(compute), cv.to(compute)
+        return attention.apply(p, h, positions, self.enc_cfg, engine, cross_kv=(ck, cv, enc_pos))
+
+    def _enc_block(self, lp, x, positions, engine: Engine):
+        """One encoder layer: non-causal self-attention, then its FFN."""
+        x = x + attention.apply(lp["attn"], self._norm(lp["norm1"], x), positions, self.enc_cfg,
+                                engine, causal=False)
+        if "norm2" in lp:
+            x = x + ffn.apply(lp["ffn"], self._norm(lp["norm2"], x), self.cfg.act, engine)
+        return x
+
+    def _encode(self, params, frames: torch.Tensor, engine: Engine, remat: bool = False):
+        """The encoder on stub frame embeddings (B, Se, d): ``enc_proj`` on
+        the frames in the compute format, the encoder layers, then
+        ``enc_final_norm``. Returns (output, positions (Se,))."""
+        x = common.dense_apply(params["enc_proj"], frames.to(engine.policy.compute), engine)
+        pos = torch.arange(frames.shape[1], device=x.device)
+        for lp in params["encoder"]:
+            if remat:
+                x = checkpoint(self._enc_block, lp, x, pos, engine, use_reentrant=False)
+            else:
+                x = self._enc_block(lp, x, pos, engine)
+        return self._norm(params["enc_final_norm"], x), pos
+
+    def _frontends(self, params, batch, x, engine: Engine, remat: bool = False):
+        """The stub modality inputs of ``batch``: the VLM's ``vis_proj``
+        patches (B, P, d) put ahead of the token embeddings ``x``, and the
+        encoder-decoder's ``frames`` through the encoder. Returns (x, enc),
+        enc = (encoder output, positions) or None."""
+        if self.cfg.family == "vlm":
+            vis = common.dense_apply(params["vis_proj"],
+                                     batch["vis_embeds"].to(engine.policy.compute), engine)
+            x = torch.cat([vis, x], dim=1)
+        enc = (self._encode(params, batch["frames"], engine, remat)
+               if self.cfg.is_encoder_decoder else None)
+        return x, enc
 
     def _recurrent(self, cell: _Cell, p, h, engine: Engine, store, paged, decode: bool):
         """One recurrent cell under every mode (the reference's
@@ -256,25 +348,29 @@ class Transformer:
 
     # -- training -------------------------------------------------------------
     def forward(self, params, batch, *, engine: Engine | None = None):
-        """Teacher-forced forward. batch: {"tokens": (B, S) int64}. Returns
-        (hidden (B, S, d) after the final norm, aux loss): the sum of the
-        MoE layers' load-balancing losses, an fp32 zero without experts.
-        Recurrent layers run their scans. ``engine`` overrides the model's
-        engine for this call (the step factories' plumbing)."""
+        """Teacher-forced forward. batch: {"tokens": (B, S) int64}, with
+        "vis_embeds" (B, P, d) for the VLM and "frames" (B, Se, d) for the
+        encoder-decoder. Returns (hidden (B, S, d) of the tokens after the
+        final norm, aux loss): the sum of the MoE layers' load-balancing
+        losses, an fp32 zero without experts. Recurrent layers run their
+        scans. ``engine`` overrides the model's engine for this call (the
+        step factories' plumbing)."""
         eng = engine or self.engine
+        remat = self.cfg.remat == "block"
         tokens = batch["tokens"]
-        x = self.embed(params, tokens, eng)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, enc = self._frontends(params, batch, self.embed(params, tokens, eng), eng, remat)
+        positions = torch.arange(x.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, lp in enumerate(params["layers"]):
-            if self.cfg.remat == "block":
+            if remat:
                 x, layer_aux = checkpoint(self._block, i, lp, x, positions, eng, aux=True,
-                                          use_reentrant=False)
+                                          enc=enc, use_reentrant=False)
             else:
-                x, layer_aux = self._block(i, lp, x, positions, eng, aux=True)
+                x, layer_aux = self._block(i, lp, x, positions, eng, aux=True, enc=enc)
             if layer_aux is not None:
                 aux = aux + layer_aux
-        return common.norm_apply(params["final_norm"], x), aux
+        h = self._norm(params["final_norm"], x)
+        return h[:, x.shape[1] - tokens.shape[1]:], aux
 
     # -- serving state --------------------------------------------------------
     def cb_profile(self) -> CBProfile:
@@ -290,12 +386,23 @@ class Transformer:
         return CBProfile(needs_kv_pages=bool(attn_kinds), kv_window=window,
                          has_state_rows=any(k in RECURRENT_KINDS for k in self.pattern))
 
+    def supports_cb(self) -> bool:
+        """Continuous batching covers the decoder-only families; the
+        encoder-decoder and VLM families need their modality inputs and
+        stay static-batch, as in the reference."""
+        return not self.cfg.is_encoder_decoder and self.cfg.family not in ("vlm", "audio")
+
     def init_state_store(self, num_slots: int, num_pages: int, page_size: int):
         """Each layer's serving state: an attention layer's flat KV token
         pool (num_pages * page_size slots, shaped by its own attention
         config; page 0 is the serving layer's null page), a recurrent
         layer's ``{"state": rows}``, one fp32 (num_slots, ...) tensor per
-        state leaf."""
+        state leaf. Raises ``NotImplementedError`` where
+        :meth:`supports_cb` is false."""
+        if not self.supports_cb():
+            raise NotImplementedError(
+                f"{self.cfg.name}: continuous batching covers the decoder-only families "
+                f"(family={self.cfg.family}); use the static-batch path (generate_static)")
         n_tok = num_pages * page_size
         return [attention.init_paged_pool(n_tok, acfg, self.kv_dtype, self.device)
                 if acfg is not None else
@@ -350,7 +457,7 @@ class Transformer:
                           active=torch.ones((1,), dtype=torch.bool, device=dev))
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, pos[None].expand(b, s), pools, paged)
-        x = common.norm_apply(params["final_norm"], x)
+        x = self._norm(params["final_norm"], x)
         return self.logits(params, x[:, length - 1:length])[:, 0]
 
     def _prefill_cb_batched(self, params, tokens, pools, page_rows, slots, starts, lengths,
@@ -383,11 +490,13 @@ class Transformer:
         i, which judges draft i + 1.
 
         ``commit`` is the reference's switch for recurrent state rows: each
-        row continues from its slot's state, and only ``commit=True`` (the
-        pass that scans the accepted tokens in) writes the rows back. That
-        pass is not ported yet, so a model with state rows raises there."""
-        if commit and self.cb_profile().has_state_rows:
-            raise NotImplementedError("the state-row commit pass is not ported yet")
+        row continues from its slot's state and scans exactly ``lengths``
+        tokens, and only ``commit=True`` writes the active rows back. The
+        verify pass runs with ``commit=False`` (every state row stays as it
+        was, bit for bit); the commit pass re-runs the same step with
+        ``lengths`` clamped to accepted + 1, which scans the accepted
+        tokens in and rewrites their K/V with the same shapes, so through
+        the same GEMM schedules."""
         slots = torch.arange(tokens.shape[0], device=tokens.device)
         x = self._chunk_rows(params, tokens, pools, page_table, slots, seq_lens, lengths,
                              active, page_size=page_size, commit=commit)
@@ -420,7 +529,7 @@ class Transformer:
                           active=act if commit else torch.zeros_like(act))
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, pos, pools, paged)
-        return common.norm_apply(params["final_norm"], x)
+        return self._norm(params["final_norm"], x)
 
     @staticmethod
     def _read_idx(page_rows: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -455,44 +564,59 @@ class Transformer:
         )
         x = self.embed(params, tokens)
         x = self._run_stack(params, x, lens[:, None], pools, paged, decode=True)
-        x = common.norm_apply(params["final_norm"], x)
+        x = self._norm(params["final_norm"], x)
         return self.logits(params, x)[:, 0]
 
 
     # -- static-batch serving (ring-buffer cache) -----------------------------
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def init_cache(self, batch: int, max_len: int, cross_len: int = 0) -> dict:
         """The cache of static-batch serving: a ring buffer an attention
         layer, of ``max_len`` positions (a local layer's of at most its
-        window, as the reference allocates it), a recurrent layer's state a
-        batch row, and the batch's shared position."""
-        return {"pos": 0, "layers": [
-            attention.init_cache(batch, min(max_len, acfg.window or max_len), acfg,
-                                 self.kv_dtype, self.device)
-            if acfg is not None else
-            {"state": self.cells[kind].init_state(batch, self.cells[kind].cfg, self.device)}
-            for kind, acfg in zip(self.kinds, self.layer_cfgs)]}
+        window, as the reference allocates it; a VLM's ``max_len`` counts
+        its image prefix), a recurrent layer's state a batch row, and the
+        batch's shared position. With ``cross_len`` (an encoder-decoder's
+        frames) each layer also holds its cross-attention K/V (B,
+        cross_len, Hkv, hd) in the KV format, at positions ``enc_pos``."""
+        layers = []
+        for kind, acfg in zip(self.kinds, self.layer_cfgs):
+            if acfg is not None:
+                c = attention.init_cache(batch, min(max_len, acfg.window or max_len), acfg,
+                                         self.kv_dtype, self.device)
+            else:
+                c = {"state": self.cells[kind].init_state(batch, self.cells[kind].cfg,
+                                                          self.device)}
+            if cross_len:
+                shape = (batch, cross_len, self.enc_cfg.n_kv_heads, self.enc_cfg.head_dim)
+                c["cross_k"] = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
+                c["cross_v"] = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
+            layers.append(c)
+        return {"pos": 0, "layers": layers,
+                "enc_pos": torch.arange(max(cross_len, 1), device=self.device)}
 
     def prefill(self, params, batch, cache: dict) -> torch.Tensor:
         """Run the prompt through the decoder, filling the cache in place.
-        batch: {"tokens": (B, S)}. Returns logits (B, 1, V) at the last
-        position."""
+        batch: {"tokens": (B, S)}, with the VLM's "vis_embeds" or the
+        encoder-decoder's "frames" (the cache's ``cross_len`` frames).
+        Returns logits (B, 1, V) at the last position."""
         tokens = batch["tokens"]
-        x = self.embed(params, tokens)
-        positions = cache["pos"] + torch.arange(tokens.shape[1], device=tokens.device)
+        x, enc = self._frontends(params, batch, self.embed(params, tokens), self.engine)
+        positions = cache["pos"] + torch.arange(x.shape[1], device=tokens.device)
         for i, (lp, c) in enumerate(zip(params["layers"], cache["layers"])):
-            x, _ = self._block(i, lp, x, positions, self.engine, store=c)
-        x = common.norm_apply(params["final_norm"], x)
-        cache["pos"] += tokens.shape[1]
+            x, _ = self._block(i, lp, x, positions, self.engine, store=c, enc=enc)
+        x = self._norm(params["final_norm"], x)
+        cache["pos"] += x.shape[1]
         return self.logits(params, x[:, -1:])
 
     def decode_step(self, params, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         """One-token decode of the whole batch. tokens: (B, 1). Returns
-        logits (B, 1, V); the cache is updated in place."""
+        logits (B, 1, V); the cache is updated in place (an
+        encoder-decoder's cross K/V are read from it)."""
         x = self.embed(params, tokens)
         positions = cache["pos"] + torch.arange(1, device=tokens.device)
+        enc = (None, cache["enc_pos"]) if self.cfg.is_encoder_decoder else None
         for i, (lp, c) in enumerate(zip(params["layers"], cache["layers"])):
-            x, _ = self._block(i, lp, x, positions, self.engine, store=c, decode=True)
-        x = common.norm_apply(params["final_norm"], x)
+            x, _ = self._block(i, lp, x, positions, self.engine, store=c, decode=True, enc=enc)
+        x = self._norm(params["final_norm"], x)
         cache["pos"] += 1
         return self.logits(params, x)
 

@@ -5,7 +5,10 @@ Every hyperparameter and every scalar of the update (bias corrections,
 clip scale, learning rate) is computed in fp32, as the reference does, and
 the update itself runs in fp32 and is cast back to each parameter's format.
 The update is functional: it returns new parameters and moments and
-leaves its inputs as they were.
+leaves its inputs as they were. It is elementwise, so it runs over each
+leaf ``CHUNK`` elements at a time (the same bits): the fp32 temporaries
+of a 128256 x 8192 table's update (4.2 GB each) would not fit beside
+the old and new moments of a model that fills the card.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch.core.tree import leaves, tree_map
 
 _F32 = torch.float32
+CHUNK = 1 << 24
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -54,21 +58,37 @@ class AdamW:
         fp32 tensors; torch treats those on the host as scalars beside
         tensors on the card."""
         step_f = _f32(step + 1)
+        scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(_f32(self.clip_norm) / torch.clamp(gnorm, min=1e-9), max=1.0)
-            grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
         b1, b2 = _f32(self.b1), _f32(self.b2)
         c1, c2 = _f32(1 - self.b1), _f32(1 - self.b2)
-        mu = tree_map(lambda m, g: b1 * m + c1 * g.float(), state["mu"], grads)
-        nu = tree_map(lambda v, g: b2 * v + c2 * g.float().square(), state["nu"], grads)
         bc1, bc2 = 1 - b1 ** step_f, 1 - b2 ** step_f
         lr, wd, eps = self._lr(step), _f32(self.weight_decay), _f32(self.eps)
 
-        def upd(p, m, v):
+        def upd(p, g, m, v):
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            m = b1 * m + c1 * g.float()
+            v = b2 * v + c2 * g.float().square()
             u = (m / bc1) / ((v / bc2).sqrt() + eps) + wd * p.float()
-            return (p.float() - lr * u).to(p.dtype)
+            return (p.float() - lr * u).to(p.dtype), m, v
 
-        return tree_map(upd, params, mu, nu), {"mu": mu, "nu": nu}
+        def leaf(p, g, m, v):
+            ins = (p, g, m, v)
+            if p.numel() <= CHUNK or not all(t.is_contiguous() for t in ins):
+                return upd(*ins)
+            outs = tuple(torch.empty_like(t) for t in (p, m, v))
+            flat_in = [t.view(-1) for t in ins]
+            flat_out = [t.view(-1) for t in outs]
+            for i in range(0, p.numel(), CHUNK):
+                for dst, src in zip(flat_out, upd(*(t[i:i + CHUNK] for t in flat_in))):
+                    dst[i:i + CHUNK] = src
+            return outs
+
+        new = tree_map(leaf, params, grads, state["mu"], state["nu"])
+        pick = lambda j: tree_map(lambda _, out: out[j], params, new)  # noqa: E731
+        return pick(0), {"mu": pick(1), "nu": pick(2)}
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):

@@ -43,8 +43,10 @@ Recurrent models (recurrentgemma, xlstm) keep per-slot state rows in the
 StateStore beside or instead of KV pages; the prefix cache turns itself
 off for them, a model without attention holds no pages at all, and where
 every attention layer is windowed, pages that slide out of the window go
-back to the pool mid-request. Speculative decoding with state rows raises
-when the server is built.
+back to the pool mid-request. Under speculative decoding a target with
+state rows takes a commit pass after each round's rejection sampling (the
+verify pass leaves its rows as they were), and a model drafter with state
+rows snapshots them around its draft steps (``spec/drafter.py``).
 
 The static-batch path (:func:`generate_static`) lives here too: the
 ring-buffer baseline that ``launch/serve.py --mode static`` runs.
@@ -223,11 +225,6 @@ class Server:
                              and not self.profile.has_state_rows)
         if draft_model is not None and spec is None:
             spec = SpecConfig()
-        if spec is not None and (self.profile.has_state_rows or (
-                draft_model is not None and draft_model.cb_profile().has_state_rows)):
-            raise NotImplementedError(
-                "speculative decoding with recurrent state rows (the verify step's state-commit "
-                "pass, the drafter's state-row snapshots) is not ported yet")
         self.engine = EngineCore(model, params, config, self.profile, seed=seed)
         self.spec = spec
         self.drafter = self.verifier = None
@@ -574,8 +571,13 @@ class Server:
 
         The target's K/V written past the accepted prefix needs no undo:
         ``seq_lens`` does not advance over it, so it is never read back, and
-        the next round overwrites it. The drafter rolls itself back the same
-        way (``drafter.py``)."""
+        the next round overwrites it. The target's state rows take the
+        verifier's commit pass, over accepted + 1 tokens a row, before the
+        round's one copy to the host. The drafter rolls itself back
+        (``drafter.py``). Window recycling keeps the reference's rule: the
+        verify pass writes at the committed length and past it, and only
+        pages wholly below the committed length less the window go back to
+        the pool, after the round."""
         spec = self.spec
         decoding = [(slot, req) for slot, req in self.scheduler.running.items()
                     if req.decoding]
@@ -603,11 +605,12 @@ class Server:
             tokens[slot, 0] = req.out_tokens[-1]
             m = int(k_eff[slot])
             tokens[slot, 1:1 + m] = proposal.tokens[slot, :m]
-            grown = self.scheduler.ensure_pages(req, int(self.cache.seq_lens[slot]) + m + 1)
-            self._mirror_pages(req, grown)
+            self._grow_pages(req, int(self.cache.seq_lens[slot]) + m + 1)
         logits = self.verifier.verify(self.cache.pools, tokens, self.cache.page_table,
                                       self.cache.seq_lens, lengths, active, params_list)
         out, acc, finite = self.verifier.sample(logits, proposal.logits, gen)
+        if self.verifier.needs_state_commit:
+            self.verifier.commit_state(self.cache.pools, acc)
         res = torch.cat([out.flatten(), acc, finite.to(torch.int32)[None]]).cpu().numpy()
         out, acc = res[:out.numel()].reshape(out.shape), res[out.numel():-1]
         eng, st = self.engine, self.stats
@@ -724,13 +727,19 @@ def generate_static(model, params, batch: dict, *, max_new_tokens: int,
     """Static-batch generation on the ring-buffer cache: every sequence
     shares one position, and the batch runs ``max_new_tokens`` steps
     whatever each sequence needs. batch: {"tokens": (B, T)} on the model's
-    device. Returns (generated (B, max_new_tokens) numpy array,
+    device, with the VLM's "vis_embeds" (B, P, d) or the encoder-decoder's
+    "frames" (B, Se, d). The ring holds the image prefix too (P + T +
+    max_new_tokens positions: the reference's launcher sizes it without P,
+    so its decode steps overwrite the patches), and the cross K/V Se
+    frames. Returns (generated (B, max_new_tokens) numpy array,
     :class:`StaticStats`); steady-state tok/s excludes the prefill and the
     first decode step."""
     tokens = batch["tokens"]
     b, t = tokens.shape
     dev = model.device
-    cache = model.init_cache(b, t + max_new_tokens)
+    prefix = batch["vis_embeds"].shape[1] if "vis_embeds" in batch else 0
+    cross = batch["frames"].shape[1] if "frames" in batch else 0
+    cache = model.init_cache(b, prefix + t + max_new_tokens, cross_len=cross)
     gen = torch.Generator(device=dev).manual_seed(seed)
     sp = {k: torch.from_numpy(v).to(dev) for k, v in stack_params([sampling] * b).items()}
 
@@ -738,7 +747,7 @@ def generate_static(model, params, batch: dict, *, max_new_tokens: int,
         return sample_logits(logits, gen, **sp)[:, None]
 
     t0 = time.perf_counter()
-    tok = pick(model.prefill(params, {"tokens": tokens}, cache)[:, -1])
+    tok = pick(model.prefill(params, batch, cache)[:, -1])
     _wait(dev)
     prefill_s = time.perf_counter() - t0
     out = [tok]

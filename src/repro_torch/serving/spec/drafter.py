@@ -18,12 +18,17 @@ sampled and fed back on the card.
 
 Rollback. The reference snapshots the drafter's pools before drafting and
 restores them after, which costs nothing because JAX arrays are
-immutable. The port's pools are updated in place and are not copied: the
-draft steps write K/V at positions base .. base + k - 2 while the
-``seq_lens`` mirror stays at base, and every read masks at the committed
-length. The next round's catch-up rewrites those positions with the
-tokens the target really emitted before anything reads them as valid.
-The drafter holds no state rows, so that is the whole rollback.
+immutable. The port's pools are updated in place. Its KV pages are not
+copied: the draft steps write K/V at positions base .. base + k - 2 while
+the ``seq_lens`` mirror stays at base, and every read masks at the
+committed length; the next round's catch-up rewrites those positions with
+the tokens the target really emitted before anything reads them as valid.
+Recurrent state rows have no such mask, and the draft steps commit them
+in place (inside the decode graph), so a drafter with state rows clones
+every row leaf before its k - 1 draft steps and copies the clones back
+into the same storage after them: the graphs hold the leaves' addresses,
+so the leaves are never rebound. The catch-up (``verify_cb`` with
+``commit=True``) then scans the tokens the target emitted into them.
 """
 from __future__ import annotations
 
@@ -91,10 +96,11 @@ class NgramDrafter:
 class ModelDrafter:
     """A small model proposing drafts from its own StateStore, whose pool
     holds ``max_seq_len + k`` tokens a slot (draft-time writes run up to
-    k - 1 past the committed length). On the CPU nothing is captured; on
-    the card ``graph = False`` on both steps, set before the first round,
-    runs them eagerly. A model with state rows would need snapshots: its
-    catch-up (``verify_cb`` with ``commit=True``) raises."""
+    k - 1 past the committed length; a model without attention holds no
+    pages). On the CPU nothing is captured; on the card ``graph = False``
+    on both steps, set before the first round, runs them eagerly. A model
+    with state rows snapshots them around the draft steps
+    (:meth:`snapshot`, :meth:`restore`)."""
 
     def __init__(self, model, params, *, num_slots: int, page_size: int, max_seq_len: int,
                  k: int, draft_chunk: int = 16):
@@ -106,10 +112,14 @@ class ModelDrafter:
         # and the target's token): never chunk below that, or every round
         # pays two catch-up steps.
         self.chunk = max(int(draft_chunk), k + 1)
+        self.profile = model.cb_profile()
         width = -(-(max_seq_len + k) // page_size)
-        self.store = StateStore.build(model, num_slots=num_slots,
-                                      num_pages=num_slots * width + 1,
+        num_pages = num_slots * width + 1 if self.profile.needs_kv_pages else 2
+        self.store = StateStore.build(model, num_slots=num_slots, num_pages=num_pages,
                                       page_size=page_size, pages_per_slot=width)
+        # Each recurrent layer's state-row leaves, in place for the snapshot.
+        self._rows = [leaf for pool in self.store.pools if "state" in pool
+                      for leaf in pool["state"].values()]
         self._pages: dict[int, list[int]] = {s: [] for s in range(num_slots)}
         self._on_card = model.device.type == "cuda"
         graph = model.engine.backend == "cuda"
@@ -154,7 +164,18 @@ class ModelDrafter:
         for slot in range(self.store.num_slots):
             self.release_slot(slot)
 
+    def snapshot(self) -> list[torch.Tensor]:
+        """Clones of the state-row leaves (none without state rows)."""
+        return [leaf.clone() for leaf in self._rows]
+
+    def restore(self, snap: list[torch.Tensor]) -> None:
+        """Copy a :meth:`snapshot` back into the leaves' own storage."""
+        for leaf, saved in zip(self._rows, snap):
+            leaf.copy_(saved)
+
     def _ensure_pages(self, slot: int, end_position: int) -> None:
+        if not self.profile.needs_kv_pages:
+            return
         need = self.store.allocator.pages_for(end_position)
         pages = self._pages[slot]
         while len(pages) < need:
@@ -192,6 +213,7 @@ class ModelDrafter:
             logits, generator, temperature=d["temperature"], top_k=d["top_k"], top_p=d["top_p"])
         cur = sample(q0)
         drafts, logits_per_pos = [cur], [q0]
+        snap = self.snapshot()
         for i in range(1, k):
             if i > 1:
                 load_decode(i - 1)
@@ -200,6 +222,7 @@ class ModelDrafter:
             logits_per_pos.append(logits)
             cur = sample(logits)
             drafts.append(cur)
+        self.restore(snap)
         tokens = torch.stack(drafts, dim=1).cpu().numpy()
         self._staged = []
         counts = np.where(drafting, np.minimum(want, k), 0).astype(np.int32)

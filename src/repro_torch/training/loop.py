@@ -83,7 +83,9 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
                     backend: str | None = None) -> Callable:
     """train_step(state, batch) -> (state, metrics).
 
-    ``batch["tokens"]`` may be a numpy array; it goes to the model's device.
+    ``batch`` ("tokens", and the stub "frames" or "vis_embeds" of the
+    encoder-decoder and VLM families) may hold numpy arrays; they go to the
+    model's device.
     When the global gradient norm or the loss is not finite, the anomaly
     guard keeps the parameters and moments (no update is computed) and
     counts the step in ``skipped``; the step counter advances either way.
@@ -101,17 +103,20 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, unflatten(params, grads)
 
     def train_step(state: TrainState, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=model.device).long()
+        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+        batch["tokens"] = batch["tokens"].long()
         if grad_accum > 1:
             loss, grads = 0.0, tree_map(torch.zeros_like, state.params)
-            for mb in tokens.reshape(grad_accum, tokens.shape[0] // grad_accum, -1):
-                lv, metrics, g = grad_fn(state.params, {"tokens": mb})
+            micro = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])
+                     for k, v in batch.items()}
+            for i in range(grad_accum):
+                lv, metrics, g = grad_fn(state.params, {k: v[i] for k, v in micro.items()})
                 loss = loss + lv
                 grads = tree_map(torch.add, grads, g)
             loss = loss / grad_accum
             grads = tree_map(lambda g: g / grad_accum, grads)
         else:
-            loss, metrics, grads = grad_fn(state.params, {"tokens": tokens})
+            loss, metrics, grads = grad_fn(state.params, batch)
 
         gnorm = global_norm(grads)
         if not bool(torch.isfinite(gnorm) & torch.isfinite(loss)):

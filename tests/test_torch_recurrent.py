@@ -469,13 +469,22 @@ def test_cb_profile_equals_the_references(arch):
 
 
 def test_speculative_decoding_with_state_rows_raises_when_built():
+    """The servers that raised while speculation over state rows was not
+    ported now build and run a round: recurrentgemma as the n-gram target
+    (its verifier takes the commit pass), and recurrentgemma as the
+    drafter of a dense target of its vocabulary (the drafter snapshots its
+    rows). tests/test_torch_spec_state.py holds them to the reference."""
     _, _, tmodel, tparams = _models("recurrentgemma-2b")
     cfg = ServerConfig(num_slots=1, page_size=4, max_seq_len=16)
-    with pytest.raises(NotImplementedError, match="state rows"):
-        Server(tmodel, tparams, cfg, device="cpu", spec=SpecConfig(k=2))
     _, _, gemma, gparams = _models_dense()
-    with pytest.raises(NotImplementedError, match="state rows"):
-        Server(gemma, gparams, cfg, device="cpu", draft_model=tmodel, draft_params=tparams)
+    for server in (Server(tmodel, tparams, cfg, device="cpu", spec=SpecConfig(k=2)),
+                   Server(gemma, gparams, cfg, device="cpu", draft_model=tmodel,
+                          draft_params=tparams)):
+        server.submit([3, 5, 3, 5, 3], max_new_tokens=4)
+        (req,) = server.run().values()
+        assert req.num_generated == 4 and server.stats.spec_steps > 0
+    assert server.verifier.needs_state_commit is False
+    assert server.drafter._rows and server.drafter.profile.needs_kv_pages
 
 
 def test_recurrentgemma_fp8_params_raise_in_both_packages():
