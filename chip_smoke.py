@@ -55,13 +55,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ("torch") on the card, under fp32 and under redmule_hfp8;
 8. serve: granite-3-8b at full width and depth (40 layers) under
    redmule_hfp8 with E4M3 weights and KV pages, 8 requests through the
-   port's ``Server`` with the decode step as a CUDA graph, with the
-   kernels' launch counts read around every prefill and around the decode
-   step's eager warm-up and its capture (a replay ticks no counter; the
-   replays must equal the decode steps): each decode GEMM on the
-   small-row schedule, each prefill GEMM on the tensor cores but the last
-   token's logits, one paged-decode launch a layer a decode step (and its
-   split count);
+   port's ``Server`` (traced: phase 18(b)) with the decode step as a CUDA
+   graph, with the kernels' launch counts read around every prefill and
+   around the decode step's eager warm-up and its capture (a replay ticks
+   no counter; the replays must equal the decode steps): each decode GEMM
+   on the small-row schedule, each prefill GEMM on the tensor cores but the
+   last token's logits, one paged-decode launch a layer a decode step (and
+   its split count);
 12. serving features, right after phase 8 on its model: (a) the decode
     graph against the eager decode step at dispatch depths 0, 1 and 2,
     tokens and every decode step's logits bitwise; (b) chunked prefill at
@@ -160,6 +160,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
     phase 15(d), seamless at 24 + 24 layers and internvl2 at the depth
     whose training state fits through the train launcher; the new shapes
     in the kernel line (11);
+18. observability (``repro_torch.obs``): (a) before phase 8, granite-3-8b
+    at full width with 2 layers, phase 8's prompts traced and untraced: the
+    same tokens and decode-graph replays, the trace through
+    ``scripts/validate_trace.py`` (a process of its own), and an eager run
+    under a roofline recorder (``roofline/cost.py``) counting every kernel
+    call; (b) phase 8's server carries a ``JsonTracer``: its registry
+    against its stats and the run (one idle wait a harvest, a step
+    observation a step, a TTFT a request), its trace validated, the host's
+    wait share read from the "in flight" track; after phase 12, the serve
+    run with the tracer off, on, on, off (decode tok/s, the same tokens);
+    phase 14(b)'s first launcher call (chatglm3-6b, full depth) with
+    ``--trace-out``, ``--metrics-out`` and ``--profile LOGDIR`` into
+    ``build/chip_smoke_obs/``: the trace validated, the metrics' counters
+    equal to the printed stats, the profile naming the ``redmule_gemm`` and
+    ``paged_decode`` kernels; (c) every bound of the kernel line is
+    ``roofline/cost.py``'s count;
+19. the paper's workloads, after phase 17(c): (a) each example's
+    ``main`` (``repro_torch.examples``) on the card with its own asserts,
+    the GEMM-Op launches read around each (the semiring examples all on
+    the SIMT schedule); (b) every GEMM of ``paper_tinyml.training_gemms``
+    for ResNet8, MobileNetV2 and TinyTransformer under redmule_fp16 and
+    redmule_hfp8 through ``Engine.matmul``, within ``GEMM_TOL`` of the
+    plain backend, timed as graph replays beside its recorded bound and
+    ``torch.matmul``; one summed kernel-line row a network, policy and schedule;
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -201,11 +225,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
-FP16_FLOP_S = 989e12  # H100 SXM dense fp16 tensor-core peak
-FP8_FLOP_S = 1979e12  # H100 SXM dense fp8 tensor-core peak
-FP32_FLOP_S = 67e12  # H100 SXM fp32 peak outside the tensor cores
-
 GEMM_TOL = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
 
 
@@ -213,18 +232,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.float(), want.float()
     return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
-
-
-def mma_peak(*operands: torch.Tensor) -> float:
-    """The tensor-core peak for these (mul, add) operands: fp8 when every
-    operand is fp8 (E4M3 or E5M2, exact products summed in fp32, as the
-    fp8 tensor cores do), else fp16."""
-    from repro_torch.core.precision import FP8_DTYPES
-
-    return FP8_FLOP_S if all(t.dtype in FP8_DTYPES for t in operands) else FP16_FLOP_S
 
 
 def time_ms(fn, iters: int = 20, graph: bool = False, warmup: int = 3) -> float:
@@ -1447,13 +1464,15 @@ def _serve_prompts(cfg) -> list:
 
 def phase_serve(cfg, model, params) -> dict:
     from repro_torch.kernels import flash_attention, redmule_gemm
+    from repro_torch.obs import JsonTracer, write_trace
     from repro_torch.serving import SamplingParams, Server, ServerConfig
 
     prompts = _serve_prompts(cfg)
     max_new = MAX_NEW
     torch.cuda.reset_peak_memory_stats()
     server = Server(model, params, ServerConfig(
-        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + max_new), seed=0)
+        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + max_new), seed=0,
+        tracer=JsonTracer())
     for i, p in enumerate(prompts):
         sampling = SamplingParams(temperature=0.8) if i == 5 else SamplingParams()
         server.submit(p, max_new_tokens=max_new, sampling=sampling)
@@ -1522,6 +1541,13 @@ def phase_serve(cfg, model, params) -> dict:
     log(f"serve: paged decode page walk split {splits} way(s) ({slots} slots x "
         f"{cfg.n_kv_heads} KV heads, {pages}-page tables)")
     log(f"serve: request 0 tokens {results[0].out_tokens}")
+    # Phase 18(b): the traced run's registry against its stats, and its trace.
+    registry = _check_registry("obs (b) serve", server, results, s.prefill_calls)
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    write_trace(server.tracer, str(OBS_DIR / "serve_trace.json"))
+    checked = _validate_trace(OBS_DIR / "serve_trace.json")
+    log(f"obs (b) serve, 40 layers, traced: {registry}; {len(server.tracer.events)} events, "
+        f"{checked}; {_host_wait(server.tracer.events)}")
     del server
     torch.cuda.empty_cache()
     return {"gemm": gemm_n, "decode": decode_n, "graph_replays": eng.graph_replays,
@@ -1561,7 +1587,7 @@ def _time_runs(step, spans: list, attr: str = "run") -> None:
 
 
 def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup=None,
-                 **cfg_kw):
+                 tracer=None, **cfg_kw):
     """One warmed-up greedy run of ``prompts`` (``drive`` submits and runs
     them instead when given) through a Server with the serve run's sizing
     and ``cfg_kw``. The launch counters are zeroed after the warm-up, and
@@ -1573,7 +1599,7 @@ def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup
     from repro_torch.serving import Server, ServerConfig
 
     kw = {**SERVE_CONFIG, "max_seq_len": max(map(len, prompts)) + MAX_NEW, **cfg_kw}
-    server = Server(model, params, ServerConfig(**kw), seed=0)
+    server = Server(model, params, ServerConfig(**kw), seed=0, tracer=tracer)
     server.engine.graph_decode = graph
     rows, spans = {}, []
     _record_decode_rows(server, rows)
@@ -2524,7 +2550,7 @@ def _reading_servers(readings: dict, calls: collections.Counter,
         Server.warmup = warmup
 
 
-def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS) -> tuple:
+def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS, obs: bool = False) -> tuple:
     """(b) ``arch`` at full width and depth through the serve launcher
     (``FAMILY_SERVE_ARGS``: E4M3 weights and pages, the decode graph), with
     the launch counters zeroed just before it and read at its decode
@@ -2533,9 +2559,20 @@ def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS) -> tuple:
     prompts through two servers on the launcher's model, the decode step as
     the graph and eager: the same greedy tokens and every decode step's
     logits bit for bit. Returns the launcher's server (its model and
-    parameters live) and the run's counts for the kernel line."""
+    parameters live) and the run's counts for the kernel line. With ``obs``
+    the launcher also writes its trace, metrics and profile (phase 18(b)),
+    which ``_obs_launcher_checks`` reads."""
     from repro_torch.kernels import flash_attention, redmule_gemm
     from repro_torch.launch import serve
+
+    paths = {}
+    if obs:
+        base = OBS_DIR / arch
+        paths = {"trace": base / "trace.json", "metrics": base / "metrics.json",
+                 "profile": base / "profile"}
+        base.mkdir(parents=True, exist_ok=True)
+        serve_args = [*serve_args, "--trace-out", str(paths["trace"]), "--metrics-out",
+                      str(paths["metrics"]), "--profile", str(paths["profile"])]
 
     calls, decodes = collections.Counter(), collections.Counter()
     readings = {"prefill": [], "decode": [], "decode shapes": []}
@@ -2548,6 +2585,8 @@ def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     gemm_n, decode_n = redmule_gemm.launches.n, flash_attention.launches.n
+    if obs:
+        _obs_launcher_checks(arch, server, paths)
     mem = torch.cuda.max_memory_allocated()
     cfg, s, eng = server.model.cfg, server.stats, server.engine
     if len(results) != 8 or any(r.num_generated != MAX_NEW for r in results.values()):
@@ -2581,7 +2620,8 @@ def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS) -> tuple:
                              f"{sum(calls.values())}, {sum(decodes.values())}")
     ttft = server.ttft_percentiles()
     step_ms = 1e3 * s.decode_s / s.decode_steps
-    log(f"families (b) {arch}: {cfg.n_layers} layers d{cfg.d_model}, "
+    log(f"families (b) {arch}{' (profiled and traced)' if obs else ''}: "
+        f"{cfg.n_layers} layers d{cfg.d_model}, "
         f"{cfg.param_count() / 1e9:.2f} B parameters in "
         f"{'E4M3' if cfg.fp8_params else server.model.dtype}; KV pools "
         f"{server.cache.kv_bytes() / 1e6:.1f} MB, state rows {server.cache.state_bytes() / 1e6:.1f} "
@@ -2702,7 +2742,7 @@ def phase_families() -> dict:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         _family_parity(arch)
-        server, runs[arch] = _family_serve(arch)
+        server, runs[arch] = _family_serve(arch, obs=arch == FAMILIES[0])
         if arch == "gemma2-2b":
             runs["gemma2-2b long"] = _gemma_long(server.model, server.params)
         del server
@@ -3698,6 +3738,364 @@ def phase_train() -> dict:
             "copies": sum(h["gemm_aux_launches"] for h in hist)}
 
 
+# -- phase 18 --------------------------------------------------------------------
+
+# Where phase 18 writes its traces, metrics and profile (``build/`` is ignored).
+OBS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_obs"
+
+
+def _validate_trace(path: Path) -> str:
+    """``scripts/validate_trace.py`` on ``path`` in a process of its own (the
+    script as it is, not imported); raises unless it exits 0."""
+    script = Path(__file__).resolve().parent / "scripts" / "validate_trace.py"
+    r = subprocess.run([sys.executable, str(script), str(path)], capture_output=True, text=True,
+                       timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"validate_trace {path.name}: exit {r.returncode}: "
+                             f"{(r.stdout + r.stderr).strip()[:2000]}")
+    return r.stdout.strip()
+
+
+def _host_wait(events: list) -> str:
+    """From the "in flight" track (one complete event a harvested step,
+    dispatch to result), by step kind: the host's blocking wait on the
+    steps' events, their dispatch-to-harvest seconds, and the wait's share
+    of them. Steps harvested together overlap on the track, so only a
+    kind's own share is read."""
+    from repro_torch.obs import DEVICE_INFLIGHT_TID, PID_DEVICE
+
+    kinds = collections.defaultdict(lambda: [0.0, 0.0, 0])
+    for e in events:
+        if e["ph"] == "X" and e["pid"] == PID_DEVICE and e["tid"] == DEVICE_INFLIGHT_TID:
+            k = kinds[e["name"].removesuffix(".complete")]
+            k[0] += e["args"]["wait_s"]
+            k[1] += e["dur"] / 1e6
+            k[2] += 1
+    if not kinds:
+        raise AssertionError("no step on the trace's in-flight track")
+    return "host wait on the in-flight track: " + "; ".join(
+        f"{kind} {w:.4f} s of {d:.4f} s over {n} steps ({w / max(d, 1e-12):.1%})"
+        for kind, (w, d, n) in sorted(kinds.items()))
+
+
+def _check_registry(label: str, server, results: dict, n_prefills: int) -> str:
+    """The registry's histograms and request counters against the stats view
+    and the run: one idle observation a harvest, one step observation a
+    prefill and a decode step, a TTFT a request. Returns a summary."""
+    snap = server.metrics.snapshot()
+    c, h, s = snap["counters"], snap["histograms"], server.stats
+    want = {
+        ("counter", "serving_decode_tokens_total"): s.decode_tokens,
+        ("counter", "serving_decode_steps_total"): s.decode_steps,
+        ("counter", "serving_prefill_calls_total"): s.prefill_calls,
+        ("counter", "serving_requests_submitted_total"): len(results),
+        ("counter", "serving_requests_finished_total"): len(results),
+        ("histogram", "serving_decode_step_seconds"): s.decode_steps,
+        ("histogram", "serving_prefill_chunk_seconds"): n_prefills,
+        ("histogram", "engine_idle_seconds"): s.decode_steps + n_prefills,
+        ("histogram", "serving_ttft_seconds"): len(results),
+    }
+    got = {(kind, name): (c[name] if kind == "counter" else h[name]["count"])
+           for kind, name in want}
+    if got != want:
+        raise AssertionError(f"{label}: registry {got} against the run {want}")
+    if c["serving_nonfinite_steps_total"] or snap["gauges"]["engine_inflight"]:
+        raise AssertionError(f"{label}: non-finite steps or steps left in flight: {snap}")
+    idle = h["engine_idle_seconds"]
+    return (f"registry = stats and run ({len(results)} requests, {s.decode_steps} decode steps, "
+            f"{n_prefills} prefill steps); host waits p50 {idle['p50']:.6f} s, "
+            f"p95 {idle['p95']:.6f} s, sum {idle['sum']:.4f} s")
+
+
+def phase_obs_slice() -> None:
+    """(a) granite-3-8b at full width with 2 layers (redmule_hfp8, E4M3
+    weights and pages, the decode graph): phase 8's prompts through a
+    traced and an untraced server give the same tokens bit for bit and the
+    same decode-graph replays; the trace passes ``validate_trace.py``. Then
+    the same prompts with the decode step eager and a roofline recorder
+    open: the same tokens again, and the run's kernel calls counted
+    (``roofline/cost.py``), its bound beside the run's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.obs import JsonTracer, write_trace
+    from repro_torch.roofline import analysis, cost
+    from repro_torch.serving import Server, ServerConfig
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), policy="redmule_hfp8",
+                              kv_cache_dtype="e4m3", fp8_params=True, n_layers=2)
+    model = build(cfg, device="cuda")
+    params = model.init(0)
+    prompts = _serve_prompts(cfg)
+    config = ServerConfig(**SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + MAX_NEW)
+    runs = {}
+    for label, tracer, graph in (("traced", JsonTracer(), True), ("untraced", None, True),
+                                 ("eager, counted", None, False)):
+        server = Server(model, params, config, seed=0, tracer=tracer)
+        server.engine.graph_decode = graph
+        for p in prompts:
+            server.submit(p, max_new_tokens=MAX_NEW)
+        with cost.recording() if not graph else contextlib.nullcontext() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = server.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[label] = (server, _tokens(results), wall, counts)
+    (traced, toks, _, _), (untraced, toks_off, _, _) = runs["traced"], runs["untraced"]
+    eager, toks_eager, wall, counts = runs["eager, counted"]
+    _same_tokens("obs (a): traced against untraced", toks, toks_off)
+    _same_tokens("obs (a): the counted eager run against the graph run", toks_eager, toks)
+    if traced.engine.graph_replays != untraced.engine.graph_replays or \
+            traced.engine.graph_replays != traced.stats.decode_steps:
+        raise AssertionError(f"obs (a): {traced.engine.graph_replays} replays traced, "
+                             f"{untraced.engine.graph_replays} untraced, "
+                             f"{traced.stats.decode_steps} decode steps")
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    path = OBS_DIR / "slice_trace.json"
+    write_trace(traced.tracer, str(path))
+    checked = _validate_trace(path)
+    log(f"obs (a): 2 layers, traced and untraced: the same tokens and "
+        f"{traced.engine.graph_replays} decode-graph replays each; "
+        f"{len(traced.tracer.events)} events, {checked}; {_host_wait(traced.tracer.events)}")
+    roof = analysis.roofline_from_counts(counts)
+    if counts.capacity_calls or counts.kernels["paged_decode"].calls != \
+            cfg.n_layers * eager.stats.decode_steps:
+        raise AssertionError(f"obs (a): recorded {counts.to_dict()}, "
+                             f"{counts.capacity_calls} at capacity")
+    log(f"obs (a): eager run counted (roofline/cost.py): "
+        + ", ".join(f"{k} {v.calls} calls, {v.flops / 1e9:.2f} GFLOP, {v.bytes / 1e9:.3f} GB"
+                    for k, v in counts.kernels.items())
+        + f"; bound {roof.step_s * 1e3:.3f} ms ({roof.bottleneck}) against {wall * 1e3:.1f} ms "
+          f"of wall (lengths read from the card at each decode, so the wall is not a timing)")
+    del traced, untraced, eager, runs, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_tracer():
+    """A ``JsonTracer`` that sums the host seconds spent inside its event
+    calls (``.host_s``, ``.calls``): the tracer's own cost, read directly
+    rather than from the spread of two runs' rates, and zeroed with the
+    events at ``reset()``. The two clock reads around each call are charged
+    to it, so the sum errs high."""
+    from repro_torch.obs import JsonTracer
+
+    class TimedTracer(JsonTracer):
+        host_s, calls = 0.0, 0
+
+        def reset(self):  # ``Server.reset()`` after the warm-up drops its share too
+            super().reset()
+            self.host_s, self.calls = 0.0, 0
+
+    def timed(method):
+        def call(self, *a, **kw):
+            t0 = time.perf_counter()
+            method(self, *a, **kw)
+            self.host_s += time.perf_counter() - t0
+            self.calls += 1
+        return call
+
+    for name in ("begin", "end", "instant", "complete"):
+        setattr(TimedTracer, name, timed(getattr(JsonTracer, name)))
+    return TimedTracer()
+
+
+def phase_obs_serve(cfg, model, params) -> None:
+    """(b) On phase 8's model (40 layers): the serve run of phase 12's
+    sizing with the tracer off, on, on, off, in turns: the same tokens and
+    replays, decode tok/s with the tracer on against off, and the host
+    seconds spent inside the tracer's calls against the decode seconds."""
+    prompts = _serve_prompts(cfg)
+    rates, tokens = {"on": [], "off": []}, []
+    for state in ("off", "on", "on", "off"):
+        server, results, _ = _feature_run(f"obs (b) tracer {state}", model, params, prompts,
+                                          tracer=_timed_tracer() if state == "on" else None)
+        rates[state].append(server.stats.decode_tok_s)
+        tokens.append(_tokens(results))
+        if state == "on":
+            t, s = server.tracer, server.stats
+            events = sum(e["ph"] in "BEiX" for e in t.events)
+            steps = max(s.decode_steps, 1)
+            log(f"obs (b) tracer on: {events} events ({events / steps:.1f} a decode step); "
+                f"tracer host time {t.host_s * 1e3:.3f} ms in {t.calls} calls "
+                f"({t.host_s / max(t.calls, 1) * 1e6:.2f} us a call, "
+                f"{t.host_s / steps * 1e6:.1f} us a decode step, "
+                f"{t.host_s / max(s.decode_s + s.prefill_s, 1e-12):.3%} of the run's "
+                f"{(s.decode_s + s.prefill_s) * 1e3:.1f} ms of prefill and decode); "
+                f"{_host_wait(t.events)}")
+        del server
+    for t in tokens[1:]:
+        _same_tokens("obs (b): tracer on against off", t, tokens[0])
+    log(f"obs (b): decode tok/s tracer off {[round(r, 1) for r in rates['off']]}, on "
+        f"{[round(r, 1) for r in rates['on']]} (the same tokens in all four runs)")
+
+
+def _obs_launcher_checks(arch: str, server, paths: dict) -> None:
+    """(b) The full-depth launcher call of phase 14(b) that wrote a trace,
+    metrics and a profile: the trace passes ``validate_trace.py`` (a
+    process of its own), the metrics' counters are the printed stats, the
+    profile's Chrome trace names the GEMM and paged-decode kernels."""
+    label = f"obs (b) launcher {arch}"
+    checked = _validate_trace(paths["trace"])
+    doc = json.loads(paths["metrics"].read_text())
+    s = server.stats
+    for name, value in (("serving_decode_tokens_total", s.decode_tokens),
+                        ("serving_decode_steps_total", s.decode_steps),
+                        ("serving_prefill_calls_total", s.prefill_calls),
+                        ("serving_prefill_tokens_total", s.prefill_tokens),
+                        ("serving_slot_steps_total", s.slot_steps),
+                        ("serving_decode_seconds_total", s.decode_s)):
+        if doc["counters"][name] != value:
+            raise AssertionError(f"{label}: metrics {name} {doc['counters'][name]}, stats {value}")
+    prof = paths["profile"] / "device_trace.json"
+    text = prof.read_text()
+    missing = [k for k in ("redmule_gemm", "paged_decode") if k not in text]
+    if missing:
+        raise AssertionError(f"{label}: the profile names no {missing} kernel")
+    trace = json.loads(paths["trace"].read_text())["traceEvents"]
+    log(f"{label}: {checked}; trace {paths['trace'].stat().st_size / 1e3:.1f} kB, metrics "
+        f"{paths['metrics'].stat().st_size / 1e3:.1f} kB, profile {prof.stat().st_size / 1e6:.1f} "
+        f"MB naming redmule_gemm and paged_decode; metrics counters = the printed stats; "
+        f"{_host_wait(trace)}")
+
+
+# -- phase 19 --------------------------------------------------------------------
+
+
+def phase_examples() -> None:
+    """(a) Every example's ``main`` on the card with its own asserts, the
+    GEMM-Op kernel's launches read around each by schedule: quickstart,
+    train_tinyml (300 steps under fp32, redmule_fp16 and redmule_hfp8),
+    graph_shortest_paths (the SIMT min-plus closure), viterbi_decode (the
+    max-plus chain and its VJP), serve_decode (granite-3-8b SMOKE through
+    ``Server``, internvl2-76b SMOKE through ``generate_static``) and
+    train_lm (xlstm-125m SMOKE, 3 steps)."""
+    from repro_torch.examples import (
+        graph_shortest_paths,
+        quickstart,
+        serve_decode,
+        train_lm,
+        train_tinyml,
+        viterbi_decode,
+    )
+    from repro_torch.kernels import redmule_gemm as rg
+
+    runs = [("quickstart", quickstart.main, []),
+            ("train_tinyml", train_tinyml.main, []),
+            ("graph_shortest_paths", graph_shortest_paths.main, []),
+            ("viterbi_decode", viterbi_decode.main, []),
+            ("serve_decode granite-3-8b", serve_decode.main, ["--arch", "granite-3-8b"]),
+            ("serve_decode internvl2-76b", serve_decode.main, ["--arch", "internvl2-76b"]),
+            ("train_lm", train_lm.main, ["--smoke", "--steps", "3", "--log-every", "1"])]
+    for label, fn, argv in runs:
+        before = (rg.launches.n, rg.simt_launches.n, rg.tc_launches.n, rg.small_row_launches.n)
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        after = (rg.launches.n, rg.simt_launches.n, rg.tc_launches.n, rg.small_row_launches.n)
+        n = [a - b for a, b in zip(after, before)]
+        if n[0] <= 0:
+            raise AssertionError(f"examples {label}: no GEMM-Op launch on the card")
+        semiring_example = label in ("graph_shortest_paths", "viterbi_decode")
+        if semiring_example and n[1] != n[0]:
+            raise AssertionError(f"examples {label}: {n} launches, not all on the SIMT schedule")
+        extra = f"; accuracies {out}" if label == "train_tinyml" else ""
+        log(f"examples {label}: asserts held in {time.perf_counter() - t0:.1f} s; GEMM-Op calls "
+            f"{n[0]} (simt {n[1]}, tensor-core {n[2]}, small-row {n[3]}){extra}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+PAPER_NETWORKS = ("RESNET8", "MOBILENETV2", "TINY_TRANSFORMER")
+
+
+def phase_paper_gemms() -> list:
+    """(b) Every GEMM of ``paper_tinyml.training_gemms`` for ResNet8,
+    MobileNetV2 and TinyTransformer (forward, dW, dX; X (M, N) and W (N, K),
+    N the reduction) under redmule_fp16 and redmule_hfp8 through
+    ``Engine.matmul`` on the kernel, within ``GEMM_TOL`` of the plain
+    backend on the same operands. Each is timed as a graph replay three
+    ways: ``Engine.matmul`` (the operand casts included), the kernel alone
+    on the cast operands, and ``torch.matmul`` on fp16 operands; its bound
+    is the kernel call's count, recorded (``roofline/cost.py``). Returns
+    one kernel-line row a network, policy and schedule (each naming its
+    schedule's source): the sums over those GEMMs, with the launches of the
+    checked ``Engine.matmul`` calls (one a GEMM)."""
+    from repro_torch.configs import paper_tinyml
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import cast
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.roofline import cost
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for net in PAPER_NETWORKS:
+        gemms = paper_tinyml.training_gemms(getattr(paper_tinyml, net))
+        for policy in ("redmule_fp16", "redmule_hfp8"):
+            eng = Engine(policy=policy, backend="cuda")
+            plain = eng.with_backend("torch")
+            pol = eng.policy
+            # Summed by the schedule each GEMM was planned on: one row a
+            # schedule, each naming its own kernel source.
+            tots = collections.defaultdict(collections.Counter)
+            for g in gemms:
+                x = torch.randn((g.M, g.N), generator=gen, device="cuda")
+                w = torch.randn((g.N, g.K), generator=gen, device="cuda") * g.N ** -0.5
+                xs, ws = cast(x, pol.storage_fwd), cast(w, pol.storage_fwd)
+                kw = dict(gop=semiring.MATMUL, policy=pol, out_dtype=pol.out)
+                tot = tots[rg.plan_call(xs, ws, None, gop=semiring.MATMUL, policy=pol)
+                           .plan.schedule]
+                launches0 = rg.launches.n
+                got = eng.matmul(x, w)
+                tot["launches"] += rg.launches.n - launches0
+                tot["gemms"] += 1
+                want = plain.matmul(x, w)
+                err = rel_err(got, want)
+                tot["max_abs_err"] = max(tot["max_abs_err"],
+                                         float((got.float() - want.float()).abs().max()))
+                if not err <= GEMM_TOL[got.dtype]:
+                    raise AssertionError(f"paper {net} {g.name} {policy}: max|dz|/max|z| = "
+                                         f"{err:.3g} > {GEMM_TOL[got.dtype]}")
+                with cost.recording() as counts:
+                    eng.matmul(x, w)
+                bound = max(counts.compute_s, counts.memory_s) * 1e3
+                x16, w16 = x.half(), w.half()
+                tot["engine_ms"] += time_ms(lambda: eng.matmul(x, w), iters=10, graph=True)
+                tot["ms"] += time_ms(lambda: rg.redmule_gemm(xs, ws, None, **kw), iters=10,
+                                     graph=True)
+                tot["plain_ms"] += time_ms(lambda: rg.redmule_gemm_plain(xs, ws, None, **kw),
+                                           iters=2, warmup=1)
+                tot["library_ms"] += time_ms(lambda: torch.matmul(x16, w16), iters=10,
+                                             graph=True)
+                tot["bound_ms"] += bound
+                tot["compute_ms"] += counts.compute_s * 1e3
+                tot["memory_ms"] += counts.memory_s * 1e3
+                tot["gflop"] += counts.flops / 1e9
+            for schedule, tot in sorted(tots.items()):
+                rows.append({
+                    "name": f"redmule_gemm[paper {net} training GEMMs ({tot['gemms']} of "
+                            f"{len(gemms)}, {schedule} schedule), {policy}, summed]",
+                    "route": "cuda", "source": GEMM_SOURCE[schedule],
+                    "replaces": "src/repro/kernels/redmule_gemm.py:110",
+                    "launches": tot["launches"], "max_abs_err": tot["max_abs_err"],
+                    "ms": tot["ms"], "engine_ms": tot["engine_ms"], "plain_ms": tot["plain_ms"],
+                    "bound_ms": tot["bound_ms"],
+                    "bound_by": "bytes" if tot["memory_ms"] >= tot["compute_ms"] else
+                                "operations",
+                    "library_ms": tot["library_ms"], "gflop": tot["gflop"],
+                })
+            total = sum(tots.values(), collections.Counter())
+            log(f"paper {net} {policy}: {len(gemms)} GEMMs within GEMM_TOL (max|d| "
+                f"{max(t['max_abs_err'] for t in tots.values()):.3g}); schedules "
+                f"{ {k: t['gemms'] for k, t in sorted(tots.items())} }; kernel "
+                f"{total['ms']:.4f} ms summed, Engine.matmul {total['engine_ms']:.4f} ms, "
+                f"torch.matmul {total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms; "
+                f"bound {total['bound_ms']:.5f} ms ({total['gflop']:.3f} GFLOP); "
+                f"{total['launches']} launches")
+    return rows
+
+
 # -- phase 11 --------------------------------------------------------------------
 
 
@@ -3734,12 +4132,11 @@ def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", op="matmu
     positions and bits; device time from a CUDA-graph replay), the plain
     version, and for (mul, add) torch.matmul on the widened fp16 operands
     (on the fp32 ones under fp32) and torch._scaled_mm on the fp8 ones.
-    Bound: each operand byte read once and the output written once at
-    3.35 TB/s, against 2*M*K*N operations (per batch) at the fp8
-    tensor-core peak (the fp32 peak on the SIMT schedule)."""
+    Bound: ``roofline/cost.py``'s GEMM-Op count of the call."""
     from repro_torch.core import semiring
     from repro_torch.core.precision import FP32, get_policy
     from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.roofline import cost
 
     pol, gop = get_policy(policy), semiring.get(op)
     kw = dict(gop=gop, policy=pol, out_dtype=out_dtype)
@@ -3768,13 +4165,7 @@ def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", op="matmu
         x16, w16 = (x, w) if pol.compute == FP32 else (x.half(), w.half())
         library_ms = time_ms(lambda: torch.matmul(x16, w16), iters=5 if big else 20, graph=True)
         scaled_ms = _scaled_mm_ms(x, w, out_dtype)
-    m, k = x.shape[-2:]
-    n = w.shape[-1]
-    batch = got.numel() // (m * n)
-    nbytes = sum(t.numel() * t.element_size() for t in (x, w, got) + (() if y is None else (y,)))
-    ops = 2.0 * batch * m * k * n
-    peak = FP32_FLOP_S if plan.schedule == "simt" else mma_peak(x, w)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    bound = cost.gemm_cost(x, w, y, gop=gop, policy=pol, out_dtype=out_dtype)
     share, ulps = ulp_spread(got, want) if got.element_size() == 2 else (
         float((got != want).float().mean()), None)
     return {
@@ -3784,10 +4175,9 @@ def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", op="matmu
         **({"form": plan.form} if plan.form else {}), "aux_launches_per_call": aux,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "share_differ": share, "worst_ulps": ulps,
-        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "scaled_mm_ms": scaled_ms,
-        "tflop_s": ops / ms / 1e9,
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms,
+        "bound_by": bound.bound_by, "library_ms": library_ms, "scaled_mm_ms": scaled_ms,
+        "tflop_s": bound.flops / ms / 1e9,
     }
 
 
@@ -3901,6 +4291,7 @@ def _copy_entry(counts):
     read and written once, beside ``t().contiguous()`` after ``half()``."""
     from repro_torch.core.precision import E4M3
     from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.roofline import cost
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     w = torch.randn((4096, 12800), generator=gen, device="cuda").to(E4M3)
@@ -3912,13 +4303,13 @@ def _copy_entry(counts):
     ms = time_ms(lambda: rg.kmajor_copy(*args), graph=True)
     plain_ms = time_ms(lambda: rg.kmajor_copy_plain(*args), iters=5)
     library_ms = time_ms(lambda: w.half().t().contiguous(), graph=True)
-    t_bytes = 3 * w.numel() / HBM_BYTES_S * 1e3
+    bound = cost.transfer_cost([w], [got])
     return {
         "name": "kmajor_copy[4096x12800 e4m3 -> K-major fp16]", "route": "cuda",
         "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
         "replaces": "src/repro/kernels/redmule_gemm.py:110",
         "launches": counts["train_copies"], "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes, "bound_by": "bytes",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
         "library_ms": library_ms,
     }
 
@@ -3929,6 +4320,7 @@ def _combine_entry(counts):
     ``sum`` over the split axis."""
     from repro_torch.core.precision import FP16
     from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.roofline import cost
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     ws = torch.randn((1, 8, 4, 4096), generator=gen, device="cuda")
@@ -3940,13 +4332,13 @@ def _combine_entry(counts):
     ms = time_ms(lambda: rg.splitk_combine(ws, out), graph=True)
     plain_ms = time_ms(lambda: rg.splitk_combine_plain(ws, None, FP16))
     library_ms = time_ms(lambda: ws.sum(1), graph=True)
-    t_bytes = (ws.numel() * 4 + out.numel() * 2) / HBM_BYTES_S * 1e3
+    bound = cost.transfer_cost([ws], [out])
     return {
         "name": "splitk_combine[8 x 4x4096 fp32 -> fp16]", "route": "cuda",
         "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
         "replaces": "src/repro/kernels/redmule_gemm.py:110",
         "launches": counts["serve_combines"], "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes, "bound_by": "bytes",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
         "library_ms": library_ms,
     }
 
@@ -3961,6 +4353,7 @@ def _simt_entries(counts) -> list:
     from repro_torch.core import semiring
     from repro_torch.core.precision import E4M3, FP16, FP32, cast
     from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.roofline import cost
 
     paths = counts["simt_paths"]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -3985,7 +4378,7 @@ def _simt_entries(counts) -> list:
     rg.splitk_combine(ws, out, star=semiring.Op.MIN)
     if not same_bits(out, rg.splitk_combine_plain(ws, None, FP16, semiring.Op.MIN)):
         raise AssertionError("the min split-K combine differs from its plain version")
-    t_bytes = (ws.numel() * 4 + out.numel() * 2) / HBM_BYTES_S * 1e3
+    bound = cost.transfer_cost([ws], [out])
     rows.append({
         "name": "splitk_combine[min, 4 x 64x12800 fp32 -> fp16]", "route": "cuda",
         "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
@@ -3993,7 +4386,7 @@ def _simt_entries(counts) -> list:
         "launches": paths["gemm_op apsp"]["aux"], "max_abs_err": 0.0,
         "ms": time_ms(lambda: rg.splitk_combine(ws, out, star=semiring.Op.MIN), graph=True),
         "plain_ms": time_ms(lambda: rg.splitk_combine_plain(ws, None, FP16, semiring.Op.MIN)),
-        "bound_ms": t_bytes, "bound_by": "bytes",
+        "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
         "library_ms": time_ms(lambda: ws.amin(1), graph=True),
     })
     return rows
@@ -4004,10 +4397,8 @@ def _decode_row(counts, label, case, seed_note, window=None, softcap=None):
     CUDA-graph replay (the card's time) and eager calls (the wrapper's host
     work included), beside the plain version and a gather of the pages plus
     ``scaled_dot_product_attention``, or with a softcap, which SDPA does not
-    take, ``flex_attention`` (``_gather_flex``). Bound: the live pages' K
-    and V bytes (inside the window, if any), q, out, the page table and the
-    lengths, each moved once, at 3.35 TB/s, against 4 * Hq * hd operations
-    a live token a slot at the fp32 peak."""
+    take, ``flex_attention`` (``_gather_flex``). Bound: ``roofline/cost.py``'s
+    paged-decode count of these inputs."""
     import torch.nn.functional as F
 
     from repro_torch.core.precision import take_rows
@@ -4016,6 +4407,7 @@ def _decode_row(counts, label, case, seed_note, window=None, softcap=None):
         paged_flash_decode,
         paged_flash_decode_plain,
     )
+    from repro_torch.roofline import cost
 
     q, kp, vp, pt, lens, act = case
     s, hq, hd = q.shape
@@ -4051,13 +4443,7 @@ def _decode_row(counts, label, case, seed_note, window=None, softcap=None):
     library_err = float((library()[:, :, 0].float() - want.reshape(s, hq, hd).float())
                         .abs().max())
     library_ms = time_ms(library, iters=5)
-    lens_list = [int(n) for n in lens.tolist()]
-    first = [0 if window is None else max(0, n - window + 1) for n in lens_list]
-    live_pages = sum(n // ps - f // ps + 1 for n, f in zip(lens_list, first))
-    nbytes = (2 * live_pages * ps * hkv * hd * kp.element_size()
-              + 2 * q.numel() * q.element_size() + pt.numel() * 4 + 2 * s * 4)
-    flops = sum(4.0 * hq * (n + 1 - f) * hd for n, f in zip(lens_list, first))
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    bound = cost.paged_decode_cost(q, kp, pt, lens, act, page_size=ps, window=window)
     return {
         "name": f"paged_flash_decode[{label}]", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -4067,9 +4453,8 @@ def _decode_row(counts, label, case, seed_note, window=None, softcap=None):
         "launches_per_prefill": counts["decode_per_prefill"], "shape_note": seed_note,
         "splits": decode_splits(s, hkv, pt.shape[1], groups=-(-(hq // hkv) // 4)),
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "library_max_abs_err": library_err,
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms,
+        "bound_by": bound.bound_by, "library_ms": library_ms, "library_max_abs_err": library_err,
         "library": "gather + " + ("flex_attention (softcap score_mod, compiled)"
                                   if softcap is not None else "scaled_dot_product_attention"),
     }
@@ -4389,9 +4774,9 @@ def _encdec_entries(counts) -> list:
 def _flash_entry(counts):
     """The dense flash attention at granite's training shape in fp16
     (causal), on the route ``plan_flash`` names (the tensor cores), as a
-    CUDA-graph replay with eager calls beside, bound by its operations at
-    the fp16 tensor-core peak, beside ``scaled_dot_product_attention`` on
-    the same q and the KV heads expanded for it."""
+    CUDA-graph replay with eager calls beside, bound by ``roofline/cost.py``'s
+    count, beside ``scaled_dot_product_attention`` on the same q and the KV
+    heads expanded for it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -4399,6 +4784,7 @@ def _flash_entry(counts):
         flash_attention_plain,
         plan_flash,
     )
+    from repro_torch.roofline import cost
 
     b, s, hq, hkv, hd = 1, 2048, 32, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -4413,9 +4799,7 @@ def _flash_entry(counts):
     kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    flops = 4.0 * b * hq * hd * s * (s + 1) / 2  # two products over the causal half
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP16_FLOP_S * 1e3
+    bound = cost.flash_attention_cost(q, k, v, causal=True)
     source = {"tc": "flash_attention_tc.cu", "simt": "flash_attention.cu"}[route]
     return {
         "name": f"flash_attention[B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal fp16]", "route": "cuda",
@@ -4423,9 +4807,9 @@ def _flash_entry(counts):
         "replaces": "src/repro/kernels/flash_attention.py:254",
         "launches": counts["dense"],
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "tflop_s": flops / ms / 1e9,
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms,
+        "bound_by": bound.bound_by, "library_ms": library_ms,
+        "tflop_s": bound.flops / ms / 1e9,
     }
 
 
@@ -4451,10 +4835,10 @@ def _log_entry(e) -> None:
         f"plain {e['plain_ms']:.4f} ms, library {lib}, max|d| {e['max_abs_err']:.3g}{extra})")
 
 
-def phase_kernel_line(counts) -> list:
+def phase_kernel_line(counts, paper_rows=()) -> list:
     entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
                _flash_entry(counts), *_family_entries(counts), *_recurrent_entries(counts),
-               *_spec_state_entries(counts), *_encdec_entries(counts)]
+               *_spec_state_entries(counts), *_encdec_entries(counts), *paper_rows]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
@@ -4476,9 +4860,11 @@ def main() -> int:
         counts |= phase_flash()
         phase_backward_gemm()
         counts |= phase_slice_parity()
+        _timed("phase 18(a)", phase_obs_slice)
         cfg, model, params = _serve_model()
         counts |= phase_serve(cfg, model, params)
         counts |= phase_serving_features(cfg, model, params)
+        _timed("phase 18(b) tracer on/off", phase_obs_serve, cfg, model, params)
         counts |= phase_spec(cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
@@ -4491,10 +4877,13 @@ def main() -> int:
     phase_families_train()
     counts |= phase_recurrent_train()
     phase_encdec_train()
+    _timed("phase 19(a)", phase_examples)
+    with torch.inference_mode():
+        paper_rows = _timed("phase 19(b)", phase_paper_gemms)
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
                "train_copies": train["copies"]}
     with torch.inference_mode():
-        entries = phase_kernel_line(counts)
+        entries = phase_kernel_line(counts, paper_rows)
     log(f"card: {card}; the whole run {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ dense-MoE granite-moe-1b-a400m (granite-3-8b's draft model) and
 phi3.5-moe-42b-a6.6b, the recurrent recurrentgemma-2b (RG-LRU with
 windowed local attention) and xlstm-125m (mLSTM and sLSTM), the
 encoder-decoder seamless-m4t-large-v2 (stub audio frames, LayerNorm) and
-the VLM internvl2-76b (stub image patches). The JAX package's
-``paper_tinyml`` configs are not ported.
+the VLM internvl2-76b (stub image patches). ``paper_tinyml`` holds the
+paper's TinyML GEMM tables (ResNet8, MobileNetV2, TinyTransformer).
 """
 from __future__ import annotations
 

@@ -8,6 +8,10 @@ Each entry point takes ``backend``:
   kernel, a CPU tensor to the plain version.
 
 Nothing falls back: a failing build or launch raises.
+
+Each entry point also counts its call's operations and bytes into the
+roofline recorders that are open (``repro_torch.roofline.cost``); with
+none open that is one test of an empty list.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_cuda
 from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
+from repro_torch.roofline import cost as _cost
 
 BACKENDS = ("cuda", "torch")
 
@@ -57,6 +62,9 @@ def gemm_op(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None = None, *,
         w = cast(w, policy.storage_fwd)
     if y is not None:
         y = y.to(policy.acc)
+    if _cost._active:
+        _cost.note("redmule_gemm", _cost.gemm_cost, x, w, y, gop=gop, policy=policy,
+                   out_dtype=out_dtype)
     fn = redmule_gemm if backend == "cuda" else redmule_gemm_plain
     return fn(x, w, y, gop=gop, policy=policy, out_dtype=out_dtype)
 
@@ -78,6 +86,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     s, hq, hd = q.shape
     hkv = k_pool.shape[1]
     qg = q.reshape(s, hkv, hq // hkv, hd)
+    if _cost._active:
+        _cost.note("paged_decode", _cost.paged_decode_cost, q, k_pool, page_table, seq_lens,
+                   active, page_size=page_size, window=window)
     fn = (paged_flash_decode if resolve_backend(backend, q) == "cuda"
           else paged_flash_decode_plain)
     out = fn(qg, k_pool, v_pool, page_table, seq_lens, active,
@@ -99,6 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_k`` as its key chunk; the CUDA kernel uses its own tiles.
     """
     del block_q  # a TPU tile: neither the kernel nor the plain version has a query tile
+    if _cost._active:
+        _cost.note("flash_attention", _cost.flash_attention_cost, q, k, v, causal=causal)
     if resolve_backend(backend, q) == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
     return flash_attention_plain(q, k, v, causal=causal, softcap=softcap, block_k=block_k)

@@ -11,6 +11,9 @@ first decode step apart.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --fp8-kv --fp8-params --policy redmule_hfp8 --prompt-len 64 --page-size 16 [--profile]
   PYTHONPATH=src python -m repro_torch.launch.serve --fp8-kv --fp8-params \\
+      --policy redmule_hfp8 --prompt-len 64 --page-size 16 --trace-out trace.json \\
+      --metrics-out metrics.json --profile LOGDIR
+  PYTHONPATH=src python -m repro_torch.launch.serve --fp8-kv --fp8-params \\
       --policy redmule_hfp8 --prompt-len 64 --page-size 16 --spec-k 4 \\
       --draft-model granite-moe-1b-a400m --spec-gate
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
@@ -30,10 +33,22 @@ the data pipeline makes them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
       --fp8-kv --fp8-params --policy redmule_hfp8 --requests 4 --prompt-len 64
+
+Observability, as in the reference's launcher: ``--trace-out PATH`` writes
+the timed run's request-lifecycle trace (Chrome trace events, or JSONL for
+``.jsonl``; ``scripts/validate_trace.py`` checks it), ``--metrics-out
+PATH`` the registry's snapshot with the step profile (JSON, or Prometheus
+text for ``.prom``/``.txt``), and ``--profile`` prints device time by
+kernel from ``torch.profiler``; ``--profile LOGDIR`` also writes that
+window's Chrome trace into LOGDIR. The three instrument the continuous
+server; under static mode they are inert. ``--backend torch`` runs the
+plain path on the card (the default is the device's: cuda on the card,
+torch on the CPU).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
 
@@ -44,6 +59,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import POLICIES
 from repro_torch.kernels import _build
 from repro_torch.models import build
+from repro_torch.obs import JsonTracer, device_capture, write_metrics, write_trace
 from repro_torch.serving import SamplingParams, Server, ServerConfig, SpecConfig, generate_static
 from repro_torch.launch.spec_gate import record_rows, run_gate
 
@@ -127,8 +143,18 @@ def parse_args(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", action="store_true",
-                    help="trace the run with torch.profiler and print device time by kernel")
+    ap.add_argument("--backend", choices=("cuda", "torch"), default=None,
+                    help="GEMM and attention backend (default: cuda on the card, torch on the "
+                         "CPU; torch on the card runs the plain path there)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a request-lifecycle trace of the timed run: Chrome trace-event "
+                         "JSON (open in ui.perfetto.dev) or JSONL when PATH ends in .jsonl")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics snapshot (counters, gauges, latency histograms, "
+                         "step profile): JSON, or Prometheus text when PATH ends in .prom/.txt")
+    ap.add_argument("--profile", nargs="?", const="", default=None, metavar="LOGDIR",
+                    help="trace the timed run with torch.profiler and print device time by "
+                         "kernel; with LOGDIR also write its Chrome trace there")
     return ap.parse_args(argv)
 
 
@@ -137,17 +163,55 @@ _PORT_KERNELS = ("redmule_gemm", "kmajor_", "splitk_combine", "paged_decode",
                  "flash_attention")
 
 
-def print_device_time(prof, wall_s: float, top: int = 8) -> None:
-    """Device time by kernel name from a torch.profiler trace, the card's
-    busy share of the traced wall time, and host time by operator. Only
-    the kernels' own rows count as device time: an operator that launches
-    kernels (the forward of an autograd Function, say) reports their device
-    time as its own too."""
+def time_by_name(prof) -> tuple[list, list]:
+    """(device rows, host rows), each (total µs, count, name) in descending
+    order, from a finished torch.profiler window's raw events: every
+    kernel (and copy) on the card by name, and every host operator by its
+    own time, its children's on the same thread subtracted. This is what
+    ``key_averages()`` gives as ``self_device_time_total`` and
+    ``self_cpu_time_total``, without the event tree it builds, which costs
+    about 40 times as much on a serve run's hundreds of thousands of
+    events."""
     from torch.autograd import DeviceType
 
-    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
+    dev, host, threads = {}, {}, collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if e.duration_ns() > 0:
+                row = dev.setdefault(e.name(), [0, 0])
+                row[0] += e.duration_ns()
+                row[1] += 1
+        elif e.device_type() == DeviceType.CPU:
+            threads[e.start_thread_id()].append((e.start_ns(), -e.end_ns(), e.name()))
+    for events in threads.values():
+        events.sort()
+        stack = []  # [end, name, own ns]
+
+        def close(item):
+            row = host.setdefault(item[1], [0, 0])
+            row[0] += item[2]
+            row[1] += 1
+
+        for start, neg_end, name in events:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            if stack:
+                stack[-1][2] -= -neg_end - start
+            stack.append([-neg_end, name, -neg_end - start])
+        while stack:
+            close(stack.pop())
+    def rows(table):
+        return sorted(((ns / 1e3, n, name) for name, (ns, n) in table.items() if ns > 0),
+                      reverse=True)
+    return rows(dev), rows(host)
+
+
+def print_device_time(prof, wall_s: float, top: int = 8) -> None:
+    """Device time by kernel name from a torch.profiler trace, the card's
+    busy share of the traced wall time, and host time by operator
+    (:func:`time_by_name`). Only the kernels' own rows count as device
+    time."""
+    rows, host = time_by_name(prof)
     busy_us = sum(r[0] for r in rows)
     print(f"profile: device busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
           f"({busy_us / 1e4 / wall_s:.1f}%)")
@@ -158,8 +222,6 @@ def print_device_time(prof, wall_s: float, top: int = 8) -> None:
                   f"{name[:90]}")
     # The host side: operators by their own CPU time (the profiler's
     # bookkeeping inflates every one of them alike).
-    host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()
-                   if e.self_cpu_time_total > 0), reverse=True)
     host_us = sum(r[0] for r in host)
     print(f"profile: host operators {host_us / 1e3:.1f} ms of self CPU time")
     for us, count, name in host[:top]:
@@ -182,7 +244,7 @@ def main(argv=None):
 
     cfg = config(args.arch)
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
-    model = build(cfg, device=args.device)
+    model = build(cfg, device=args.device, backend=args.backend)
     if args.mode == "continuous" and not model.supports_cb():
         print(f"note: {cfg.name} ({cfg.family}) serves static-batch only; falling back to "
               "--mode static")
@@ -201,7 +263,7 @@ def main(argv=None):
         spec = SpecConfig(k=args.spec_k or 4, ngram_n=args.spec_ngram)
         if args.draft_model is not None:
             dcfg = config(args.draft_model)
-            draft_model = build(dcfg, device=args.device)
+            draft_model = build(dcfg, device=args.device, backend=args.backend)
             draft_params = draft_model.init(args.seed + 1)
             print(f"drafter: {dcfg.name} layers={dcfg.n_layers} policy={draft_model.policy.name} "
                   f"kv_dtype={dcfg.kv_cache_dtype} fp8_params={dcfg.fp8_params}")
@@ -212,6 +274,9 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     sampling = SamplingParams(args.temperature, args.top_k, args.top_p)
     if args.mode == "static":
+        if args.trace_out or args.metrics_out or args.profile is not None:
+            print("note: --trace-out/--metrics-out/--profile instrument the continuous server; "
+                  "they are inert under static mode")
         tokens = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
         batch = {"tokens": tokens, **frontend_inputs(cfg, args.requests, args.prompt_len, rng)}
         if model.device.type == "cuda":
@@ -251,7 +316,7 @@ def main(argv=None):
         preemption=args.preempt, async_depth=args.async_depth,
         prefill_batch=args.prefill_batch,
     ), seed=args.seed, device=args.device, spec=spec, draft_model=draft_model,
-        draft_params=draft_params)
+        draft_params=draft_params, tracer=JsonTracer() if args.trace_out else None)
     print(f"state store: {server.cache.allocator.num_pages} pages x {args.page_size} "
           f"tokens ({server.cache.kv_bytes() / 1e6:.2f} MB kv, "
           f"{server.cache.state_bytes() / 1e6:.2f} MB state rows)")
@@ -284,20 +349,10 @@ def main(argv=None):
                 submit(p, args.priority)
         return server.run()  # the last harvest waits for the card
 
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if model.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            results = serve()
-            wall = time.perf_counter() - t0  # the profiler's teardown left out
-    else:
+    with device_capture(args.profile or None, enabled=args.profile is not None) as prof:
         t0 = time.perf_counter()
         results = serve()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0  # the profiler's teardown left out
     s = server.stats
     print(f"continuous: {len(results)} requests, {s.decode_tokens} decode tokens in "
           f"{s.decode_steps} steps over {args.num_slots} slots"
@@ -330,12 +385,28 @@ def main(argv=None):
             print("speculative graphs: " + ", ".join(
                 f"{k} {v.captures} capture(s) {v.replays} replays" for k, v in steps.items())
                 + " (warm-up included)")
-    if args.profile:
+    if prof is not None:
         print_device_time(prof, wall)
+        if args.profile:
+            print(f"profile: device trace -> {args.profile}")
     for rid in sorted(results):
         r = results[rid]
         print(f"  req {rid}: prompt {r.prompt_len:>3} -> {r.num_generated} tokens "
               f"({r.finish_reason}): {r.out_tokens}")
+    # Flush the observability files before the spec gate: its reference run
+    # and reset() would wipe the timed run's metrics and trace.
+    run_meta = {"arch": args.arch, "mode": args.mode, "requests": args.requests,
+                "seed": args.seed}
+    if args.trace_out:
+        fmt = write_trace(server.tracer, args.trace_out, meta=run_meta)
+        print(f"trace: {len(server.tracer.events)} events -> {args.trace_out} "
+              f"({fmt}; chrome format opens in ui.perfetto.dev)")
+    if args.metrics_out:
+        fmt = write_metrics(server.metrics, args.metrics_out, profiler=server.profiler,
+                            meta=run_meta)
+        print(f"metrics: snapshot -> {args.metrics_out} ({fmt})")
+    if args.trace_out or args.metrics_out or args.profile is not None:
+        print(server.profiler.format_summary())
     if spec is not None and args.spec_gate:
         run_gate(args, server, model, params, prompts, results, sampling, spec_rows,
                  model_drafter=draft_model is not None)

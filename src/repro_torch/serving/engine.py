@@ -1,7 +1,8 @@
 """The serving engine core of the port: device steps with a window of
 dispatched steps, the per-slot last-token tensor, the sampling generator,
 and the decode step replayed as a CUDA graph (counterpart of
-``repro.serving.engine.EngineCore``; its metrics and tracer are not ported).
+``repro.serving.engine.EngineCore``, with its tracer, metrics and step
+profiler).
 
 A ``dispatch_*`` call enqueues a step on the current stream and returns;
 :meth:`EngineCore.harvest_one` waits for the oldest step only, never for
@@ -42,6 +43,17 @@ the keyword is ignored.
 
 The speculative steps (the verify step, the model drafter's catch-up and
 decode) are fixed-shape too, each a :class:`GraphStep` of its own.
+
+**Observability** (the reference's, ``repro/serving/engine.py``): each
+dispatch is a ``<kind>.dispatch`` span on the device "steps" track (the
+host's enqueue only), and each harvest records the host's wait on the
+step's event (``engine_idle_seconds``), charges the step's seconds to
+``serving_prefill_seconds_total`` or ``serving_decode_seconds_total`` and
+their step histograms and to the :class:`~repro_torch.obs.StepProfiler`,
+and emits a ``<kind>.complete`` event on the "in flight" track, backdated
+to the dispatch. Nothing here synchronises the card beyond the harvest's
+wait on its event, and with the default ``NullTracer`` no event argument
+is built.
 """
 from __future__ import annotations
 
@@ -53,6 +65,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import (
+    DEVICE_INFLIGHT_TID,
+    DEVICE_TID,
+    PID_DEVICE,
+    MetricsRegistry,
+    NullTracer,
+    StepProfiler,
+)
 from repro_torch.serving.cache import StateStore, copy_kv_page
 from repro_torch.serving.sampling import GREEDY, sample_logits, stack_params
 
@@ -66,12 +86,14 @@ class InflightStep:
     """One dispatched step whose results the host has not read yet."""
 
     kind: str  # prefill_full | prefill_chunk | prefill_batch | decode
+    bucket: int  # profiler shape bucket (chunk size, P*chunk, or num_slots)
     t_dispatch: float
     out: torch.Tensor  # host int32: the sampled tokens (if any), then the finite flag
     done: Optional[torch.cuda.Event]  # recorded after ``out``'s copy (on the card)
     staged: torch.Tensor  # the step's pinned inputs, held until its harvest
     n_tokens: int  # sampled tokens at the head of ``out``
     payload: Any
+    trace_args: Optional[dict]  # the dispatch's span arguments (None untraced)
 
 
 def _pack(arrays: dict[str, np.ndarray]) -> tuple[np.ndarray, dict]:
@@ -165,7 +187,11 @@ class EngineCore:
     """Device-stepping core of the continuous-batching server."""
 
     def __init__(self, model, params, config, profile=None, *, seed: int = 0,
-                 graph_decode: bool = True):
+                 graph_decode: bool = True, tracer=None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 profiler: Optional[StepProfiler] = None):
+        # ``profile`` is the model's serving profile (CBProfile); the step
+        # profiler is ``profiler``.
         self.model = model
         self.params = params
         self.config = config
@@ -181,8 +207,27 @@ class EngineCore:
             np.zeros((n,), bool), [GREEDY] * n), self.device, graph=False)
         self.graph_decode = graph_decode
         self._last_tok = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
-        self.prefill_s = self.decode_s = 0.0
-        self.nonfinite_steps = 0
+        self.tracer = tracer if tracer is not None else NullTracer()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.profiler = profiler if profiler is not None else StepProfiler()
+        m = self.metrics
+        self._g_inflight = m.gauge(
+            "engine_inflight", "device steps dispatched but not yet harvested")
+        self._h_idle = m.histogram(
+            "engine_idle_seconds",
+            help="host blocking wait per harvest (0 when the step already "
+                 "finished — the overlap window covered it)")
+        self._c_prefill_s = m.counter(
+            "serving_prefill_seconds_total", "wall seconds in prefill steps")
+        self._c_decode_s = m.counter(
+            "serving_decode_seconds_total", "wall seconds in decode rounds")
+        self._h_chunk = m.histogram(
+            "serving_prefill_chunk_seconds", help="one prefill step")
+        self._h_decode_step = m.histogram(
+            "serving_decode_step_seconds",
+            help="one decode round over all slots (incl. sampling sync)")
+        self._c_nonfinite = m.counter(
+            "serving_nonfinite_steps_total", "steps whose live logits held inf or NaN")
 
     # -- the decode graph --------------------------------------------------
     @property
@@ -220,8 +265,7 @@ class EngineCore:
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._last_tok.zero_()
         self._t_last_harvest = 0.0
-        self.prefill_s = self.decode_s = 0.0
-        self.nonfinite_steps = 0
+        self._g_inflight.set(0)
 
     # -- pool sizing -------------------------------------------------------
     def reserve_tokens_cap(self) -> Optional[int]:
@@ -287,9 +331,11 @@ class EngineCore:
         return sample_logits(logits, self._gen, temperature=dev["temperature"],
                              top_k=dev["top_k"], top_p=dev["top_p"])
 
-    def _record(self, kind: str, t0: float, toks, finite: torch.Tensor, staged, payload) -> None:
+    def _record(self, kind: str, bucket: int, t0: float, toks, finite: torch.Tensor, staged,
+                payload, targs: Optional[dict]) -> None:
         """Queue the step's results for the host: its tokens and finite
-        flag, copied to pinned memory behind the step, and an event."""
+        flag, copied to pinned memory behind the step, and an event; close
+        the dispatch span."""
         flag = finite.to(torch.int32)[None]
         out_dev = flag if toks is None else torch.cat([toks.to(torch.int32), flag])
         done = None
@@ -300,16 +346,24 @@ class EngineCore:
             done.record()
         else:
             out = out_dev
-        self._inflight.append(InflightStep(kind, t0, out, done, staged,
-                                           0 if toks is None else toks.shape[0], payload))
+        if targs is not None:
+            self.tracer.end(PID_DEVICE, DEVICE_TID, f"{kind}.dispatch")
+        self._inflight.append(InflightStep(kind, bucket, t0, out, done, staged,
+                                           0 if toks is None else toks.shape[0], payload, targs))
+        self._g_inflight.set(len(self._inflight))
 
     # -- dispatch ----------------------------------------------------------
     def dispatch_prefill(self, *, kind: str, tokens: np.ndarray, page_row: np.ndarray,
-                         slot: int, start: int, n: int, sampling=None, payload=None) -> None:
+                         slot: int, start: int, n: int, bucket: int, sampling=None,
+                         payload=None, rid: int = -1) -> None:
         """Enqueue one single-row prefill step (``prefill_full`` or
         ``prefill_chunk``). ``sampling`` marks the final chunk: its first
         token is sampled on the card and goes into the last-token tensor,
         so a decode can be dispatched against it."""
+        targs = None
+        if self.tracer.enabled:
+            targs = {"rid": rid, "slot": slot, "start": start, "tokens": n, "bucket": bucket}
+            self.tracer.begin(PID_DEVICE, DEVICE_TID, f"{kind}.dispatch", **targs)
         t0 = time.perf_counter()
         arrays = {"tokens": tokens, "page_row": page_row}
         if sampling is not None:
@@ -324,15 +378,24 @@ class EngineCore:
         if sampling is not None:
             toks = self._sample(logits, dev)
             self._last_tok[slot, 0] = toks[0]
-        self._record(kind, t0, toks, torch.isfinite(logits).all(), staged, payload)
+        self._record(kind, bucket, t0, toks, torch.isfinite(logits).all(), staged, payload,
+                     targs)
 
     def dispatch_prefill_batch(self, *, tokens: np.ndarray, page_rows: np.ndarray,
                                slots: np.ndarray, starts: np.ndarray, lengths: np.ndarray,
                                active: np.ndarray, final_mask: np.ndarray, sampling_list,
-                               payload=None) -> None:
+                               payload=None, rids=None) -> None:
         """Enqueue one (P, chunk) multi-slot prefill step. Every row is
         sampled in one call; only rows whose chunk completes the prompt
         (``final_mask``) go into the last-token tensor."""
+        p, chunk = tokens.shape
+        bucket = p * chunk  # the GEMMs' rows
+        targs = None
+        if self.tracer.enabled:
+            targs = {"rows": int(active.sum()), "P": p, "chunk": chunk, "bucket": bucket}
+            if rids is not None:
+                targs["rids"] = list(rids)
+            self.tracer.begin(PID_DEVICE, DEVICE_TID, "prefill_batch.dispatch", **targs)
         t0 = time.perf_counter()
         staged, layout = self._stage({
             "tokens": tokens, "page_rows": page_rows, "slots": slots, "starts": starts,
@@ -349,7 +412,7 @@ class EngineCore:
         last = self._last_tok[:, 0]
         last.scatter_(0, slots_dev, torch.where(dev["final"] != 0, toks.long(), last[slots_dev]))
         finite = (torch.isfinite(logits).all(-1) | (dev["active"] == 0)).all()
-        self._record("prefill_batch", t0, toks, finite, staged, payload)
+        self._record("prefill_batch", bucket, t0, toks, finite, staged, payload, targs)
 
     def _decode_forward(self, d: dict, pools) -> torch.Tensor:
         """``decode_cb`` on the static decode inputs: the body of the decode
@@ -362,6 +425,11 @@ class EngineCore:
         """Enqueue one decode step over every slot. Input tokens come from the
         device last-token tensor; sampled tokens of active slots merge back
         into it for the next decode."""
+        n = self.config.num_slots
+        targs = None
+        if self.tracer.enabled:
+            targs = {"slots": n, "decoding": int(active.sum())}
+            self.tracer.begin(PID_DEVICE, DEVICE_TID, "decode.dispatch", **targs)
         t0 = time.perf_counter()
         staged, _ = self._stage(self._decode_arrays(self.cache.page_table, self.cache.seq_lens,
                                                     active, params_list))
@@ -372,30 +440,48 @@ class EngineCore:
         act = d["active"] != 0
         self._last_tok.copy_(torch.where(act[:, None], toks[:, None].long(), self._last_tok))
         finite = (torch.isfinite(logits).all(-1) | ~act).all()
-        self._record("decode", t0, toks, finite, staged, payload)
+        self._record("decode", n, t0, toks, finite, staged, payload, targs)
 
     # -- harvest -----------------------------------------------------------
+    def charge_decode(self, dt: float, finite: bool) -> None:
+        """Charge one decode round of ``dt`` wall seconds, and count it as
+        non-finite unless ``finite``: the harvest of a decode step and the
+        server's synchronous spec round both report through here."""
+        self._c_nonfinite.inc(int(not finite))
+        self._c_decode_s.inc(dt)
+        self._h_decode_step.observe(dt)
+
     def harvest_one(self):
         """Wait for the oldest dispatched step and return ``(step, tokens)``
         (tokens as numpy, None for a non-final prefill chunk); None when
         nothing is in flight. Each step is charged the wall time from
         max(its dispatch, the previous harvest) to the moment its results
         reached the host, so the charges sum to the elapsed wall time when
-        the card is saturated."""
+        the card is saturated. The wait on the step's event is the host's
+        only block, and ``engine_idle_seconds`` observes it."""
         if not self._inflight:
             return None
         rec = self._inflight.popleft()
+        t_wait = time.perf_counter()
         if rec.done is not None:
             rec.done.synchronize()
         out = rec.out.numpy()
         toks = out[:rec.n_tokens].copy() if rec.n_tokens else None
-        if not out[-1]:
-            self.nonfinite_steps += 1
         t_done = time.perf_counter()
+        self._h_idle.observe(t_done - t_wait)
         dt = t_done - max(rec.t_dispatch, self._t_last_harvest)
         self._t_last_harvest = t_done
-        if rec.kind == "decode":
-            self.decode_s += dt
+        if rec.kind.startswith("prefill"):
+            self._c_nonfinite.inc(int(not out[-1]))
+            self._c_prefill_s.inc(dt)
+            self._h_chunk.observe(dt)
         else:
-            self.prefill_s += dt
+            self.charge_decode(dt, bool(out[-1]))
+        self.profiler.record(rec.kind, rec.bucket, dt)
+        if rec.trace_args is not None:
+            self.tracer.complete(
+                PID_DEVICE, DEVICE_INFLIGHT_TID, f"{rec.kind}.complete",
+                rec.t_dispatch, t_done - rec.t_dispatch,
+                wait_s=round(t_done - t_wait, 6), **rec.trace_args)
+        self._g_inflight.set(len(self._inflight))
         return rec, toks

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler of the port: request queue, priorities with
 aging, prefix-cache-aware admission, preemption, slot recycling and
-chunked-prefill progress (counterpart of ``repro.serving.scheduler``; its
-metrics handles are plain counters here).
+chunked-prefill progress (counterpart of ``repro.serving.scheduler``, with
+its request counters and occupancy gauges in an optional metrics registry).
 
     QUEUED --admit--> RUNNING(prefilling -> decoding) --finish--> FINISHED
              ^            | (preempt: prefilling only)
@@ -118,7 +118,8 @@ class Scheduler:
                  kv_reserve_tokens: Optional[int] = None,
                  prefix_cache: bool = False,
                  preemption: bool = False,
-                 aging_steps: int = 32):
+                 aging_steps: int = 32,
+                 metrics=None):
         self.pool = pool
         self.pages_per_slot = pages_per_slot
         slot_cap = pages_per_slot * pool.page_size
@@ -141,6 +142,23 @@ class Scheduler:
         # again: its hit is a real saving).
         self.prefix_hit_tokens = 0
         self.prefix_prompt_tokens = 0
+        # Optional MetricsRegistry (duck-typed, as in the reference): request
+        # counters and the queue and running occupancy gauges.
+        self.metrics = metrics
+        if metrics is not None:
+            self._c_submitted = metrics.counter(
+                "serving_requests_submitted_total", "Requests accepted by Scheduler.submit")
+            self._c_finished = metrics.counter(
+                "serving_requests_finished_total", "Requests that reached FINISHED")
+            self._g_queue_depth = metrics.gauge(
+                "serving_queue_depth", "Requests waiting in the queue")
+            self._g_running = metrics.gauge(
+                "serving_running_requests", "Requests holding a decode slot")
+
+    def _sync_gauges(self) -> None:
+        if self.metrics is not None:
+            self._g_queue_depth.set(len(self.queue))
+            self._g_running.set(len(self.running))
 
     # -- introspection -----------------------------------------------------
     def has_work(self) -> bool:
@@ -192,6 +210,9 @@ class Scheduler:
             request.rid = next(self._rids)
         request.status = QUEUED
         self.queue.append(request)
+        if self.metrics is not None:
+            self._c_submitted.inc()
+            self._sync_gauges()
         return request
 
     # -- prefix cache ------------------------------------------------------
@@ -268,6 +289,7 @@ class Scheduler:
                 break
             self.queue.pop(0)
             admitted.append(req)
+        self._sync_gauges()
         return admitted
 
     def _try_admit(self, req: Request) -> bool:
@@ -365,6 +387,7 @@ class Scheduler:
         req.preemptions += 1
         self.preemptions += 1
         self.queue.append(req)
+        self._sync_gauges()
         if on_preempt is not None:
             on_preempt(slot)
 
@@ -423,3 +446,6 @@ class Scheduler:
         req.pages = []
         req.status = FINISHED
         self.completed += 1
+        if self.metrics is not None:
+            self._c_finished.inc()
+            self._sync_gauges()

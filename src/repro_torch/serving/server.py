@@ -1,6 +1,6 @@
 """The continuous-batching server of the port (counterpart of
-``repro.serving.server`` without the tracer and the metrics registry; its
-counters are plain fields of :class:`ServerStats`).
+``repro.serving.server``, with its tracer, metrics registry and step
+profiler: :class:`ServerStats` is a read-only view over the registry).
 
 The :class:`~repro_torch.serving.engine.EngineCore` owns the device (the
 StateStore, the steps, the sampling generator, the last-token tensor, the
@@ -48,6 +48,16 @@ state rows takes a commit pass after each round's rejection sampling (the
 verify pass leaves its rows as they were), and a model drafter with state
 rows snapshots them around its draft steps (``spec/drafter.py``).
 
+Observability is the reference's (``repro_torch.obs``): each request is a
+``request`` span on its own track, holding ``queued`` (reopened on a
+preemption), one ``prefill_chunk`` a committed chunk and ``decode`` (first
+token to finish), with the instants ``admitted``, ``preempted`` and
+``finished``; a speculative round is a synchronous ``spec_round`` span on
+the device track with ``draft``, ``verify`` and ``commit`` inside it (the
+commit phase holds the state-row commit pass and the round's one copy to
+the host). Tracing is off by default (``NullTracer``), and off it builds
+no event argument.
+
 The static-batch path (:func:`generate_static`) lives here too: the
 ring-buffer baseline that ``launch/serve.py --mode static`` runs.
 """
@@ -61,6 +71,14 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import resolve_device
+from repro_torch.obs import (
+    DEVICE_TID,
+    PID_DEVICE,
+    PID_REQUESTS,
+    MetricsRegistry,
+    NullTracer,
+    StepProfiler,
+)
 from repro_torch.serving.engine import EngineCore
 from repro_torch.serving.sampling import GREEDY, SamplingParams, sample_logits, stack_params
 from repro_torch.serving.scheduler import RUNNING, Request, Scheduler
@@ -118,46 +136,112 @@ class TokenEvent(NamedTuple):
     finish_reason: Optional[str]
 
 
-@dataclasses.dataclass
 class ServerStats:
-    """Plain counters of one run."""
+    """Read-only view over the server's :class:`MetricsRegistry` — the
+    registry is the single source of truth (one set of counters feeds the
+    launcher report, the benchmark rows, the Prometheus exposition and the
+    JSON snapshot); this class keeps the field names every caller already
+    uses. Constructible standalone (fresh registry) for tests."""
 
-    prefill_calls: int = 0  # prefill chunk advances committed
-    prefill_tokens: int = 0  # valid prompt tokens prefilled
-    decode_steps: int = 0
-    decode_tokens: int = 0  # tokens sampled for active slots
-    slot_steps: int = 0  # decode_steps * num_slots
-    prefill_s: float = 0.0
-    decode_s: float = 0.0
-    # Prompt tokens served from the prefix cache, and all prompt tokens
-    # admitted (a preempted request's resume counts again).
-    prefix_hit_tokens: int = 0
-    prefix_prompt_tokens: int = 0
-    cow_copies: int = 0  # copy-on-write page copies
-    preemptions: int = 0  # prefilling requests evicted back to the queue
-    nonfinite_steps: int = 0  # steps whose live logits held inf or NaN
-    # Speculative decoding: verify rounds run (each also counts as a decode
-    # step), drafts fielded, drafts accepted.
-    spec_steps: int = 0
-    spec_drafted: int = 0
-    spec_accepted: int = 0
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._m = registry if registry is not None else MetricsRegistry()
+
+    def _c(self, name: str) -> float:
+        return self._m.counter(name).value
+
+    @property
+    def prefill_calls(self) -> int:
+        return int(self._c("serving_prefill_calls_total"))
+
+    @property
+    def prefill_tokens(self) -> int:
+        """Valid prompt tokens prefilled."""
+        return int(self._c("serving_prefill_tokens_total"))
+
+    @property
+    def decode_steps(self) -> int:
+        return int(self._c("serving_decode_steps_total"))
+
+    @property
+    def decode_tokens(self) -> int:
+        """Tokens sampled for *active* slots."""
+        return int(self._c("serving_decode_tokens_total"))
+
+    @property
+    def slot_steps(self) -> int:
+        """decode_steps * num_slots (capacity offered)."""
+        return int(self._c("serving_slot_steps_total"))
+
+    @property
+    def prefill_s(self) -> float:
+        return self._c("serving_prefill_seconds_total")
+
+    @property
+    def decode_s(self) -> float:
+        return self._c("serving_decode_seconds_total")
+
+    # Prefix cache: prompt tokens satisfied from published pages vs all
+    # prompt tokens admitted (a preempted request's resume counts again).
+    # The scheduler's counters are the authority; gauges mirror them.
+    @property
+    def prefix_hit_tokens(self) -> int:
+        return int(self._m.gauge("serving_prefix_hit_tokens").value)
+
+    @property
+    def prefix_prompt_tokens(self) -> int:
+        return int(self._m.gauge("serving_prefix_prompt_tokens").value)
+
+    @property
+    def cow_copies(self) -> int:
+        """Copy-on-write page copies performed."""
+        return int(self._c("serving_cow_copies_total"))
+
+    @property
+    def preemptions(self) -> int:
+        """Prefilling requests evicted back to the queue."""
+        return int(self._m.gauge("serving_preemptions").value)
+
+    # Speculative decoding: verify rounds run, drafts fielded, drafts the
+    # rejection sampler accepted.
+    @property
+    def spec_steps(self) -> int:
+        return int(self._c("serving_spec_steps_total"))
+
+    @property
+    def spec_drafted(self) -> int:
+        return int(self._c("serving_spec_drafted_total"))
+
+    @property
+    def spec_accepted(self) -> int:
+        return int(self._c("serving_spec_accepted_total"))
+
+    @property
+    def nonfinite_steps(self) -> int:
+        """Steps whose live logits held inf or NaN (the port's own counter)."""
+        return int(self._c("serving_nonfinite_steps_total"))
 
     @property
     def utilization(self) -> float:
-        """Fraction of offered decode-lane steps that produced a token; above
-        1 under speculative decoding, where a lane can emit several."""
+        """Fraction of offered decode-lane steps that produced a token —
+        the serving analogue of the paper's CE-array utilization. Under
+        speculative decoding one lane-step can emit several tokens, so
+        this can exceed 1.0 — that surplus IS the speedup."""
         return self.decode_tokens / self.slot_steps if self.slot_steps else 0.0
 
     @property
     def acceptance_rate(self) -> float:
-        """Fraction of fielded drafts the target accepted."""
-        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
+        """Fraction of fielded draft tokens the target accepted."""
+        if not self.spec_drafted:
+            return 0.0
+        return self.spec_accepted / self.spec_drafted
 
     @property
     def accepted_per_step(self) -> float:
-        """Mean accepted drafts per speculative round (a round emits this
-        plus one token a decoding row)."""
-        return self.spec_accepted / self.spec_steps if self.spec_steps else 0.0
+        """Mean accepted draft tokens per speculative verify round (the
+        emitted tokens per round are this + 1)."""
+        if not self.spec_steps:
+            return 0.0
+        return self.spec_accepted / self.spec_steps
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -199,11 +283,17 @@ class Server:
     ``spec`` turns on speculative decoding with the n-gram drafter, or with
     ``draft_model``/``draft_params`` (a model sharing the target's
     vocabulary, on the same device) as the drafter; a ``draft_model``
-    without ``spec`` takes the default :class:`SpecConfig`."""
+    without ``spec`` takes the default :class:`SpecConfig`.
+
+    ``tracer`` (default the zero-overhead ``NullTracer``), ``metrics`` (the
+    registry, always on: it holds the stats) and ``profiler`` are the
+    reference's observability hooks (``repro_torch.obs``)."""
 
     def __init__(self, model, params, config: Optional[ServerConfig] = None, *,
                  seed: int = 0, device="cuda", spec: Optional[SpecConfig] = None,
-                 draft_model=None, draft_params=None):
+                 draft_model=None, draft_params=None, tracer=None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 profiler: Optional[StepProfiler] = None):
         if config is None:
             config = ServerConfig()
         if config.async_depth < 0:
@@ -214,6 +304,10 @@ class Server:
         device = resolve_device(device)
         if model.device.type != device.type:
             raise ValueError(f"the model lives on {model.device}, the server on {device}")
+        self.tracer = tracer if tracer is not None else NullTracer()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.profiler = profiler if profiler is not None else StepProfiler()
+        self._bind_metrics()
         self.model = model
         self.params = params
         self.config = config
@@ -225,7 +319,9 @@ class Server:
                              and not self.profile.has_state_rows)
         if draft_model is not None and spec is None:
             spec = SpecConfig()
-        self.engine = EngineCore(model, params, config, self.profile, seed=seed)
+        self.engine = EngineCore(model, params, config, self.profile, seed=seed,
+                                 tracer=self.tracer, metrics=self.metrics,
+                                 profiler=self.profiler)
         self.spec = spec
         self.drafter = self.verifier = None
         if spec is not None:
@@ -239,13 +335,61 @@ class Server:
                 self.drafter = ModelDrafter(
                     draft_model, draft_params, num_slots=config.num_slots,
                     page_size=config.page_size, max_seq_len=config.max_seq_len, k=spec.k,
-                    draft_chunk=spec.draft_chunk)
+                    draft_chunk=spec.draft_chunk, metrics=self.metrics)
             else:
-                self.drafter = NgramDrafter(k=spec.k, ngram_n=spec.ngram_n)
+                self.drafter = NgramDrafter(k=spec.k, ngram_n=spec.ngram_n,
+                                            metrics=self.metrics)
             self.verifier = Verifier(model, params, num_slots=config.num_slots, k=spec.k,
                                      page_size=config.page_size,
-                                     pages_per_slot=config.pages_per_slot)
+                                     pages_per_slot=config.pages_per_slot,
+                                     metrics=self.metrics)
         self._fresh_state()
+
+    def _bind_metrics(self) -> None:
+        """Resolve the registry handles the step loop increments. Names are
+        the reference's public metric surface; the step seconds and
+        ``serving_nonfinite_steps_total`` (the port's addition) belong to the
+        engine core, which the spec round charges through
+        ``EngineCore.charge_decode``. Handles survive ``metrics.reset()``
+        (metrics zero in place)."""
+        m = self.metrics
+        self._c_prefill_calls = m.counter(
+            "serving_prefill_calls_total", "prefill chunk advances committed")
+        self._c_prefill_tokens = m.counter(
+            "serving_prefill_tokens_total", "valid prompt tokens prefilled")
+        self._c_decode_steps = m.counter(
+            "serving_decode_steps_total", "decode/spec rounds run")
+        self._c_decode_tokens = m.counter(
+            "serving_decode_tokens_total", "tokens sampled for active slots")
+        self._c_slot_steps = m.counter(
+            "serving_slot_steps_total", "decode lane-steps offered")
+        self._c_cow = m.counter(
+            "serving_cow_copies_total", "copy-on-write page copies")
+        self._c_spec_steps = m.counter(
+            "serving_spec_steps_total", "speculative verify rounds")
+        self._c_spec_drafted = m.counter(
+            "serving_spec_drafted_total", "draft tokens fielded")
+        self._c_spec_accepted = m.counter(
+            "serving_spec_accepted_total", "draft tokens accepted")
+        self._g_prefix_hit = m.gauge(
+            "serving_prefix_hit_tokens",
+            "prompt tokens served from the prefix cache (scheduler mirror)")
+        self._g_prefix_prompt = m.gauge(
+            "serving_prefix_prompt_tokens",
+            "prompt tokens admitted (scheduler mirror)")
+        self._g_preemptions = m.gauge(
+            "serving_preemptions", "preemptions (scheduler mirror)")
+        self._h_ttft = m.histogram(
+            "serving_ttft_seconds", help="submit -> first token, queue incl.")
+        self._h_itl = m.histogram(
+            "serving_inter_token_seconds",
+            help="gap between a request's consecutive emitted tokens")
+        self._h_queue_wait = m.histogram(
+            "serving_queue_wait_seconds",
+            help="enqueue (submit or preemption) -> admission")
+        self._h_acc_round = m.histogram(
+            "serving_spec_accepted_per_round", bounds=list(range(33)),
+            help="accepted drafts per decoding row per verify round")
 
     @property
     def cache(self):
@@ -262,15 +406,20 @@ class Server:
 
     def _fresh_state(self, pools=None) -> None:
         cfg = self.config
+        # Metrics and trace events reset with the rest of the serving state,
+        # so warm-up counters never leak into a timed run's report; the step
+        # profiler survives, so a shape's first call stays with the warm-up.
+        self.metrics.reset()
+        self.tracer.reset()
         self.engine.fresh(pools=pools)
         self.scheduler = Scheduler(
             num_slots=cfg.num_slots, pool=self.cache.allocator,
             pages_per_slot=cfg.pages_per_slot, max_seq_len=cfg.max_seq_len,
             token_budget=cfg.token_budget, kv_reserve_tokens=self.engine.reserve_tokens_cap(),
             prefix_cache=self.prefix_cache, preemption=cfg.preemption,
-            aging_steps=cfg.aging_steps,
+            aging_steps=cfg.aging_steps, metrics=self.metrics,
         )
-        self.stats = ServerStats()
+        self.stats = ServerStats(self.metrics)
         self.results: dict[int, Request] = {}
         self._slot_req: dict[int, Request] = {}  # slot -> running request
         self._disp: dict[int, _DispatchState] = {}  # rid -> dispatch cursor
@@ -280,7 +429,8 @@ class Server:
     def reset(self) -> None:
         """Drop all serving state; keep the pools (stale K/V are never read
         back as valid) and with them the decode graph. Steps in flight are
-        harvested first and their events discarded."""
+        harvested first and their events discarded. The metrics zero in
+        place and the trace events go; the step profiler stays."""
         self._drain([])
         self._fresh_state(pools=self.cache.pools)
 
@@ -293,6 +443,11 @@ class Server:
             sampling=sampling, eos_id=eos_id, priority=priority, spec_k=spec_k,
         ))
         req.t_submit = req.t_queued = time.perf_counter()
+        t = self.tracer
+        if t.enabled:
+            t.begin(PID_REQUESTS, req.rid, "request", rid=req.rid, prompt_len=req.prompt_len,
+                    max_new_tokens=req.max_new_tokens, priority=priority)
+            t.begin(PID_REQUESTS, req.rid, "queued")
         return req
 
     # -- the step loop -----------------------------------------------------
@@ -306,7 +461,10 @@ class Server:
         events: list[TokenEvent] = []
         for req in self.scheduler.admit(on_preempt=self._on_preempt):
             self._install(req)
-        self._sync_scheduler_stats()
+        # The scheduler's counters are the authority; the gauges mirror them.
+        self._g_prefix_hit.set(self.scheduler.prefix_hit_tokens)
+        self._g_prefix_prompt.set(self.scheduler.prefix_prompt_tokens)
+        self._g_preemptions.set(self.scheduler.preemptions)
         prefilling = [req for req in self.scheduler.running.values()
                       if self._dispatch_prefilling(req)]
         dispatched = 0
@@ -377,12 +535,6 @@ class Server:
         self.reset()
 
     # -- internals ---------------------------------------------------------
-    def _sync_scheduler_stats(self) -> None:
-        s = self.scheduler
-        self.stats.prefix_hit_tokens = s.prefix_hit_tokens
-        self.stats.prefix_prompt_tokens = s.prefix_prompt_tokens
-        self.stats.preemptions = s.preemptions
-
     def _gen_cap(self, req: Request) -> int:
         """Tokens this request may generate in total: dispatch stops exactly
         where ``scheduler.commit`` will declare FINISH_LENGTH."""
@@ -435,20 +587,32 @@ class Server:
         if req is not None:
             self._disp.pop(req.rid, None)
             req.t_queued = time.perf_counter()
+            t = self.tracer
+            if t.enabled:
+                t.instant(PID_REQUESTS, req.rid, "preempted", prefilled=req.prefilled, slot=slot)
+                t.begin(PID_REQUESTS, req.rid, "queued")
 
     def _install(self, req: Request) -> None:
         """Wire a newly admitted request into the device state: mirror its
         prefix pages, run the copy-on-write copies, and start its committed
         length at the cached prefix."""
-        req.t_admit = time.perf_counter()
+        now = time.perf_counter()
+        req.t_admit = now
+        self._h_queue_wait.observe(now - req.t_queued)
         self._slot_req[req.slot] = req
         self._disp[req.rid] = _DispatchState(prefilled=req.prefilled,
                                              generated=len(req.out_tokens),
                                              epoch=req.preemptions)
+        t = self.tracer
+        if t.enabled:
+            t.end(PID_REQUESTS, req.rid, "queued")
+            t.instant(PID_REQUESTS, req.rid, "admitted", slot=req.slot,
+                      prefix_hit_tokens=req.cached_tokens, cow_copies=len(req.pending_copies),
+                      preemptions=req.preemptions)
         self._mirror_pages(req, list(enumerate(req.pages)))
         for src, dst in req.pending_copies:
             self.engine.copy_page(src, dst)
-            self.stats.cow_copies += 1
+            self._c_cow.inc()
         req.pending_copies = []
         self.cache.seq_lens[req.slot] = req.prefilled
 
@@ -475,8 +639,8 @@ class Server:
         final = start + n == req.prompt_len
         self.engine.dispatch_prefill(
             kind=kind, tokens=toks, page_row=self.cache.page_table[req.slot], slot=req.slot,
-            start=start, n=n, sampling=req.sampling if final else None,
-            payload=[(req, ds.epoch, start, n, final)],
+            start=start, n=n, bucket=tb, sampling=req.sampling if final else None,
+            payload=[(req, ds.epoch, start, n, final)], rid=req.rid,
         )
         ds.prefilled = start + n
         if final:
@@ -535,7 +699,7 @@ class Server:
             self.engine.dispatch_prefill_batch(
                 tokens=toks, page_rows=page_rows, slots=slots, starts=starts, lengths=lengths,
                 active=active, final_mask=final_mask, sampling_list=sampling_list,
-                payload=rows,
+                payload=rows, rids=[req.rid for req in group],
             )
             dispatched += 1
             for req, _, start, n, final in rows:
@@ -595,9 +759,16 @@ class Server:
             active[slot] = True
             contexts[slot] = req.prompt + req.out_tokens
             params_list[slot] = req.sampling
+        t = self.tracer
+        if t.enabled:
+            t.begin(PID_DEVICE, DEVICE_TID, "spec_round", slots=n, decoding=len(decoding),
+                    k=spec.k)
+            t.begin(PID_DEVICE, DEVICE_TID, "draft")
         t0 = time.perf_counter()
         gen = self.engine.generator
         proposal = self.drafter.propose(contexts, want, gen, params_list)
+        if t.enabled:
+            t.end(PID_DEVICE, DEVICE_TID, "draft")
         k_eff = np.minimum(want, proposal.counts)
         lengths = np.where(active, k_eff + 1, 0).astype(np.int32)
         tokens = np.zeros((n, spec.k + 1), np.int32)
@@ -606,24 +777,33 @@ class Server:
             m = int(k_eff[slot])
             tokens[slot, 1:1 + m] = proposal.tokens[slot, :m]
             self._grow_pages(req, int(self.cache.seq_lens[slot]) + m + 1)
+        if t.enabled:
+            t.begin(PID_DEVICE, DEVICE_TID, "verify", width=spec.k + 1, rows=len(decoding))
         logits = self.verifier.verify(self.cache.pools, tokens, self.cache.page_table,
                                       self.cache.seq_lens, lengths, active, params_list)
         out, acc, finite = self.verifier.sample(logits, proposal.logits, gen)
+        if t.enabled:
+            t.end(PID_DEVICE, DEVICE_TID, "verify")
+            t.begin(PID_DEVICE, DEVICE_TID, "commit")
         if self.verifier.needs_state_commit:
             self.verifier.commit_state(self.cache.pools, acc)
         res = torch.cat([out.flatten(), acc, finite.to(torch.int32)[None]]).cpu().numpy()
         out, acc = res[:out.numel()].reshape(out.shape), res[out.numel():-1]
-        eng, st = self.engine, self.stats
-        eng.decode_s += time.perf_counter() - t0
-        eng.nonfinite_steps += int(not res[-1])
-        st.decode_s, st.nonfinite_steps = eng.decode_s, eng.nonfinite_steps
-        st.decode_steps += 1
-        st.slot_steps += n
-        st.spec_steps += 1
+        dt = time.perf_counter() - t0
+        if t.enabled:
+            t.end(PID_DEVICE, DEVICE_TID, "commit")
+            t.end(PID_DEVICE, DEVICE_TID, "spec_round")
+        self.verifier.observe()  # the verify step's time, read after the copy above
+        self.engine.charge_decode(dt, bool(res[-1]))
+        self.profiler.record("spec_round", n, dt)
+        self._c_decode_steps.inc()
+        self._c_slot_steps.inc(n)
+        self._c_spec_steps.inc()
         for slot, req in decoding:
             a = int(acc[slot])
-            st.spec_drafted += int(k_eff[slot])
-            st.spec_accepted += a
+            self._c_spec_drafted.inc(int(k_eff[slot]))
+            self._c_spec_accepted.inc(a)
+            self._h_acc_round.observe(a)
             req.spec_accepted += a
             ds = self._disp.get(req.rid)
             emitted = 0
@@ -632,7 +812,7 @@ class Server:
                 emitted += 1
                 if req.finish_reason is not None:
                     break  # accepted tokens past EOS are discarded
-            st.decode_tokens += emitted
+            self._c_decode_tokens.inc(emitted)
             if req.finish_reason is None:
                 if ds is not None:
                     ds.generated += emitted
@@ -660,30 +840,37 @@ class Server:
                     continue
                 self._commit(req, int(toks[slot]), events)
                 committed += 1
-            self.stats.decode_steps += 1
-            self.stats.slot_steps += self.config.num_slots
-            self.stats.decode_tokens += committed
+            self._c_decode_steps.inc()
+            self._c_slot_steps.inc(self.config.num_slots)
+            self._c_decode_tokens.inc(committed)
         else:
+            t = self.tracer
             for i, (req, epoch, start, n, final) in enumerate(rec.payload):
                 if req.status != RUNNING or req.preemptions != epoch:
                     continue
+                if t.enabled:
+                    t.begin(PID_REQUESTS, req.rid, "prefill_chunk", start=start, tokens=n)
+                    t.end(PID_REQUESTS, req.rid, "prefill_chunk")
                 req.prefilled = start + n
                 self.scheduler.publish_prefix(req)
-                self.stats.prefill_calls += 1
-                self.stats.prefill_tokens += n
+                self._c_prefill_calls.inc()
+                self._c_prefill_tokens.inc(n)
                 if final:
                     self._commit(req, int(toks[i]), events)
-        self.stats.prefill_s = self.engine.prefill_s
-        self.stats.decode_s = self.engine.decode_s
-        self.stats.nonfinite_steps = self.engine.nonfinite_steps
         return True
 
     def _commit(self, req: Request, token: int, events: list[TokenEvent]) -> None:
         """Commit one harvested token; latency marks are stamped here, where
         its value reaches the host, never at dispatch."""
         now = time.perf_counter()
+        t = self.tracer
         if req.t_first_token is None:
             req.t_first_token = now
+            self._h_ttft.observe(now - req.t_submit)
+            if t.enabled:
+                t.begin(PID_REQUESTS, req.rid, "decode")
+        elif req.t_last_token is not None:
+            self._h_itl.observe(now - req.t_last_token)
         req.t_last_token = now
         finished = self.scheduler.commit(req, token)
         events.append(TokenEvent(rid=req.rid, token=token, index=req.num_generated - 1,
@@ -698,6 +885,12 @@ class Server:
             self.results[req.rid] = req
             self._slot_req.pop(slot, None)
             self._disp.pop(req.rid, None)
+            if t.enabled:
+                t.instant(PID_REQUESTS, req.rid, "finished", finish_reason=req.finish_reason,
+                          generated=req.num_generated)
+                t.end(PID_REQUESTS, req.rid, "decode")
+                t.end(PID_REQUESTS, req.rid, "request", prefix_hit_tokens=req.cached_tokens,
+                      spec_accepted=req.spec_accepted, generated=req.num_generated)
 
 
 # -- static-batch reference path ---------------------------------------------

@@ -32,6 +32,7 @@ so the leaves are never rebound. The catch-up (``verify_cb`` with
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +41,17 @@ import torch
 from repro_torch.serving.cache import StateStore
 from repro_torch.serving.engine import GraphStep, stage
 from repro_torch.serving.sampling import GREEDY, sample_logits, stack_params
+
+
+def _draft_histogram(metrics):
+    """Per-round draft wall-clock histogram, when a MetricsRegistry is wired
+    in (duck-typed, as in the reference). Both drafters end their round on
+    the host (the n-gram lookup is host code; the model drafter's round ends
+    in one copy of its drafts), so the host clock times the whole round."""
+    if metrics is None:
+        return None
+    return metrics.histogram("serving_draft_seconds",
+                             help="Wall-clock of one drafter.propose round")
 
 
 class DraftProposal(NamedTuple):
@@ -57,11 +69,13 @@ class NgramDrafter:
     earlier occurrence; no match at any n means no proposals, and the row
     runs the verify step as a plain one-token decode."""
 
-    def __init__(self, *, k: int, ngram_n: int = 3):
+    def __init__(self, *, k: int, ngram_n: int = 3, metrics=None):
         self.k = k
         self.ngram_n = ngram_n
+        self._h_draft = _draft_histogram(metrics)
 
     def propose(self, contexts, want, generator, params_list) -> DraftProposal:
+        t0 = time.perf_counter()
         n_slots = len(want)
         tokens = np.zeros((n_slots, self.k), np.int32)
         counts = np.zeros((n_slots,), np.int32)
@@ -72,6 +86,8 @@ class NgramDrafter:
             cont = self._lookup(hist, m)
             counts[slot] = len(cont)
             tokens[slot, :len(cont)] = cont
+        if self._h_draft is not None:
+            self._h_draft.observe(time.perf_counter() - t0)
         return DraftProposal(tokens=tokens, counts=counts, logits=None)
 
     def _lookup(self, hist, m: int) -> list[int]:
@@ -103,7 +119,8 @@ class ModelDrafter:
     (:meth:`snapshot`, :meth:`restore`)."""
 
     def __init__(self, model, params, *, num_slots: int, page_size: int, max_seq_len: int,
-                 k: int, draft_chunk: int = 16):
+                 k: int, draft_chunk: int = 16, metrics=None):
+        self._h_draft = _draft_histogram(metrics)
         self.model = model
         self.params = params
         self.k = k
@@ -190,6 +207,7 @@ class ModelDrafter:
         the drafts are drawn with (so q is the distribution the rejection
         sampler assumes). Returns a fixed-shape proposal; the round ends in
         one copy of the drafts to the host."""
+        t0 = time.perf_counter()
         store, k = self.store, self.k
         n_slots = store.num_slots
         self._staged = []
@@ -226,6 +244,8 @@ class ModelDrafter:
         tokens = torch.stack(drafts, dim=1).cpu().numpy()
         self._staged = []
         counts = np.where(drafting, np.minimum(want, k), 0).astype(np.int32)
+        if self._h_draft is not None:
+            self._h_draft.observe(time.perf_counter() - t0)
         return DraftProposal(tokens=tokens.astype(np.int32), counts=counts,
                              logits=torch.stack(logits_per_pos, dim=1))
 

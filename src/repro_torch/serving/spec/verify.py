@@ -21,9 +21,19 @@ round consumed into the rows and rewrites their K/V. It is a second
 :class:`GraphStep` with its own capture; its inputs are the verify step's
 static buffer, copied on the card, with the clamped lengths written over
 them there, so the pass needs no host round trip.
+
+With a metrics registry, each verify step is observed into
+``serving_verify_seconds`` as in the reference. The reference blocks on
+the step's logits for that; the port adds no wait: on the card two CUDA
+events bracket the step, and :meth:`Verifier.observe` reads their interval
+after the round's one copy to the host (the card is idle when the step is
+enqueued, because the drafter's round ends in a copy too, so the interval
+is the step's wall time); on the CPU the step runs synchronously and is
+timed on the host clock.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -41,7 +51,11 @@ class Verifier:
     the two)."""
 
     def __init__(self, model, params, *, num_slots: int, k: int, page_size: int,
-                 pages_per_slot: int):
+                 pages_per_slot: int, metrics=None):
+        # Duck-typed MetricsRegistry (no repro_torch.obs import on the hot path).
+        self._h_verify = None if metrics is None else metrics.histogram(
+            "serving_verify_seconds", help="Wall-clock of one fixed-shape verify step")
+        self._timing = None
         self.model = model
         self.params = params
         self.page_size = page_size
@@ -82,7 +96,28 @@ class Verifier:
                                        params_list), self._on_card)
         self._staged = staged  # read by the copy in flight; released next round
         self.step.load(staged, pools)
-        return self.step.run()
+        if self._h_verify is None:
+            return self.step.run()
+        if self._on_card:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            logits = self.step.run()
+            end.record()
+            self._timing = (start, end)
+        else:
+            t0 = time.perf_counter()
+            logits = self.step.run()
+            self._timing = time.perf_counter() - t0
+        return logits
+
+    def observe(self) -> None:
+        """Observe the last verify step's time into ``serving_verify_seconds``
+        (no-op without a registry). Call it once the round's results have
+        reached the host: on the card it reads the step's CUDA events."""
+        if self._timing is None:
+            return
+        t, self._timing = self._timing, None
+        self._h_verify.observe(t if isinstance(t, float) else t[0].elapsed_time(t[1]) / 1e3)
 
     def sample(self, logits: torch.Tensor, draft_logits: Optional[torch.Tensor],
                generator: torch.Generator):

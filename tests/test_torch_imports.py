@@ -48,6 +48,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_scan_covers_every_subpackage():
+    """The scans walk the whole package: observability, the roofline and the
+    examples included."""
+    seen = {p.relative_to(PORT).parts[0] for p in _port_files() if PORT in p.parents}
+    assert {"obs", "roofline", "examples", "serving", "kernels", "configs"} <= seen
+    for name in ("obs/trace.py", "obs/metrics.py", "obs/profiler.py", "obs/export.py",
+                 "roofline/analysis.py", "roofline/cost.py", "configs/paper_tinyml.py",
+                 "examples/train_tinyml.py", "examples/viterbi_decode.py"):
+        assert PORT / name in _port_files(), name
+
+
 def test_the_scan_sees_a_forbidden_import():
     tree = ast.parse("import jax.numpy as jnp\nfrom repro.core import semiring\n"
                      "from repro_torch.core import semiring\n")
@@ -136,7 +147,7 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
     {"family": "vlm", "n_frontend_tokens": 8, "tie_embeddings": False},
     {"norm": "layernorm"}, {"family": "vlm"}, {"n_encoder_layers": 2},
 ])
-def test_unported_archs_raise(change):
+def test_encdec_and_vlm_refuse_continuous_batching_as_the_reference_does(change):
     """What stays unported of the encoder-decoder and VLM families is what
     the reference refuses too: continuous batching. Their arch ids resolve
     and their models build, but ``init_state_store``, and with it

@@ -468,7 +468,7 @@ def test_cb_profile_equals_the_references(arch):
     assert tuple(got) == tuple(want)
 
 
-def test_speculative_decoding_with_state_rows_raises_when_built():
+def test_speculative_decoding_with_state_rows_builds_and_runs_a_round():
     """The servers that raised while speculation over state rows was not
     ported now build and run a round: recurrentgemma as the n-gram target
     (its verifier takes the commit pass), and recurrentgemma as the
