@@ -184,6 +184,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
     redmule_hfp8 through ``Engine.matmul``, within ``GEMM_TOL`` of the
     plain backend, timed as graph replays beside its recorded bound and
     ``torch.matmul``; one summed kernel-line row a network, policy and schedule;
+20. the plan-selection layer (``kernels/tuning.py``) and the serving-step
+    contracts (``repro_torch.analysis``), on phase 8's model, after phase
+    13: (a) the tables' plan for each kernel-table shape, held equal to the
+    plan the row records; (b) ``REPRO_AUTOTUNE=1`` into a temporary cache
+    over granite's decode GEMM, the MoE decode down, the rglru projection,
+    the training forward (widening up front against in the kernel), the
+    fp32 and apsp 64 x 4096 x 12800 products and four paged decodes (the
+    serve run, 16 x 4096 tokens, gemma2's hd 256 with its window,
+    recurrentgemma's MQA): every candidate's ms, the table's plan and the
+    winner, each winner against its plain version (``GEMM_TOL``, apsp bit
+    for bit, ``DECODE_TOL``); the cache reloaded from disk times nothing,
+    and the variable is unset after; (c) the contracts on ``"cuda"`` for
+    every decoder-only arch at SMOKE size and for granite at full width
+    (decode and verify, each captured as a CUDA graph whose replay must
+    give the eager step's logits), granite's decode-step bytes from the
+    roofline recorder; (d) host µs a call of ``ops.gemm_op`` at the decode
+    shape (table, warm autotune cache, explicit plan);
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -475,6 +492,7 @@ def phase_gemm_schedules() -> None:
     from repro_torch.core import semiring
     from repro_torch.core.precision import E4M3, E5M2, FP16, cast, get_policy
     from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.kernels import tuning
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -496,7 +514,7 @@ def phase_gemm_schedules() -> None:
 
     cases = []
     for m in (1, 4, 16, 17, 64, 256):
-        sched = "small_row" if m <= rg.SMALL_M_MAX else "tc"
+        sched = "small_row" if m <= tuning.SMALL_M_MAX else "tc"
         wide = m > rg.TC_TILE_M  # N = 1000: both operands widened to fp16 by the copy
         cases += [
             (f"M{m} K4096 K-major w", q(E4M3, m, 4096), q(E4M3, 1000, 4096, scale=0.02).T,
@@ -4096,6 +4114,296 @@ def phase_paper_gemms() -> list:
     return rows
 
 
+# -- phase 20 --------------------------------------------------------------------
+
+# (a) The kernel table's shapes and the plan each row records: (label, x,
+# w as (K, N) with its layout, policy, op) -> (schedule, split, form,
+# widen). "kmajor": an E4M3 weight as cfg.fp8_params stores it; "rows": a
+# row-major weight cast each call (recurrentgemma's fp16 weights); "T": the
+# tied table's transposed view.
+TABLE_PLANS = [
+    ("granite decode 4x4096x12800", (4, 4096), (4096, 12800, "kmajor"), "hfp8", "matmul",
+     ("small_row", 2, "", False)),
+    ("granite decode k/v 4x4096x1024", (4, 4096), (4096, 1024, "kmajor"), "hfp8", "matmul",
+     ("small_row", 16, "", False)),
+    ("granite decode logits 4x4096x49155", (4, 4096), (4096, 49155, "T"), "hfp8", "matmul",
+     ("small_row", 1, "", False)),
+    ("granite prefill 64x4096x12800", (64, 4096), (4096, 12800, "kmajor"), "hfp8", "matmul",
+     ("tc", 1, "", False)),
+    ("granite verify 20x4096x12800", (20, 4096), (4096, 12800, "kmajor"), "hfp8", "matmul",
+     ("tc", 1, "", False)),
+    ("moe decode up/gate 4x1024x16384", (4, 1024), (1024, 16384, "kmajor"), "hfp8", "matmul",
+     ("small_row", 2, "", False)),
+    ("moe decode down 4x16384x1024", (4, 16384), (16384, 1024, "kmajor"), "hfp8", "matmul",
+     ("small_row", 32, "", False)),
+    ("moe router 4x1024x32 fp32", (4, 1024), (1024, 32, "rows"), "fp32", "matmul",
+     ("simt", 1, "warp", False)),
+    ("gemma2 decode 4x2304x9216", (4, 2304), (2304, 9216, "kmajor"), "hfp8", "matmul",
+     ("small_row", 2, "", False)),
+    ("rglru decode 4x2560x2560", (4, 2560), (2560, 2560, "rows"), "hfp8", "matmul",
+     ("small_row", 8, "", False)),
+    ("recurrentgemma geglu up 4x2560x7680", (4, 2560), (2560, 7680, "rows"), "hfp8", "matmul",
+     ("small_row", 4, "", False)),
+    ("recurrentgemma geglu down 4x7680x2560", (4, 7680), (7680, 2560, "rows"), "hfp8",
+     "matmul", ("small_row", 8, "", False)),
+    ("seamless ffn up 4x1024x8192", (4, 1024), (1024, 8192, "kmajor"), "hfp8", "matmul",
+     ("small_row", 4, "", False)),
+    ("seamless ffn down 4x8192x1024", (4, 8192), (8192, 1024, "kmajor"), "hfp8", "matmul",
+     ("small_row", 32, "", False)),
+    ("internvl2 gate/up 4x8192x28672", (4, 8192), (8192, 28672, "kmajor"), "hfp8", "matmul",
+     ("small_row", 1, "", False)),
+    ("internvl2 down 4x28672x8192", (4, 28672), (28672, 8192, "kmajor"), "hfp8", "matmul",
+     ("small_row", 4, "", False)),
+    ("fp32 64x4096x12800", (64, 4096), (4096, 12800, "rows"), "fp32", "matmul",
+     ("simt", 5, "f32", False)),
+    ("apsp 64x4096x12800 e4m3", (64, 4096), (4096, 12800, "rows"), "hfp8", "apsp",
+     ("simt", 5, "h2", False)),
+    ("moe router backward X^T.g 1024x2048x32 fp32", (1024, 2048), (2048, 32, "rows"), "fp32",
+     "matmul", ("simt", 8, "f32", False)),
+    ("train forward 2048x4096x12800", (2048, 4096), (4096, 12800, "kmajor"), "hfp8", "matmul",
+     ("tc", 1, "", True)),
+]
+# (label, S, Hq, Hkv, hd, pages a slot, window) -> the splits the row records.
+TABLE_DECODES = [("serve S4 Hq32 Hkv8 hd128", 4, 32, 8, 128, 7, None, 1),
+                 ("S16 x 4096 tokens", 16, 32, 8, 128, 256, None, 4),
+                 ("gemma2 S4 Hq8 Hkv4 hd256 window 4096", 4, 8, 4, 256, 313, 4096, 19),
+                 ("recurrentgemma S4 Hq10 Hkv1 hd256 window 2048", 4, 10, 1, 256, 188, 2048, 11)]
+# (b) The autotune sweep: labels of TABLE_PLANS, and decode cases.
+SWEEP_GEMMS = ("granite decode 4x4096x12800", "moe decode down 4x16384x1024",
+               "rglru decode 4x2560x2560", "train forward 2048x4096x12800",
+               "fp32 64x4096x12800", "apsp 64x4096x12800 e4m3")
+
+
+def _plan_operands(x_shape, w_spec, policy, gen):
+    """CUDA operands of one TABLE_PLANS row, in the policy's storage format."""
+    from repro_torch.core.precision import cast
+
+    fmt, dev = policy.storage_fwd, gen.device
+    x = cast(torch.randn(x_shape, generator=gen, device=dev), fmt)
+    k, n, layout = w_spec
+    scale = k ** -0.5
+    if layout == "kmajor":
+        w = cast(torch.randn((n, k), generator=gen, device=dev) * scale, fmt).T
+    elif layout == "T":
+        w = cast(torch.randn((n, k), generator=gen, device=dev) * 0.02, fmt).T
+    else:
+        w = cast(torch.randn((k, n), generator=gen, device=dev) * scale, fmt)
+    return x, w
+
+
+def _table_plans(gen) -> dict:
+    """(a): each kernel-table shape's plan by the tables, held to its row."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.kernels import tuning
+
+    operands = {}
+    for label, xs, ws, pol, op, want in TABLE_PLANS:
+        policy = get_policy({"hfp8": "redmule_hfp8"}.get(pol, pol))
+        x, w = _plan_operands(xs, ws, policy, gen)
+        plan = rg.plan_call(x, w, None, gop=semiring.get(op), policy=policy).plan
+        got = (plan.schedule, plan.split, plan.form, plan.widen)
+        log(f"plans (a): {label}: {tuning.plan_label(plan)} (copies x {int(plan.copy_x)} "
+            f"w {int(plan.copy_w)})")
+        if got != want:
+            raise AssertionError(f"{label}: the tables plan {got}, the kernel table records {want}")
+        operands[label] = (x, w, policy, semiring.get(op))
+    for label, s, hq, hkv, hd, pages, window, want in TABLE_DECODES:
+        got = fa.decode_splits(s, hkv, pages, groups=-(-(hq // hkv) // fa._DECODE_GROUP))
+        log(f"plans (a): paged decode {label}, {pages} pages: {got} split(s)")
+        if got != want:
+            raise AssertionError(f"paged decode {label}: {got} splits, the row records {want}")
+    return operands
+
+
+def _decode_sweep_cases() -> list:
+    rng = np.random.default_rng(20)
+    cases = []
+    for label, s, hq, hkv, hd, pages, window, _ in TABLE_DECODES:
+        if label.startswith("S16"):
+            case, cap = _long_decode_case(), None
+        else:
+            lens = {8: [70, 40, 100, 65], 4: [4600, 4200, 5000, 300],
+                    1: [3000, 2600, 2200, 300]}[hkv]
+            cap = 50.0 if hq == 8 else None
+            case = make_decode_case(rng, s=s, hq=hq, hkv=hkv, hd=hd, page_size=16,
+                                    pages_per_slot=pages, n_pages=s * pages + 1,
+                                    dtype=torch.float8_e4m3fn, q_dtype=torch.float16,
+                                    seq_lens=lens, window=window)
+        cases.append((label, case, window, cap))
+    return cases
+
+
+def _sweep(operands, decode_cases, cache: str) -> dict:
+    """(b): one autotuned call of each sweep shape (REPRO_AUTOTUNE=1 set by
+    the caller); returns each one's winner and the candidates timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.kernels import tuning
+
+    out = {}
+    for label in SWEEP_GEMMS:
+        x, w, policy, gop = operands[label]
+        before = tuning.timed
+        got = rg.redmule_gemm(x, w, None, gop=gop, policy=policy, out_dtype=policy.out)
+        c = rg.plan_call(x, w, None, gop=gop, policy=policy)
+        entry = tuning.lookup(tuning.gemm_key(c, gop, policy), cache)
+        out[label] = (got, entry, tuning.timed - before)
+    for label, (q, kp, vp, pt, lens, act), window, cap in decode_cases:
+        s, hq, hd = q.shape
+        qg = q.reshape(s, kp.shape[1], hq // kp.shape[1], hd)
+        before = tuning.timed
+        got = fa.paged_flash_decode(qg, kp, vp, pt, lens, act, page_size=16, window=window,
+                                    softcap=cap)
+        entry = tuning.lookup(tuning.decode_key(qg, kp, pt.shape[1], 16, window), cache)
+        out[label] = (got, entry, tuning.timed - before)
+    torch.cuda.synchronize()
+    return out
+
+
+def _log_sweep(label, entry, timed) -> None:
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.redmule_gemm import GemmPlan
+
+    ms = ", ".join(f"{k}: {v:.4f}" for k, v in sorted(entry["ms"].items(), key=lambda kv: kv[1]))
+    winner = (tuning.plan_label(GemmPlan(**entry["plan"])) if "plan" in entry
+              else f"{entry['splits']} splits")
+    table = entry["table"] if "plan" in entry else f"{entry['table']} splits"
+    log(f"plans (b): {label}: table {table}, winner {winner}, {timed} candidates timed "
+        f"(ms a launch: {ms})")
+
+
+def _hold_winners(results, operands, decode_cases) -> None:
+    """Each winner against its plain version: GEMM_TOL, apsp bit for bit,
+    the decode within DECODE_TOL."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import redmule_gemm as rg
+
+    for label in SWEEP_GEMMS:
+        x, w, policy, gop = operands[label]
+        got = results[label][0]
+        want = rg.redmule_gemm_plain(x, w, None, gop=gop, policy=policy, out_dtype=policy.out)
+        if gop.is_gemm:
+            err = rel_err(got, want)
+            if not err <= GEMM_TOL[got.dtype]:
+                raise AssertionError(f"autotune winner {label}: {err:.3g} > {GEMM_TOL[got.dtype]}")
+        elif not same_bits(got, want):
+            raise AssertionError(f"autotune winner {label}: min/max op not bitwise")
+        else:
+            err = 0.0
+        log(f"plans (b): {label}: the winner against the plain version: {err:.3g}")
+    for label, (q, kp, vp, pt, lens, act), window, cap in decode_cases:
+        s, hq, hd = q.shape
+        qg = q.reshape(s, kp.shape[1], hq // kp.shape[1], hd)
+        got = results[label][0]
+        want = fa.paged_flash_decode_plain(qg, kp, vp, pt, lens, act, page_size=16,
+                                           window=window, softcap=cap)
+        live = act.bool()
+        tol = DECODE_TOL[got.dtype]
+        err = float((got[live].float() - want[live].float()).abs().max())
+        if not torch.allclose(got[live].float(), want[live].float(), rtol=tol, atol=tol):
+            raise AssertionError(f"autotune winner, paged decode {label}: {err:.3g} > {tol}")
+        log(f"plans (b): paged decode {label}: the winner against the plain version: {err:.3g}")
+
+
+def _host_us(operands) -> dict:
+    """(d): host µs a call of ``ops.gemm_op`` at granite's decode shape: the
+    table's plan, a warm autotune cache (``REPRO_AUTOTUNE_CACHE`` set by the
+    caller, holding the shape), and an explicit plan."""
+    import os
+
+    from repro_torch.core import semiring
+    from repro_torch.kernels import ops, tuning
+
+    x, w, policy, _ = operands["granite decode 4x4096x12800"]
+    out = {}
+    for label, env, kw in (("table", None, {}), ("autotune cache", "1", {}),
+                           ("explicit plan", None, {"schedule": "small_row", "split": 2})):
+        if env:
+            os.environ["REPRO_AUTOTUNE"] = env
+        tuning.reset_cache()  # the wrappers read the environment once
+        call = lambda: ops.gemm_op(x, w, gop=semiring.MATMUL, policy=policy,  # noqa: E731
+                                   operand_quant=False, backend="cuda", **kw)
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        n = 500
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        out[label] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        os.environ.pop("REPRO_AUTOTUNE", None)
+    tuning.reset_cache()
+    log("plans (d): host µs a call of ops.gemm_op at the decode shape 4x4096x12800: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def phase_tuning(cfg, model, params) -> None:
+    """Phase 20 (see the module docstring)."""
+    import os
+    import tempfile
+
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import tuning
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    operands = _table_plans(gen)
+    decode_cases = _decode_sweep_cases()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "plans.json")
+        os.environ.update({"REPRO_AUTOTUNE": "1", "REPRO_AUTOTUNE_CACHE": cache})
+        try:
+            tuning.reset_cache()
+            results = _sweep(operands, decode_cases, cache)
+            for label, (_, entry, timed) in results.items():
+                if entry is None or timed == 0:
+                    raise AssertionError(f"autotune: {label} was not swept")
+                _log_sweep(label, entry, timed)
+            _hold_winners(results, operands, decode_cases)
+            on_disk = json.load(open(cache))
+            tuning.reset_cache()  # the next lookups read the file again
+            before = tuning.timed
+            again = _sweep(operands, decode_cases, cache)
+            if tuning.timed != before:
+                raise AssertionError(f"autotune: the reloaded cache timed "
+                                     f"{tuning.timed - before} candidates")
+            for label in results:
+                if again[label][1] != results[label][1]:
+                    raise AssertionError(f"autotune: {label}'s reloaded entry differs")
+            log(f"plans (b): the cache ({len(on_disk)} entries, "
+                f"{os.path.getsize(cache)} bytes) reloaded from disk: 0 candidates timed, "
+                "the same winners")
+            os.environ.pop("REPRO_AUTOTUNE")
+            _host_us(operands)
+        finally:
+            for name in ("REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE"):
+                os.environ.pop(name, None)
+            tuning.reset_cache()
+    t0 = time.perf_counter()
+    violations, cells = contracts.check_zoo(backends=("cuda",), graphs=True)
+    log(f"contracts (c): {len(violations)} violation(s) over {cells} SMOKE cells on cuda "
+        f"({time.perf_counter() - t0:.1f} s)")
+    full = contracts.check_arch(cfg.name, built=(cfg, model, params), steps=("decode", "verify"),
+                                graphs=True)
+    violations += full
+    for v in violations:
+        log(f"contracts (c): {v}")
+    if violations:
+        raise AssertionError(f"contracts: {len(violations)} violation(s)")
+    pools = model.init_state_store(contracts.NUM_SLOTS, contracts.NUM_PAGES, contracts.PAGE_SIZE)
+    nbytes = contracts.step_hbm_bytes(model, params, pools, cfg.vocab_size)
+    from repro_torch.roofline.analysis import HBM_BYTES_S
+
+    log(f"contracts (c): {cfg.name} at {cfg.n_layers} layers: decode and verify steps replay "
+        f"their eager logits bit for bit; a decode step's kernel calls move {nbytes / 1e9:.3f} GB "
+        f"(a {nbytes / HBM_BYTES_S * 1e3:.3f} ms floor at 3.35 TB/s)")
+    del pools
+
+
 # -- phase 11 --------------------------------------------------------------------
 
 
@@ -4866,6 +5174,7 @@ def main() -> int:
         counts |= phase_serving_features(cfg, model, params)
         _timed("phase 18(b) tracer on/off", phase_obs_serve, cfg, model, params)
         counts |= phase_spec(cfg, model, params)
+        _timed("phase 20", phase_tuning, cfg, model, params)
         del model, params
         torch.cuda.empty_cache()
         counts |= phase_families()

@@ -109,6 +109,13 @@ class GemmOp:
     def is_gemm(self) -> bool:
         return self.circ is Op.MUL and self.star is Op.ADD
 
+    @property
+    def uses_mxu(self) -> bool:
+        """Whether the op takes a tensor-core schedule (the reference's MXU):
+        only the (mul, add) pair does, on fp8 or compute-format operands;
+        the semiring pairs run on the CUDA cores."""
+        return self.is_gemm
+
 
 MATMUL = GemmOp("matmul", Op.MUL, Op.ADD, group=0)
 MAX_CRITICAL_PATH = GemmOp("max_critical_path", Op.ADD, Op.MAX, group=1)
@@ -138,3 +145,11 @@ def get(name: str) -> GemmOp:
         return BY_NAME[name]
     except KeyError:
         raise KeyError(f"unknown GEMM-Op {name!r}; known: {sorted(BY_NAME)}") from None
+
+
+def pad_value_for(gop: GemmOp) -> tuple[float, float]:
+    """The fills (for circ's outputs, for Y) that leave a GEMM-Op result
+    unchanged: both the identity of ``star``. The kernels mask padded K
+    lanes and rows explicitly; this is the value of that masked fill."""
+    ident = reduce_identity(gop.star)
+    return ident, ident

@@ -24,6 +24,7 @@ namespace {
 
 constexpr int SR_THREADS = 128;  // four warps, 16 weight rows each
 constexpr int SR_BLOCK_N = 64;
+constexpr int SR_MAX_M = 16;      // rows: one or two eight-row halves
 constexpr int SR_STEP = 64;       // K bytes a warp covers per step
 constexpr int SR_UNROLL = 4;      // steps whose loads are in flight together
 constexpr int SR_CHUNK = 2048;    // K bytes of X staged in shared memory at once
@@ -274,7 +275,7 @@ extern "C" int redmule_gemm_sr_launch(
     long long sx1, long long sx2, long long sxm, long long sxk,
     long long sw1, long long sw2, long long swn,
     long long sy1, long long sy2, long long sym, long long syn, void* stream) {
-  if (m < 1 || m > 16 || k_per_split % SR_STEP != 0 || swn % 16 != 0 ||
+  if (m < 1 || m > SR_MAX_M || k_per_split % SR_STEP != 0 || swn % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0) {
     return cudaErrorInvalidValue;
   }

@@ -50,7 +50,8 @@ def main(argv=None) -> dict:
     print(f"closure mean distance: {float(torch.clamp(d, max=float(INF)).mean()):.3f}")
     err = float(np.max(np.abs(d.cpu().numpy() - fw)))
     print(f"max |engine - floyd_warshall| = {err:.2e}")
-    assert err < 1e-3
+    if not err < 1e-3:
+        raise AssertionError(f"APSP off Floyd-Warshall by {err:.2e}")
     print("OK — APSP via Engine.closure matches Floyd-Warshall")
 
     off = ~np.eye(V, dtype=bool)

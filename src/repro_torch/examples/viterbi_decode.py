@@ -83,8 +83,9 @@ def main(argv=None) -> dict:
     print(f"numpy  best score : {ref_score:.4f}")
     print(f"path from gradient: {path_from_grad.tolist()}")
     print(f"path from numpy   : {ref_path.tolist()}")
-    assert abs(score - ref_score) < 1e-4
-    assert (path_from_grad == ref_path).all(), (path_from_grad, ref_path)
+    if not (abs(score - ref_score) < 1e-4 and (path_from_grad == ref_path).all()):
+        raise AssertionError(f"score {score} / path {path_from_grad} off the numpy "
+                             f"reference's {ref_score} / {ref_path}")
     # Each time step's emission gradient sums to 1 (one state a step).
     np.testing.assert_allclose(d_emit.sum(axis=1), 1.0, atol=1e-5)
     # Edge-usage counts from d_trans match the decoded path's transitions.
@@ -95,8 +96,8 @@ def main(argv=None) -> dict:
     # The same chain on the plain backend (the reference runs its Pallas path).
     score_p, _, d_emit_p = score_and_grads(Engine(policy="fp32", backend="torch"), trans,
                                            emit, device)
-    assert abs(score_p - ref_score) < 1e-4
-    assert (np.argmax(d_emit_p, axis=1) == ref_path).all()
+    if not (abs(score_p - ref_score) < 1e-4 and (np.argmax(d_emit_p, axis=1) == ref_path).all()):
+        raise AssertionError("the plain backend's score or path is off the numpy reference's")
     print(f"OK — gradient of the max-plus score decodes the Viterbi path (backpointer "
           f"routing as a VJP), on the {backend} and plain backends")
     return {"score": score, "d_trans": d_trans, "d_emit": d_emit, "path": path_from_grad}

@@ -6,7 +6,7 @@ the TPU kernel ``repro/kernels/flash_attention.py::paged_flash_decode_pallas``:
 one fresh query token per slot against the flat KV token pools, read
 through the page table, with an online softmax across pages, dead pages
 skipped and inactive slots returning zeros. The page walk is split across
-blocks (:func:`decode_splits` picks the count from shapes) and the
+blocks (``kernels/tuning.py`` picks the count) and the
 partials are combined in split order inside the same launch;
 :func:`paged_flash_decode_split_plain` is that algorithm in plain PyTorch,
 for the tests.
@@ -37,7 +37,8 @@ import math
 import torch
 
 from repro_torch.core.precision import take_rows
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
+from repro_torch.kernels.tuning import decode_splits
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -52,34 +53,11 @@ dense_tc_launches = _build.LaunchCount()
 _MAX_HEAD_DIM = 256
 _DECODE_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DECODE_GROUP = 4  # query heads a decode block (a head group)
-_SMS = 132  # streaming multiprocessors of an H100 SXM
-_DECODE_BLOCKS_PER_SM = 4  # decode blocks an SM holds at once, about
 _DECODE_STEP_BYTES = 8192  # K bytes a decode step aims to bring into shared memory
-_DECODE_MIN_SPLIT_PAGES = 16  # the shortest page walk worth a split of its own
 
 # Per (device, units): the decode combine's ticket counters, zero between
 # launches (the kernel's last split resets its own), made once.
 _counters: dict = {}
-
-
-def decode_splits(s: int, hkv: int, pages_per_slot: int, *, groups: int = 1) -> int:
-    """Blocks that split one (slot, KV head, head group)'s page walk.
-
-    From shapes alone (no device read, no host sync): as many splits as
-    keep ``s * hkv * groups * splits`` blocks within one wave of the card
-    (132 SMs, about four resident decode blocks each), but no split shorter
-    than 16 pages, where a split's start and the combine cost more than its
-    walk saves; 1 when the units alone fill the SMs. Each split walks
-    ``ceil(pages_per_slot / splits)`` contiguous logical pages, and the
-    count is the one that leaves no split empty.
-    """
-    units = s * hkv * groups
-    if units >= _SMS:
-        return 1
-    wave = _SMS * _DECODE_BLOCKS_PER_SM // units
-    want = max(1, min(wave, pages_per_slot // _DECODE_MIN_SPLIT_PAGES))
-    per = -(-pages_per_slot // want)  # pages a split; the last may be shorter
-    return -(-pages_per_slot // per)
 
 
 def _decode_counters(device: torch.device, units: int) -> torch.Tensor:
@@ -101,9 +79,12 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tens
     (n_pages * page_size, Hkv, hd) in any storage format; page_table:
     (S, P) physical page ids (0 = NULL); seq_lens: (S,) decode positions;
     active: (S,) slots that decode. hd is a power of two from 8 to 256.
-    ``splits`` overrides :func:`decode_splits` (the tests use it). Returns
-    (S, Hkv, G, hd) in q's dtype. Calls on one device share a cached
-    counter, so they must run on one stream.
+    The page walk's split count is ``splits``, else
+    ``REPRO_TORCH_DECODE_SPLITS``, else with ``REPRO_AUTOTUNE=1`` the
+    fastest count of the shape (``tuning.autotune_decode``), else the
+    table's :func:`decode_splits`. Returns (S, Hkv, G, hd) in q's dtype.
+    Calls on one device share a cached counter, so they must run on one
+    stream.
     """
     tensors = (q, k_pool, v_pool, page_table, seq_lens, active)
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
@@ -126,8 +107,17 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tens
     pages = page_table.shape[1]
     groups = -(-g // _DECODE_GROUP)
     units = s * hkv * groups
+    env = tuning.settings()
+    if splits is None:
+        splits = env.decode_splits
     if splits is None:
         splits = decode_splits(s, hkv, pages, groups=groups)
+        if env.autotune:
+            splits = tuning.autotune_decode(
+                lambda n: paged_flash_decode(q, k_pool, v_pool, page_table, seq_lens, active,
+                                             page_size=page_size, window=window,
+                                             softcap=softcap, splits=n),
+                q, k_pool, active, pages, page_size, window, splits)
     per_split = max(1, -(-pages // max(1, splits)))
     splits = max(1, -(-pages // per_split))
     row_bytes = hd * k_pool.element_size()

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_cuda
 from repro_torch.kernels.redmule_gemm import redmule_gemm, redmule_gemm_plain
+from repro_torch.kernels.tuning import GemmRequest
 from repro_torch.roofline import cost as _cost
 
 BACKENDS = ("cuda", "torch")
@@ -45,7 +46,9 @@ def resolve_backend(backend: str | None, t: torch.Tensor) -> str:
 def gemm_op(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None = None, *,
             gop: GemmOp = semiring.MATMUL, policy: PrecisionPolicy = FP32_REF,
             out_dtype: torch.dtype | None = None, operand_quant: bool = True,
-            backend: str | None = None) -> torch.Tensor:
+            backend: str | None = None,
+            schedule: str | None = None, split: int | None = None,
+            form: str | None = None, widen: bool | None = None) -> torch.Tensor:
     """Z = star(Y, star_k(circ(X, W))) under ``policy``.
 
     x: (..., M, K); w: (K, N) or (..., K, N); y: optional (M, N) or
@@ -54,7 +57,16 @@ def gemm_op(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None = None, *,
     the policy's forward storage format first; callers that quantized
     already pass False and their dtypes go to the kernel untouched. Y is
     carried in the accumulator format, so Z rounds once at the output cast.
+
+    ``schedule``, ``split``, ``form`` and ``widen`` ask the kernel for a
+    plan (``kernels/tuning.py``); None defers to ``REPRO_TORCH_GEMM_PLAN``,
+    the autotune cache and the tables. They take the place of the
+    reference's TPU tiles ``block_m/n/k``: the card's tiles are fixed in
+    ``csrc/``. The plain version has no plan and ignores all four.
     """
+    request = None
+    if schedule is not None or split is not None or form is not None or widen is not None:
+        request = GemmRequest(schedule, split, form, widen)
     out_dtype = policy.out if out_dtype is None else out_dtype
     backend = resolve_backend(backend, x)
     if operand_quant:
@@ -65,15 +77,24 @@ def gemm_op(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None = None, *,
     if _cost._active:
         _cost.note("redmule_gemm", _cost.gemm_cost, x, w, y, gop=gop, policy=policy,
                    out_dtype=out_dtype)
-    fn = redmule_gemm if backend == "cuda" else redmule_gemm_plain
-    return fn(x, w, y, gop=gop, policy=policy, out_dtype=out_dtype)
+    if backend == "torch":
+        return redmule_gemm_plain(x, w, y, gop=gop, policy=policy, out_dtype=out_dtype)
+    return redmule_gemm(x, w, y, gop=gop, policy=policy, out_dtype=out_dtype, request=request)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None = None, *,
+           policy: PrecisionPolicy = FP32_REF, backend: str | None = None,
+           **kw) -> torch.Tensor:
+    """:func:`gemm_op` with the (mul, add) pair: x @ w (+ y) under ``policy``."""
+    return gemm_op(x, w, y, gop=semiring.MATMUL, policy=policy, backend=backend, **kw)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            page_table: torch.Tensor, seq_lens: torch.Tensor,
                            active: torch.Tensor, *, page_size: int,
                            window: int | None = None, softcap: float | None = None,
-                           backend: str | None = None) -> torch.Tensor:
+                           backend: str | None = None,
+                           splits: int | None = None) -> torch.Tensor:
     """Fused paged flash-decode attention over the flat KV token pools.
 
     q: (S, Hq, hd), one fresh query token per slot; pools:
@@ -82,17 +103,28 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     Returns (S, Hq, hd) in q's dtype, zeros for inactive slots. GQA keeps
     the reference's grouping: q is viewed as (S, Hkv, G, hd), so KV pages
     are never repeated per query head.
+
+    ``splits`` asks the kernel to split each page walk that many ways
+    (``kernels/tuning.py``); None defers to ``REPRO_TORCH_DECODE_SPLITS``,
+    the autotune cache and the table. It takes the place of the
+    reference's TPU tiles ``pages_per_block`` and ``head_block``. The plain
+    version walks the pages unsplit and ignores it.
     """
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits must be positive, not {splits}")
     s, hq, hd = q.shape
     hkv = k_pool.shape[1]
     qg = q.reshape(s, hkv, hq // hkv, hd)
     if _cost._active:
         _cost.note("paged_decode", _cost.paged_decode_cost, q, k_pool, page_table, seq_lens,
                    active, page_size=page_size, window=window)
-    fn = (paged_flash_decode if resolve_backend(backend, q) == "cuda"
-          else paged_flash_decode_plain)
-    out = fn(qg, k_pool, v_pool, page_table, seq_lens, active,
-             page_size=page_size, window=window, softcap=softcap)
+    if resolve_backend(backend, q) == "cuda":
+        out = paged_flash_decode(qg, k_pool, v_pool, page_table, seq_lens, active,
+                                 page_size=page_size, window=window, softcap=softcap,
+                                 splits=splits)
+    else:
+        out = paged_flash_decode_plain(qg, k_pool, v_pool, page_table, seq_lens, active,
+                                       page_size=page_size, window=window, softcap=softcap)
     return out.reshape(s, hq, hd)
 
 

@@ -6,14 +6,15 @@ and its plain version.
 Z = star(Y, star_k circ(X, W)) for every Table-1 pair, operands in their
 storage format, circ in the compute format, an fp32 accumulator, and the
 output cast on the way out. :func:`plan_gemm` chooses one of three
-schedules from the shapes, formats and strides alone:
+schedules from the shapes, formats and strides, by the tables of
+``kernels/tuning.py`` unless a caller asks for a plan:
 
 - ``"tc"`` (``csrc/redmule_gemm_tc.cu``): wgmma fed by TMA, for (mul, add)
   on fp8 operands, or on fp16/bf16 operands already in the compute format,
-  with more than :data:`SMALL_M_MAX` rows;
+  with more than ``tuning.SMALL_M_MAX`` rows;
 - ``"small_row"`` (``csrc/redmule_gemm_sr.cu``): weight streaming with
   split K, for the same pair on fp8 operands with at most
-  :data:`SMALL_M_MAX` rows (the decode step);
+  ``tuning.SMALL_M_MAX`` rows (the decode step);
 - ``"simt"`` (``csrc/redmule_gemm.cu``): every other case, the six semiring
   pairs and the fp32 compute format among them, in one of three forms
   (:data:`SIMT_FORMS`): ``"h2"``, packed 16-bit tiles for the semiring pairs
@@ -45,7 +46,7 @@ import torch
 from repro_torch.core import semiring
 from repro_torch.core.precision import BF16, E4M3, E5M2, FP8_DTYPES, FP16, PrecisionPolicy, cast
 from repro_torch.core.semiring import GemmOp
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
 
 # One per GEMM-Op call on the card, whatever its schedule (chip_smoke.py
 # reads it per decode step, prefill and train step).
@@ -61,40 +62,27 @@ SCHEDULE_COUNTERS = {"simt": simt_launches, "tc": tc_launches, "small_row": smal
 # One per SIMT launch of each form (beside simt_launches).
 simt_form_launches = {form: _build.LaunchCount() for form in ("warp", "f32", "h2")}
 
-# Rows at or below which fp8 (mul, add) takes the small-row schedule: the
-# decode step's slots. Above it a 64-row wgmma tile is worth its zeros.
-SMALL_M_MAX = 16
-# The tensor-core tile (rows and columns of Z). The kernel widens each fp8
-# tile to fp16 in shared memory, so with more than one tile in both
-# directions every X tile would be widened once per column tile and every
-# W tile once per row tile; the wrapper then widens both operands once
-# instead (exact), and the kernel reads fp16 straight.
+# The tensor-core tile (rows and columns of Z; BM and BN of
+# redmule_gemm_tc.cu). The kernel widens each fp8 tile to fp16 in shared
+# memory, so with more than one tile in both directions every X tile would
+# be widened once per column tile and every W tile once per row tile; the
+# table then widens both operands once instead (exact), and the kernel
+# reads fp16 straight.
 TC_TILE_M = TC_TILE_N = 128
 SR_BLOCK_N = 64  # weight rows a small-row block streams
 SR_STEP = 64  # K bytes a small-row warp covers per step; splits are multiples of it
-# Split K until the small-row grid has two blocks for each of the H100's
-# 132 SMs, keeping at least this much K in each split.
-SR_MIN_BLOCKS = 2 * 132
-SR_MIN_K_PER_SPLIT = 256
+SR_MAX_M = 16  # the most rows the small-row kernel takes
 # Operand kinds of the tensor-core schedules (enum Kind in the .cu files).
 MMA_KIND = {E4M3: 0, E5M2: 1, FP16: 2, BF16: 3}
 # The SIMT schedule's forms (enum Form in redmule_gemm.cu). Its tiled forms
 # cover SIMT_TILE_M x SIMT_TILE_N outputs a block and stage K in steps of
-# SIMT_BK, so K splits are multiples of it. Four of their blocks are
-# resident on an SM (launch bounds), so where the tiles are fewer than
-# SIMT_TARGET_BLOCKS, K is split until the grid comes nearest that one
-# full wave, keeping at least SIMT_MIN_K_PER_SPLIT of K in a split: 100
-# tiles take 5 splits (500 blocks, at most 4 an SM), where the small-row
-# rule's 4 (400 blocks) would leave a second wave of 4 on a 3-block SM.
-# fp32 products of at most SIMT_WARP_MAX_OUTPUTS outputs take the warp form.
+# SIMT_BK, so K splits are multiples of it. The tables that choose forms
+# and splits are in ``kernels/tuning.py``.
 SIMT_FORMS = {form: code for code, form in enumerate(simt_form_launches)}
 SIMT_TILE_M, SIMT_TILE_N, SIMT_BK = 64, 128, 16
-SIMT_TARGET_BLOCKS = 4 * 132
-SIMT_MIN_K_PER_SPLIT = 256
-SIMT_WARP_MAX_OUTPUTS = 4096
 
 _MAX_GRID_YZ = 65535
-_MIN_TILE_M = 64  # the fewest rows a block of any schedule covers above SMALL_M_MAX
+_MIN_TILE_M = 64  # the fewest rows a block of any schedule covers above SR_MAX_M
 # Elements of one (batch, M, chunk, N) circ block in the plain semiring scan.
 _PLAIN_CHUNK_ELEMS = 1 << 22
 
@@ -136,41 +124,86 @@ class GemmPlan:
     form: str = ""  # the SIMT schedule's form (a key of SIMT_FORMS)
 
 
-def plan_simt(m: int, n: int, k: int, batch: int, gop: GemmOp,
-              policy: PrecisionPolicy) -> GemmPlan:
-    """The SIMT schedule's form and K split: the warp form for fp32 products
-    with few outputs, packed 16-bit tiles for the semiring pairs under a
-    16-bit compute format, fp32 tiles otherwise."""
-    if policy.compute == torch.float32 and batch * m * n <= SIMT_WARP_MAX_OUTPUTS:
-        return GemmPlan("simt", form="warp", k_per_split=k)
-    form = "h2" if not gop.is_gemm and policy.compute in (FP16, BF16) else "f32"
-    tiles = -(-m // SIMT_TILE_M) * -(-n // SIMT_TILE_N) * batch
-    split = max(1, min(int(SIMT_TARGET_BLOCKS / tiles + 0.5), k // SIMT_MIN_K_PER_SPLIT))
-    k_per_split = -(-k // (split * SIMT_BK)) * SIMT_BK
-    split = -(-k // k_per_split) if k_per_split else 1
-    return GemmPlan("simt", form=form, split=split, k_per_split=k_per_split)
+def fp8_pair(x: Operand, w: Operand) -> bool:
+    return x.dtype in FP8_DTYPES and w.dtype in FP8_DTYPES
 
 
-def plan_gemm(m: int, n: int, k: int, batch: int, x: Operand, w: Operand, gop: GemmOp,
-              policy: PrecisionPolicy) -> GemmPlan:
-    """The schedule of one GEMM-Op call, from shapes, formats and strides
-    alone. ``batch`` is the number of (b1, b2) batch entries."""
-    fp8 = x.dtype in FP8_DTYPES and w.dtype in FP8_DTYPES
+def schedules_for(m: int, k: int, x: Operand, w: Operand, gop: GemmOp,
+                  policy: PrecisionPolicy) -> tuple[str, ...]:
+    """The schedules whose kernels take this call. The SIMT schedule takes
+    every call; the tensor cores take (mul, add) on fp8 operands, or on
+    16-bit operands in the 16-bit compute format; the small-row schedule
+    the fp8 pair with at most :data:`SR_MAX_M` rows."""
+    fp8 = fp8_pair(x, w)
     sixteen = x.dtype == w.dtype == policy.compute
     if (not gop.is_gemm or k == 0 or policy.compute not in (FP16, BF16)
             or not (fp8 or sixteen)):
-        return plan_simt(m, n, k, batch, gop, policy)
-    if fp8 and m <= SMALL_M_MAX:
-        blocks = -(-n // SR_BLOCK_N) * batch
-        split = 1
-        while blocks * split < SR_MIN_BLOCKS and k // (2 * split) >= SR_MIN_K_PER_SPLIT:
-            split *= 2
+        return ("simt",)
+    return ("tc", "small_row", "simt") if fp8 and m <= SR_MAX_M else ("tc", "simt")
+
+
+def simt_forms_for(m: int, n: int, batch: int, gop: GemmOp,
+                   policy: PrecisionPolicy) -> tuple[str, ...]:
+    """The SIMT forms that take this call: under fp32 compute the fp32
+    tiles, and warps up to ``tuning.SIMT_WARP_MAX_OUTPUTS`` outputs; under
+    a 16-bit compute format the fp32 tiles for (mul, add), the packed
+    16-bit tiles for the semiring pairs."""
+    if policy.compute == torch.float32:
+        warp = batch * m * n <= tuning.SIMT_WARP_MAX_OUTPUTS
+        return ("warp", "f32") if warp else ("f32",)
+    return ("f32",) if gop.is_gemm else ("h2",)
+
+
+def plan_gemm(m: int, n: int, k: int, batch: int, x: Operand, w: Operand, gop: GemmOp,
+              policy: PrecisionPolicy, request: tuning.GemmRequest | None = None) -> GemmPlan:
+    """The plan of one GEMM-Op call, from shapes, formats and strides.
+    ``batch`` is the number of (b1, b2) batch entries. Without a
+    ``request``, ``kernels/tuning.py``'s rules decide: fp8 (mul, add)
+    with at most ``tuning.SMALL_M_MAX`` rows on small rows, with K split
+    by ``tuning.SMALL_ROW_SPLIT``; (mul, add) on fp8 or compute-format
+    operands on the tensor cores, fp8 widened up front when Z spans more
+    than one tile both ways; every other call on the SIMT schedule, in the
+    form of ``tuning.simt_form`` and the split of ``tuning.SIMT_SPLIT``. A
+    request's fields replace the rules' where the call's kernels take
+    them, and are dropped where they do not."""
+    req = tuning.NO_REQUEST if request is None else request
+    fp8 = fp8_pair(x, w)
+    sixteen = x.dtype == w.dtype == policy.compute
+    if (not gop.is_gemm or k == 0 or policy.compute not in (FP16, BF16)
+            or not (fp8 or sixteen)):
+        schedule = "simt"
+    else:
+        schedule = "small_row" if fp8 and m <= tuning.SMALL_M_MAX else "tc"
+    if req.schedule is not None and req.schedule in schedules_for(m, k, x, w, gop, policy):
+        schedule = req.schedule
+    if schedule == "small_row":
+        split = req.split
+        if split is None:  # double it while the grid has fewer blocks than the rule asks
+            rule = tuning.SMALL_ROW_SPLIT
+            blocks, split = -(-n // SR_BLOCK_N) * batch, 1
+            while blocks * split < rule.blocks and k // (2 * split) >= rule.min_k:
+                split *= 2
         k_per_split = -(-k // (split * SR_STEP)) * SR_STEP
         return GemmPlan("small_row", copy_w=not w.kmajor(), split=-(-k // k_per_split),
                         k_per_split=k_per_split)
-    if fp8 and m > TC_TILE_M and n > TC_TILE_N:
-        return GemmPlan("tc", copy_x=True, copy_w=True, widen=True)
-    return GemmPlan("tc", copy_x=not x.kmajor(), copy_w=not w.kmajor())
+    if schedule == "tc":
+        widen = fp8 and (m > TC_TILE_M and n > TC_TILE_N if req.widen is None else req.widen)
+        if widen:
+            return GemmPlan("tc", copy_x=True, copy_w=True, widen=True)
+        return GemmPlan("tc", copy_x=not x.kmajor(), copy_w=not w.kmajor())
+    form = tuning.simt_form(m, n, batch, gop, policy)
+    if req.form is not None and req.form in simt_forms_for(m, n, batch, gop, policy):
+        form = req.form
+    if form == "warp":
+        return GemmPlan("simt", form="warp", k_per_split=k)
+    split = req.split
+    if split is None:  # the count whose grid comes nearest the rule's blocks
+        rule = tuning.SIMT_SPLIT
+        tiles = -(-m // SIMT_TILE_M) * -(-n // SIMT_TILE_N) * batch
+        split = max(1, min(int(rule.blocks / tiles + 0.5), k // rule.min_k))
+    k_per_split = -(-k // (split * SIMT_BK)) * SIMT_BK
+    split = -(-k // k_per_split) if k_per_split else 1
+    return GemmPlan("simt", form=form, split=split, k_per_split=k_per_split)
 
 
 def _broadcast(*shapes) -> tuple[int, ...]:
@@ -260,9 +293,11 @@ class GemmCall:
 
 
 def plan_call(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *, gop: GemmOp,
-              policy: PrecisionPolicy) -> GemmCall:
+              policy: PrecisionPolicy, request: tuning.GemmRequest | None = None) -> GemmCall:
     """Lay one call out for the kernels and plan it; on any device, so the
-    CPU tests reach every layout decision the card's wrapper makes.
+    CPU tests reach every layout decision the card's wrapper makes. The
+    plan takes ``request``'s fields, then ``REPRO_TORCH_GEMM_PLAN``'s, then
+    the tables' (:func:`plan_gemm`).
 
     x: (..., M, K) and w: (K, N) or (..., K, N); y: optional (..., M, N).
     Leading dims broadcast. An unbatched w (2D, or all batch dims 1) is
@@ -302,7 +337,13 @@ def plan_call(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *, gop: 
     call = GemmCall(x, w, y, b1, b2, m, n, k,
                     [s1[0], s2[0], x.stride(-2), x.stride(-1)],
                     [s1[1], s2[1], w.stride(-2), w.stride(-1)], sy, out_shape, None)
-    call.plan = plan_gemm(m, n, k, b1 * b2, call.x_operand(), call.w_operand(), gop, policy)
+    env = tuning.settings().gemm
+    if request is None:
+        request = None if env is tuning.NO_REQUEST else env
+    else:
+        request = request.over(env)
+    call.plan = plan_gemm(m, n, k, b1 * b2, call.x_operand(), call.w_operand(), gop, policy,
+                          request=request)
     return call
 
 
@@ -370,15 +411,20 @@ def splitk_combine_plain(ws: torch.Tensor, y: torch.Tensor | None, out_dtype: to
 
 
 def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
-                 gop: GemmOp, policy: PrecisionPolicy,
-                 out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the GEMM-Op kernels on CUDA tensors, on the schedule that
-    :func:`plan_call` chooses. Takes what :func:`plan_call` takes; returns a
-    contiguous (..., M, N) tensor in ``out_dtype``."""
+                 gop: GemmOp, policy: PrecisionPolicy, out_dtype: torch.dtype,
+                 request: tuning.GemmRequest | None = None) -> torch.Tensor:
+    """Launch the GEMM-Op kernels on CUDA tensors, on the plan that
+    :func:`plan_call` chooses, or, with ``REPRO_AUTOTUNE=1`` and no plan
+    requested, the fastest of the call's plans (``tuning.autotune_gemm``).
+    Takes what :func:`plan_call` takes; returns a contiguous (..., M, N)
+    tensor in ``out_dtype``."""
     operands = [x, w] + ([y] if y is not None else [])
     if not all(t.is_cuda for t in operands) or len({t.device for t in operands}) != 1:
         raise ValueError("redmule_gemm launches the CUDA kernel: every operand must be on one card")
-    c = plan_call(x, w, y, gop=gop, policy=policy)
+    c = plan_call(x, w, y, gop=gop, policy=policy, request=request)
+    env = tuning.settings()
+    if request is None and env.autotune and env.gemm is tuning.NO_REQUEST:
+        c.plan = tuning.autotune_gemm(x, w, y, c, gop=gop, policy=policy, out_dtype=out_dtype)
     plan = c.plan
     out = torch.empty(c.out_shape, dtype=out_dtype, device=x.device)
     if out.numel() == 0:

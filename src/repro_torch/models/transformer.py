@@ -450,6 +450,7 @@ class Transformer:
             lpos = torch.arange(read_idx.shape[1], device=dev)[None]
             read_pos = torch.where(lpos < start, lpos, attention.POS_SENTINEL)
             k_pos = torch.cat([read_pos, k_pos], dim=1)
+        # repro: allow[RPR106] slot, start and length are host ints in the single-row form
         row = lambda v: torch.full((1,), int(v), dtype=torch.int64, device=dev)  # noqa: E731
         paged = PagedInfo(write_idx=write_idx, k_pos=k_pos, read_idx=read_idx,
                           page_size=page_size, chunked=chunked, slots=row(slot),

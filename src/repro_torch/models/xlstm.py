@@ -28,7 +28,6 @@ import torch
 
 from repro_torch.engine import Engine
 from repro_torch.models import common
-from repro_torch.models.rglru import softplus
 
 _CHUNK = 256
 _LOG_ZERO = -1e30  # a finite stand-in for log 0 (inf would give NaN under inf - inf)
@@ -78,7 +77,7 @@ def _mlstm_heads(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine):
     k = _scaled(k.reshape(b, s, h, hd).transpose(1, 2), math.sqrt(hd))
     v = v.reshape(b, s, h, hd).transpose(1, 2)
     log_i, f_pre = common.dense_apply(params["ifg"], x, engine).float().split(h, dim=-1)
-    log_f = -softplus(-f_pre)  # log sigmoid(f_pre)
+    log_f = -common.xla_softplus(-f_pre)  # log sigmoid(f_pre)
     return q, k, v, log_i.transpose(1, 2), log_f.transpose(1, 2)
 
 
@@ -92,7 +91,7 @@ def _mlstm_chunk(engine: Engine, carry, qi, ki, vi, li, lf, tri):
     intra_max = torch.where(tri, src[:, :, None, :], -math.inf).amax(-1)
     m_t = torch.maximum(f + m_in[..., None], f + intra_max)
     # Inter-chunk: q_t . C_in, scaled by exp(F_t + m_in - m_t).
-    w_inter = torch.exp(f + m_in[..., None] - m_t)
+    w_inter = common.xla_exp(f + m_in[..., None] - m_t)
     inter = engine.matmul(qi, c_in).float() * w_inter[..., None]
     n_inter = n_in[:, :, None, :] * w_inter[..., None]
     # The intra-chunk quadratic part.
@@ -104,18 +103,18 @@ def _mlstm_chunk(engine: Engine, carry, qi, ki, vi, li, lf, tri):
     # 0 * inf is NaN (its gradients are NaN at 256-token chunks). Masking
     # before the exp gives the same forward values, exactly, and a finite
     # backward (ROADMAP queue 3).
-    wexp = torch.exp(torch.where(tri, logw, -math.inf))
+    wexp = common.xla_exp(torch.where(tri, logw, -math.inf))
     intra = engine.matmul((wexp * scores).to(qi.dtype), vi).float()
     kf, vf = ki.float(), vi.float()
     n_t = n_inter + _f32_matmul(engine, wexp, kf)
     qn = (n_t * qi.float()).sum(-1)
-    denom = torch.maximum(qn.abs(), torch.exp(-m_t))
+    denom = torch.maximum(qn.abs(), common.xla_exp(-m_t))
     h_t = (inter + intra) / denom[..., None]
     # The carry at the chunk's end.
     f_end = f[..., -1]
     m_out = torch.maximum(f_end + m_in, f_end + src.amax(-1))
-    w_c = torch.exp(f_end + m_in - m_out)
-    w_s = torch.exp(f_end[..., None] - f + li - m_out[..., None])
+    w_c = common.xla_exp(f_end + m_in - m_out)
+    w_s = common.xla_exp(f_end[..., None] - f + li - m_out[..., None])
     kv = _f32_matmul(engine, (w_s[..., None] * kf).transpose(-1, -2), vf)
     c_out = c_in * w_c[..., None, None] + kv
     n_out = n_in * w_c[..., None] + (w_s[..., None] * kf).sum(2)
@@ -152,7 +151,7 @@ def mlstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
                                   log_i[..., sl], log_f[..., sl], tri)
         hs.append(h_t)
     y = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, d).to(x.dtype)
-    y = y * torch.sigmoid(common.dense_apply(params["ogate"], x, engine).float()).to(x.dtype)
+    y = y * common.xla_sigmoid(common.dense_apply(params["ogate"], x, engine).float()).to(x.dtype)
     out = common.dense_apply(params["out"], y, engine)
     return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
 
@@ -164,16 +163,16 @@ def mlstm_decode(params, x: torch.Tensor, state: dict, cfg: XLSTMConfig, engine:
     q, k, v = (t[:, :, 0].float() for t in (q, k, v))  # (B, H, hd)
     li, lf = log_i[..., 0], log_f[..., 0]  # (B, H)
     m_new = torch.maximum(lf + state["m"], li)
-    fw = torch.exp(lf + state["m"] - m_new)
-    iw = torch.exp(li - m_new)
-    c_new = state["C"] * fw[..., None, None] + iw[..., None, None] * (
-        k[..., :, None] * v[..., None, :])
-    n_new = state["n"] * fw[..., None] + iw[..., None] * k
+    fw = common.xla_exp(lf + state["m"] - m_new)
+    iw = common.xla_exp(li - m_new)
+    c_new = common.xla_fma(state["C"], fw[..., None, None],
+                           iw[..., None, None] * (k[..., :, None] * v[..., None, :]))
+    n_new = common.xla_fma(state["n"], fw[..., None], iw[..., None] * k)
     num = _f32_matmul(engine, q[..., None, :], c_new)[..., 0, :]
     qn = (n_new * q).sum(-1)
-    denom = torch.maximum(qn.abs(), torch.exp(-m_new))
+    denom = torch.maximum(qn.abs(), common.xla_exp(-m_new))
     y = (num / denom[..., None]).reshape(b, 1, -1).to(x.dtype)
-    y = y * torch.sigmoid(common.dense_apply(params["ogate"], x, engine).float()).to(x.dtype)
+    y = y * common.xla_sigmoid(common.dense_apply(params["ogate"], x, engine).float()).to(x.dtype)
     out = common.dense_apply(params["out"], y, engine)
     return out, {"C": c_new, "n": n_new, "m": m_new}
 
@@ -202,23 +201,32 @@ def slstm_init(gen: torch.Generator, cfg: XLSTMConfig, dtype: torch.dtype, devic
 
 
 def _slstm_cell(engine: Engine, wx_t, r, h_prev, c_prev, n_prev, m_prev, nheads: int,
-                hd: int):
+                hd: int, masked: bool = False):
     """One sLSTM step in fp32. wx_t: (B, 4D); r: (4, H, hd, hd); the state
     leaves (B, H, hd). The recurrence is one (4, H)-batched fp32 product
-    of each head's (B, hd) rows with its four hd x hd blocks."""
+    of each head's (B, hd) rows with its four hd x hd blocks.
+
+    ``c = fw c_prev + iw z`` contracts into a fused multiply-add as XLA's
+    compiled code does: on fw c_prev, except that in a ``masked`` scan step
+    (the reference's ``where(keep, c, c_prev)``) XLA computes the carried c
+    in a fusion of its own that contracts iw z, while h still reads the
+    first. The returned c is the carried one."""
     rows = h_prev.transpose(0, 1)[None].expand(4, -1, -1, -1)  # (4, H, B, hd)
     rh = _f32_matmul(engine, rows, r.float()).permute(2, 0, 1, 3)  # (B, 4, H, hd)
     pre = wx_t.reshape(wx_t.shape[0], 4, nheads, hd).float() + rh
-    z = torch.tanh(pre[:, 0])
+    z = common.xla_tanh(pre[:, 0])
     log_i = pre[:, 1]
-    log_f = -softplus(-pre[:, 2])  # the sigmoid gate in log space
-    o = torch.sigmoid(pre[:, 3])
+    log_f = -common.xla_softplus(-pre[:, 2])  # the sigmoid gate in log space
+    o = common.xla_sigmoid(pre[:, 3])
     m_new = torch.maximum(log_f + m_prev, log_i)
-    iw = torch.exp(log_i - m_new)
-    fw = torch.exp(log_f + m_prev - m_new)
-    c = fw * c_prev + iw * z
-    n = fw * n_prev + iw
-    return o * c / torch.clamp(n, min=1e-6), c, n, m_new
+    iw = common.xla_exp(log_i - m_new)
+    fw = common.xla_exp(log_f + m_prev - m_new)
+    c = common.xla_fma(fw, c_prev, iw * z)
+    n = common.xla_fma(fw, n_prev, iw)
+    h = o * c / torch.clamp(n, min=1e-6)
+    if masked:
+        c = common.xla_fma(iw, z, fw * c_prev)
+    return h, c, n, m_new
 
 
 def slstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
@@ -238,7 +246,7 @@ def slstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
         torch.arange(s, device=x.device)[:, None] < lengths[None, :])[:, :, None, None]
     hs = []
     for t in range(s):
-        new = _slstm_cell(engine, wx[:, t], params["r"], *carry, h, hd)
+        new = _slstm_cell(engine, wx[:, t], params["r"], *carry, h, hd, masked=keep is not None)
         hs.append(new[0])
         carry = new if keep is None else tuple(
             torch.where(keep[t], a, o) for a, o in zip(new, carry))

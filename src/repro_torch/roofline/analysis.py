@@ -15,7 +15,8 @@ operations and bytes.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense rates without sparsity, at the
 card's full 700 W power limit: 3.35 TB/s of HBM3, 989 TFLOP/s fp16/bf16
-and 1979 TFLOP/s fp8 on the tensor cores, 67 TFLOP/s fp32 outside them.
+and 1979 TFLOP/s fp8 on the tensor cores, 67 TFLOP/s fp32 outside them,
+and 900 GB/s of NVLink 4 (450 GB/s each way).
 A card set below 700 W runs slower under load; state its limit beside any
 share of these peaks.
 """
@@ -27,6 +28,7 @@ HBM_BYTES_S = 3.35e12  # device memory rate
 FP16_FLOP_S = 989e12  # dense fp16/bf16 tensor-core peak
 FP8_FLOP_S = 1979e12  # dense fp8 tensor-core peak
 FP32_FLOP_S = 67e12  # fp32 peak outside the tensor cores
+NVLINK_BYTES_S = 450e9  # NVLink 4: one direction of its 900 GB/s
 
 
 @dataclasses.dataclass

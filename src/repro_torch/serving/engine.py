@@ -392,6 +392,7 @@ class EngineCore:
         bucket = p * chunk  # the GEMMs' rows
         targs = None
         if self.tracer.enabled:
+            # repro: allow[RPR106] active is the host's numpy row mask, not a tensor
             targs = {"rows": int(active.sum()), "P": p, "chunk": chunk, "bucket": bucket}
             if rids is not None:
                 targs["rids"] = list(rids)
@@ -428,6 +429,7 @@ class EngineCore:
         n = self.config.num_slots
         targs = None
         if self.tracer.enabled:
+            # repro: allow[RPR106] active is the host's numpy slot mask, not a tensor
             targs = {"slots": n, "decoding": int(active.sum())}
             self.tracer.begin(PID_DEVICE, DEVICE_TID, "decode.dispatch", **targs)
         t0 = time.perf_counter()

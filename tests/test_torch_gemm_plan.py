@@ -25,6 +25,7 @@ from repro_torch.core.precision import BF16, E4M3, E5M2, FP16, cast, get_policy 
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import redmule_gemm as rg  # noqa: E402
+from repro_torch.kernels import tuning  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 
@@ -105,7 +106,7 @@ def test_16bit_operands_in_the_compute_format_take_the_tensor_cores(dtype, polic
 
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 64])
 def test_the_row_threshold(m):
-    want = "small_row" if m <= rg.SMALL_M_MAX else "tc"
+    want = "small_row" if m <= tuning.SMALL_M_MAX else "tc"
     assert _plan(_e4(m, 4096), _e4(1000, 4096).T).schedule == want
 
 
@@ -128,7 +129,8 @@ def test_small_row_split_fills_the_card_at_the_decode_shapes(n, k, split):
     assert plan.split == split
     assert plan.k_per_split % rg.SR_STEP == 0 and (plan.split - 1) * plan.k_per_split < k
     blocks = -(-n // rg.SR_BLOCK_N) * plan.split
-    assert blocks >= rg.SR_MIN_BLOCKS or plan.k_per_split <= 2 * rg.SR_MIN_K_PER_SPLIT
+    rule = tuning.SMALL_ROW_SPLIT
+    assert blocks >= rule.blocks or plan.k_per_split <= 2 * rule.min_k
 
 
 @pytest.mark.parametrize("case", ["row stride not 16-byte", "K not 16-byte", "k stride 2",

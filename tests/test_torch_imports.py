@@ -49,13 +49,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_the_scan_covers_every_subpackage():
-    """The scans walk the whole package: observability, the roofline and the
-    examples included."""
+    """The scans walk the whole package: observability, the roofline, the
+    examples, the plan tables, the analysis passes and the perf model
+    included."""
     seen = {p.relative_to(PORT).parts[0] for p in _port_files() if PORT in p.parents}
-    assert {"obs", "roofline", "examples", "serving", "kernels", "configs"} <= seen
+    assert {"obs", "roofline", "examples", "serving", "kernels", "configs", "analysis"} <= seen
     for name in ("obs/trace.py", "obs/metrics.py", "obs/profiler.py", "obs/export.py",
                  "roofline/analysis.py", "roofline/cost.py", "configs/paper_tinyml.py",
-                 "examples/train_tinyml.py", "examples/viterbi_decode.py"):
+                 "examples/train_tinyml.py", "examples/viterbi_decode.py", "kernels/tuning.py",
+                 "core/perfmodel.py", "analysis/__init__.py", "analysis/__main__.py",
+                 "analysis/cli.py", "analysis/contracts.py", "analysis/rules.py",
+                 "analysis/tiles.py"):
         assert PORT / name in _port_files(), name
 
 

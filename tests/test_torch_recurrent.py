@@ -13,10 +13,15 @@ Tolerances, and why:
   odd/even tree and contracts each ``a2 b1 + b2`` into one fused
   multiply-add, as XLA's compiled CPU code does; the width-4 convolution's
   sum contracts likewise in fp32 and fp16, so it matches bit for bit too;
-- a cell's output and state, and the logits, under fp32: 1e-5 of the max
-  (read: up to 1.1e-6). XLA's exp, log1p, tanh and the sigmoid's
-  expansion differ from torch's by about an fp32 ulp, and the einsums and
-  ``cumsum`` sum in another order;
+- the sLSTM cell's output and state, bit for bit under both policies: the
+  port's plain path evaluates XLA's compiled exp, log1p, tanh and logistic
+  (``models/common.py``) and contracts the state update's multiply-adds as
+  XLA's compiled scan does;
+- the mLSTM and RG-LRU cells' output and state, and the logits, under
+  fp32: 1e-5 of the max (read: up to 3.4e-6). The mLSTM's einsums (``q C``
+  through the engine's fp32 GEMM), its normaliser's sum and ``cumsum`` sum
+  in another order than XLA's, and the RG-LRU's gates keep torch's
+  transcendentals;
 - under redmule_hfp8 (E4M3 pages): outputs and logits bit for bit (read:
   0 at every case here). Every engine product is exact and both sides
   round its fp32 sum once to fp16; the fp32 ulps of the gates and state
@@ -128,15 +133,16 @@ def test_cell_matches_reference(cell, policy):
     y, st = jax.jit(lambda p, x, s, n: japply(p, x, ccfg, je, state=s, lengths=n))(
         p, x, state0, lens)
     ty, tst = apply(tp, _t(x), ccfg, te, state=jax.tree.map(_t, state0), lengths=_t(lens))
-    assert _rel(y, ty) <= TOL[policy]
+    out_tol, state_tol = (0.0, 0.0) if cell == "slstm" else (TOL[policy], FP32_TOL)
+    assert _rel(y, ty) <= out_tol
     for k in st:
-        assert _rel(st[k], tst[k]) <= FP32_TOL, k
+        assert _rel(st[k], tst[k]) <= state_tol, k
     st = jax.tree.map(np.asarray, st)
     yd, std = jax.jit(lambda p, x, s: jdecode(p, x, s, ccfg, je))(p, xd, st)
     tyd, tstd = decode(tp, _t(xd), jax.tree.map(_t, st), ccfg, te)
-    assert _rel(yd, tyd) <= TOL[policy]
+    assert _rel(yd, tyd) <= out_tol
     for k in std:
-        assert _rel(std[k], tstd[k]) <= FP32_TOL, k
+        assert _rel(std[k], tstd[k]) <= state_tol, k
 
 
 def test_associative_scan_is_the_references_bit_for_bit():

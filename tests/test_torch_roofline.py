@@ -23,6 +23,7 @@ from repro_torch.core.precision import E4M3, FP16, FP32, get_policy  # noqa: E40
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import redmule_gemm as rg  # noqa: E402
+from repro_torch.kernels import tuning  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.roofline import analysis, cost  # noqa: E402
 
@@ -101,7 +102,7 @@ def test_one_call_planned_onto_two_schedules_counts_the_same(case, monkeypatch):
     if case == "rows over the small-row threshold":
         calls = [(x, w_rows.T)]
         plans = [rg.plan_call(x, w_rows.T, None, **kw).plan]
-        monkeypatch.setattr(rg, "SMALL_M_MAX", 32)
+        monkeypatch.setattr(tuning, "SMALL_M_MAX", 32)
         plans.append(rg.plan_call(x, w_rows.T, None, **kw).plan)
         calls.append((x, w_rows.T))
         assert [p.schedule for p in plans] == ["tc", "small_row"]

@@ -27,6 +27,7 @@ from repro_torch.core import semiring as tsemi  # noqa: E402
 from repro_torch.core.precision import BF16, E4M3, FP16, FP32, get_policy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import redmule_gemm as rg  # noqa: E402
+from repro_torch.kernels import tuning  # noqa: E402
 
 SEMIRINGS = [g.name for g in tsemi.TABLE1 if not g.is_gemm]
 
@@ -86,21 +87,23 @@ def test_simt_form_does_not_depend_on_the_weight_layout(w_kmajor):
 
 
 def test_simt_tiles_come_nearest_one_resident_wave():
-    """K is split until the grid comes nearest SIMT_TARGET_BLOCKS (four
-    resident blocks an SM, one wave), unless a split would hold less than
-    SIMT_MIN_K_PER_SPLIT of K; with as many tiles as that, K stays whole."""
+    """K is split until the grid comes nearest the table's blocks
+    (``tuning.SIMT_SPLIT``: four resident blocks an SM, one wave), unless a
+    split would hold less than its least K; with as many tiles as that, K
+    stays whole."""
+    rule = tuning.SIMT_SPLIT
     for m, n, k in [(64, 12800, 4096), (64, 1024, 65536), (512, 512, 512), (64, 128, 100000),
                     (64, 384, 4096), (4096, 4096, 4096), (2048, 4096, 1024)]:
         plan = _plan(m, n, k, E4M3, "apsp", "redmule_hfp8")
         tiles = -(-m // rg.SIMT_TILE_M) * -(-n // rg.SIMT_TILE_N)
-        if tiles * 3 // 2 >= rg.SIMT_TARGET_BLOCKS:
+        if tiles * 3 // 2 >= rule.blocks:
             assert plan.split == 1
-        elif k // rg.SIMT_MIN_K_PER_SPLIT * tiles >= rg.SIMT_TARGET_BLOCKS:
-            assert abs(tiles * plan.split - rg.SIMT_TARGET_BLOCKS) <= tiles / 2
+        elif k // rule.min_k * tiles >= rule.blocks:
+            assert abs(tiles * plan.split - rule.blocks) <= tiles / 2
         else:  # K bounds the split
-            assert plan.k_per_split >= rg.SIMT_MIN_K_PER_SPLIT
-            assert tiles * plan.split <= rg.SIMT_TARGET_BLOCKS
-            assert plan.k_per_split < 2 * rg.SIMT_MIN_K_PER_SPLIT
+            assert plan.k_per_split >= rule.min_k
+            assert tiles * plan.split <= rule.blocks
+            assert plan.k_per_split < 2 * rule.min_k
 
 
 def _special_partials(rng, shape):

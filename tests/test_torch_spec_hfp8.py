@@ -4,19 +4,16 @@ prompts of ``tests/test_torch_spec_state.py``, 12 new tokens, k = 3
 (parameters from the reference's ``init`` through ``params_from_jax``).
 
 Under fp32 the port's speculative streams are the reference's token for
-token (``test_torch_spec_state.py``). Under redmule_hfp8 the model's entry
-points are bitwise against the reference's at these inputs, but its fp32
-state rows differ by about an ulp of XLA's exp, log1p and sigmoid, which
-one E4M3 rounding can turn into a greedy near-tie flip. So:
+token (``test_torch_spec_state.py``). Under redmule_hfp8 they are too: the
+port's plain path rounds xlstm's exp, log1p, tanh and logistic as XLA's
+compiled code does (``models/common.py``), so the verify rows the greedy
+decisions read are the reference's bit for bit, and a near-tie between two
+tokens falls the same way in both packages:
 
 - plain serving, and speculation with the target's own parameters as the
-  drafter, give the reference's tokens, token for token;
-- the n-gram drafter's stream is the reference's up to its first
-  divergence, and at a divergence the reference preferred its token by a
-  margin no larger than the largest change, between the two packages, of
-  a top-2 margin of the verify rows at the positions where the streams
-  still agree (``launch/spec_gate.py::greedy_accounting``, the port's rows
-  against the reference's).
+  drafter, give the reference's tokens and counters;
+- so does the n-gram drafter, whose stream (before the XLA-rounded
+  functions) parted from the reference's at a near-tie of 0.00098.
 """
 import dataclasses
 import functools
@@ -95,7 +92,7 @@ def test_plain_and_own_parameter_spec_match_the_reference(drafter):
         assert server.stats.spec_steps > 0 and server.stats.spec_accepted > 0
 
 
-def test_ngram_spec_parts_from_the_reference_only_within_the_row_noise():
+def test_ngram_spec_matches_the_reference_with_its_verify_rows():
     model, params, tmodel, tparams = _pair()
     server = Server(tmodel, tparams, ServerConfig(**CONFIG), device="cpu",
                     spec=SpecConfig(k=3, ngram_n=3))
@@ -104,12 +101,11 @@ def test_ngram_spec_parts_from_the_reference_only_within_the_row_noise():
     record_rows(server, rows)
     _record_reference_rows(jserver, jrows)
     got, want = _run(server), _run(jserver)
-    assert set(got) == set(want) and server.stats.spec_accepted > 0
-    noise, splits, unexplained = greedy_accounting(got, want, rows, jrows)
-    assert not unexplained, (noise, splits)
-    for rid, first, margin in splits:
-        # Equal up to the first divergence, and a near-tie there.
-        assert got[rid][:first] == want[rid][:first] and 0 < margin <= noise
-    # Where no request parts, the streams are the reference's outright.
-    if not splits:
-        assert got == want
+    assert got == want and server.stats.spec_accepted > 0
+    for name in ("spec_steps", "spec_drafted", "spec_accepted", "decode_tokens"):
+        assert getattr(server.stats, name) == getattr(jserver.stats, name), name
+    assert rows.keys() == jrows.keys()
+    for key, row in rows.items():
+        assert torch.equal(row, jrows[key]), key
+    # The gate's accounting of the two streams finds no split and no noise.
+    assert greedy_accounting(got, want, rows, jrows) == (0.0, [], [])
