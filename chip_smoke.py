@@ -201,6 +201,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
     give the eager step's logits), granite's decode-step bytes from the
     roofline recorder; (d) host µs a call of ``ops.gemm_op`` at the decode
     shape (table, warm autotune cache, explicit plan);
+21. scale-out, after phase 19(b): (a) one phi3.5-moe MoE layer at full
+    width, 256 tokens, capacity factor E/k, on a mesh of one:
+    ``moe.apply_ep`` against ``apply_dense`` (fp32 1e-5; redmule_hfp8
+    0.1, one E4M3 rounding of the gated rows apart) and against its plain
+    path (1e-5 / 2e-3), 1 + 3E GEMM launches; the train launcher with
+    ``--moe-impl ep`` and ``dense`` at 2 layers, 2 x 1024 tokens (12 (E -
+    1) more GEMM launches a layer for EP, asserted; the assignments
+    dropped at capacity 1.25 and both step times printed); (b) two
+    processes on the one card over gloo: granite-moe at 2 layers with its
+    experts over a (1, 2) mesh, the kernels' path against the plain path
+    (logits with E4M3 weights within 5e-2, a train step's loss within
+    1e-4 and grad norm 5e-3); (c) the train launcher with ``--mesh 2,1``
+    (data parallelism, ZeRO-1 moments), 2 steps: both ranks' losses and
+    parameters equal bit for bit; the expert GEMMs in the kernel line (11);
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -1996,15 +2010,16 @@ def _verify_logits(model, params, prompts, width, ps=16):
     return list(logits)
 
 
-def _recording_routers(calls: list):
+def _recording_routers(calls: list, backend: str | None = None):
     """Record each MoE router call's (top-k probabilities, top-k experts)
-    in ``calls`` while the context is open."""
+    in ``calls`` while the context is open; with ``backend``, run every
+    router on that backend."""
     from repro_torch.models import moe
 
     router = moe._router
 
     def recording(params, x2, cfg, engine, aux=True):
-        out = router(params, x2, cfg, engine, aux)
+        out = router(params, x2, cfg, engine.with_backend(backend) if backend else engine, aux)
         calls.append((out[0].float().clone(), out[1].clone()))
         return out
 
@@ -5143,10 +5158,348 @@ def _log_entry(e) -> None:
         f"plain {e['plain_ms']:.4f} ms, library {lib}, max|d| {e['max_abs_err']:.3g}{extra})")
 
 
+# -- phase 21 --------------------------------------------------------------------
+
+EP_ARCH, EP_RANKS_ARCH = "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m"
+EP_TOKENS = 256
+# apply_ep against apply_dense (no token dropped): fp32 within 1e-5 of
+# max|y| (the fp32 sums in another order); redmule_hfp8 within 0.1, one
+# E4M3 rounding apart: the dense layer rounds h * gate to E4M3 before its
+# down GEMM, EP rounds h and weights the GEMM's output (0.042 on the CPU
+# at 16 experts of reduced width).
+EP_DENSE_BOUND = {"fp32": 1e-5, "redmule_hfp8": 0.1}
+# The kernels ("cuda") against the plain path ("torch"), max|dy|/max|y|:
+# GEMM_TOL of the output format.
+EP_KERNEL_BOUND = {"fp32": 1e-5, "redmule_hfp8": 2e-3}
+# (b)'s logits at 2 layers, kernels against plain under redmule_hfp8 (E4M3
+# weights), where some token's router chose other experts on the two
+# paths (the router's fp32 sums in another order move its probabilities
+# by ulps, the gates with them, and a near tie in a later layer's top-k):
+# the bound tests/test_torch_moe.py holds the MoE decoder's logits to.
+# Where no choice differs, EP_KERNEL_BOUND holds; with every router on the
+# plain path the logits are the plain path's bit for bit (the expert GEMMs
+# and everything else on the kernels' path are).
+EP_RANKS_LOGITS_BOUND = 5e-2
+
+
+def _ep_layer(arch: str) -> None:
+    """(a) one MoE layer of ``arch`` at full width on 1 x 256 tokens,
+    capacity factor E/k (no assignment dropped), on a mesh of one (no
+    process group): ``apply_ep`` against ``apply_dense`` and against its
+    own plain path, under fp32 and redmule_hfp8 (E4M3 weights); its GEMM
+    launches read: the fp32 router and 3 a local expert."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import E4M3, FP32, get_policy
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    mcfg = moe.MoEConfig(cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff,
+                         cfg.n_experts / cfg.top_k, "ep")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    for pol in ("fp32", "redmule_hfp8"):
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        wdt = FP32 if pol == "fp32" else E4M3
+        params = moe.init(gen, mcfg, wdt, "cuda")
+        x = torch.randn((1, EP_TOKENS, cfg.d_model), generator=gen, device="cuda").to(
+            get_policy(pol).compute)
+        eng = Engine(policy=pol, backend="cuda")
+        rg.launches.reset()
+        y, aux = moe.apply_ep(params, x, mcfg, eng, mesh, "model")
+        torch.cuda.synchronize()
+        launches = rg.launches.n
+        dense, daux = moe.apply_dense(params, x, mcfg, eng)
+        plain, paux = moe.apply_ep(params, x, mcfg, eng.with_backend("torch"), mesh, "model")
+        d_dense, d_plain = rel_err(y, dense), rel_err(y, plain)
+        log(f"ep layer {arch} {pol}: {EP_TOKENS} tokens, capacity {moe.capacity(EP_TOKENS, mcfg)}"
+            f" (factor {mcfg.capacity_factor:g}, none dropped): apply_ep against apply_dense "
+            f"max|dy|/max|y| {d_dense:.3g} (bound {EP_DENSE_BOUND[pol]:g}), against its plain "
+            f"path {d_plain:.3g} (bound {EP_KERNEL_BOUND[pol]:g}); aux {float(aux):.6f} / dense "
+            f"{float(daux):.6f}; GEMM launches {launches} (1 router + 3 x {cfg.n_experts} experts)")
+        if not (torch.isfinite(y).all() and d_dense <= EP_DENSE_BOUND[pol]
+                and d_plain <= EP_KERNEL_BOUND[pol]):
+            raise AssertionError(f"ep layer {arch} {pol}: outside its bounds")
+        if launches != 1 + 3 * cfg.n_experts:
+            raise AssertionError(f"ep layer {arch} {pol}: {launches} GEMM launches")
+        del params, x, y, dense, plain
+        torch.cuda.empty_cache()
+
+
+def _dropped(found: list, cfg) -> tuple:
+    """(assignments dropped past ``apply_ep``'s capacity, assignments) over
+    the router calls ``_recording_routers`` recorded."""
+    from repro_torch.models import moe
+
+    dropped = total = 0
+    for _, top_i in found:
+        counts = torch.bincount(top_i.reshape(-1), minlength=cfg.n_experts)
+        dropped += int((counts - moe.capacity(top_i.shape[0], cfg)).clamp(min=0).sum())
+        total += top_i.numel()
+    return dropped, total
+
+
+def _ep_train(arch: str) -> dict:
+    """(a) ``arch`` through the train launcher with ``--moe-impl ep`` (a
+    mesh of one, ``apply_ep`` with every expert) and then ``dense``, at
+    the depth whose training state fits (at most 2 layers), redmule_hfp8,
+    remat "block", 2 x 1024 tokens, 2 steps: losses finite and none
+    skipped; the tokens dropped at the config's capacity factor; the GEMM
+    launches a step by schedule and the K-major copies of each, whose
+    difference must be 12 x (E - 1) a layer (3 forward GEMMs, 3 again in
+    the block's recompute and 6 backward, for each expert beyond the dense
+    layer's one wide GEMM); both step times. Returns the EP run's GEMM
+    calls by shape (the kernel line's expert rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config(arch)
+    n = min(2, _train_depth(cfg))
+    calls, out = collections.Counter(), {}
+    for impl in ("ep", "dense"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = train.parse_args([
+            "--arch", arch, "--layers", str(n), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--steps", "2", "--policy", "redmule_hfp8", "--remat", "block",
+            "--moe-impl", impl, "--log-every", "1", "--seed", "0"])
+        found = []
+        with _recording_plans(calls if impl == "ep" else collections.Counter()), \
+                _recording_routers(found):
+            res = train.train(args)
+        hist = res["history"]
+        if res["state"].skipped or not all(np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"ep train {arch} {impl}: {hist}")
+        out[impl] = hist
+        if impl == "ep":  # the dense layer runs every expert on every token
+            dropped, total = _dropped(found, cfg)
+            drops = (f", assignments dropped {dropped} of {total} (capacity factor "
+                     f"{cfg.capacity_factor:g})")
+        else:
+            drops = ""
+        log(f"ep train {arch} --moe-impl {impl}: {n} layers, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+            f"losses {[round(h['loss'], 4) for h in hist]}, ms a step "
+            f"{[round(h['ms'], 1) for h in hist]}, GEMM launches a step {hist[-1]['gemm_launches']}"
+            f" (tensor-core {hist[-1]['gemm_tc_launches']}, SIMT {hist[-1]['gemm_simt_launches']}"
+            f", small-row {hist[-1]['gemm_small_row_launches']}), K-major copies and combines "
+            f"{hist[-1]['gemm_aux_launches']}{drops}, max memory "
+            f"{res['max_memory_bytes'] / 1e9:.2f} GB")
+        del res
+    extra = out["ep"][-1]["gemm_launches"] - out["dense"][-1]["gemm_launches"]
+    if extra != n * 12 * (cfg.n_experts - 1):
+        raise AssertionError(f"ep train {arch}: {extra} GEMM launches beyond dense, expected "
+                             f"{n * 12 * (cfg.n_experts - 1)}")
+    return {"ep_calls": calls, "ep_layers": n}
+
+
+def _ep_rank(rank: int, world: int, store: str, queue) -> None:
+    """One of (b) and (c)'s two processes on the one card, over gloo (which
+    carries CUDA tensors through the host; NCCL takes one rank a device).
+    (b) granite-moe at full width, 2 layers, redmule_hfp8, EP over a (1, 2)
+    mesh (16 experts a rank): the forward logits (E4M3 weights) on the
+    kernels' path against the plain path on the card, then again with the
+    kernels' routers on the plain path, and the tokens each router sent to
+    other experts than the plain path's; one train step (fp16 weights:
+    loss, grad norm) on both paths; its GEMM calls by shape. (c) the train
+    launcher, --mesh 2,1 (data parallelism with ZeRO-1 moments), 2 layers,
+    2 steps of 2 x 1024 tokens: a digest of every parameter's bytes, which
+    both ranks must share."""
+    import hashlib
+    import os
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        result = {"rank": rank}
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.data import for_model
+        from repro_torch.distrib import sharding as shd
+        from repro_torch.launch import train
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import MeshCtx, build
+        from repro_torch.optim import AdamW
+        from repro_torch.training import init_train_state, make_train_step
+
+        cfg = dataclasses.replace(get_config(EP_RANKS_ARCH), n_layers=2, moe_impl="ep",
+                                  policy="redmule_hfp8", remat="block")
+        ctx = MeshCtx(mesh=make_mesh((1, world), ("data", "model")), dp_axes=("data",),
+                      ep_axis="model")
+        tokens = torch.from_numpy(for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch(0)[
+            "tokens"]).cuda().long()
+        # The forward with E4M3 weights, as phase 14(a) holds the MoE decoders.
+        fp8 = dataclasses.replace(cfg, fp8_params=True)
+        model = build(fp8, ctx, device="cuda")
+        params = shd.local_params(model.init(0), fp8, ctx)
+        # Both paths, and the kernels with every router on the plain path:
+        # the routers' top-k choices recorded in each.
+        logits, routed = {}, {}
+        for name, b, router in (("cuda", "cuda", None), ("torch", "torch", None),
+                                ("plain router", "cuda", "torch")):
+            routed[name] = []
+            with torch.inference_mode(), _recording_routers(routed[name], router):
+                logits[name] = model.logits(params, model.forward(
+                    params, {"tokens": tokens}, engine=model.engine.with_backend(b))[0][:, -4:])
+        result["forward"] = rel_err(logits["cuda"], logits["torch"])
+        result["forward_plain_router"] = rel_err(logits["plain router"], logits["torch"])
+        result["flips"] = {name: [int((a[1].sort(-1).values != w[1].sort(-1).values).any(-1).sum())
+                                  for a, w in zip(routed[name], routed["torch"])]
+                           for name in ("cuda", "plain router")}
+        model = build(cfg, ctx, device="cuda")
+        params = shd.local_params(model.init(0), cfg, ctx)
+        opt = AdamW(lr=1e-4)
+        calls = collections.Counter()
+        metrics = {}
+        for b in ("cuda", "torch"):
+            state = init_train_state(model, opt, params, mesh_ctx=ctx)
+            with _recording_plans(calls if b == "cuda" else collections.Counter()):
+                _, m = make_train_step(model, opt, backend=b, mesh_ctx=ctx)(
+                    state, {"tokens": tokens})
+            metrics[b] = (float(m["loss"]), float(m["grad_norm"]))
+        result["train"] = metrics
+        result["calls"] = dict(calls)
+        del model, params, state
+        torch.cuda.empty_cache()
+        os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0")
+        res = train.main(["--arch", EP_RANKS_ARCH, "--layers", "2", "--seq", str(TRAIN_SEQ),
+                          "--batch", str(TRAIN_BATCH), "--steps", "2", "--policy",
+                          "redmule_hfp8", "--remat", "block", "--mesh", f"{world},1",
+                          "--log-every", "1", "--seed", "0"])
+        digest = hashlib.sha256()
+        for t in leaves(res["state"].params):
+            digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        result["dp"] = {"digest": digest.hexdigest(),
+                        "losses": [h["loss"] for h in res["history"]],
+                        "ms": [h["ms"] for h in res["history"]],
+                        "skipped": res["state"].skipped}
+        queue.put(result)
+        dist.destroy_process_group()
+    except BaseException:  # carried to the parent, which fails the phase
+        import traceback
+
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def _ep_ranks() -> dict:
+    """(b) and (c): two processes on the one card (``_ep_rank``); a rank
+    that fails, or outlasts 300 s, fails the phase."""
+    import torch.multiprocessing as mp
+
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke_ep_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_ep_rank, args=(r, 2, str(store), queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            r = queue.get(timeout=300)
+            results[r["rank"]] = r
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = [r["error"] for r in results.values() if "error" in r]
+    if errors or len(results) != 2:
+        raise AssertionError("phase 21 ranks failed:\n" + "\n".join(errors))
+    for r in (0, 1):
+        res = results[r]
+        (lc, gc_), (lt, gt) = res["train"]["cuda"], res["train"]["torch"]
+        d_loss, d_gnorm = abs(lc - lt) / abs(lt), abs(gc_ - gt) / gt
+        flips, tight = res["flips"], EP_KERNEL_BOUND["redmule_hfp8"]
+        log(f"ep ranks (b) rank {r}: {EP_RANKS_ARCH} 2 layers, experts over 2 ranks: logits "
+            f"(E4M3 weights) max|d|/max {res['forward']:.3g} (bound {tight:g}, "
+            f"{EP_RANKS_LOGITS_BOUND:g} where a router chose other experts), tokens a layer "
+            f"routed to other experts than on the plain path {flips['cuda']}; with the routers "
+            f"on the plain path {res['forward_plain_router']:.3g} (bound 0), tokens "
+            f"{flips['plain router']}; train "
+            f"step loss {lc:.6f} vs plain {lt:.6f} (rel {d_loss:.3g}, bound 1e-4), grad norm "
+            f"{gc_:.5f} vs {gt:.5f} (rel {d_gnorm:.3g}, bound 5e-3)")
+        bound = EP_RANKS_LOGITS_BOUND if any(flips["cuda"]) else tight
+        if not (res["forward"] <= bound and d_loss <= 1e-4 and d_gnorm <= 5e-3
+                and res["forward_plain_router"] == 0
+                and not any(flips["plain router"])):
+            raise AssertionError(f"ep ranks (b) rank {r}: outside the bounds")
+        dp = res["dp"]
+        log(f"ep ranks (c) rank {r}: --mesh 2,1 ZeRO-1, losses "
+            f"{[round(v, 4) for v in dp['losses']]}, ms a step {[round(v, 1) for v in dp['ms']]},"
+            f" skipped {dp['skipped']}, parameters' digest {dp['digest'][:16]}")
+        if dp["skipped"] or not all(np.isfinite(dp["losses"])):
+            raise AssertionError(f"ep ranks (c) rank {r}: {dp}")
+    if results[0]["dp"]["digest"] != results[1]["dp"]["digest"]:
+        raise AssertionError("ep ranks (c): the two ranks' parameters differ")
+    if results[0]["dp"]["losses"] != results[1]["dp"]["losses"]:
+        raise AssertionError("ep ranks (c): the two ranks' losses differ")
+    return collections.Counter(results[0]["calls"])
+
+
+def phase_ep() -> dict:
+    """Phase 21: expert parallelism and data parallelism on the card."""
+    _timed("phase 21(a) ep layer", _ep_layer, EP_ARCH)
+    out = _timed("phase 21(a) ep train", _ep_train, EP_ARCH)
+    out["ep_ranks_calls"] = _timed("phase 21(b, c) two ranks", _ep_ranks)
+    return out
+
+
+def _ep_entries(counts) -> list:
+    """The expert GEMMs of ``apply_ep`` at phase 21's capacity rows, one
+    row each, launches read from (a)'s EP train step (phi3.5-moe) and (b)'s
+    rank 0 (granite-moe) by (M, K, N): a local expert's up/gate and down
+    projections forward (E4M3 operands as the train step's engine casts
+    them), and for phi3.5-moe the two weight gradients (E4M3^T x E5M2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import E4M3, E5M2, FP16, cast
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def q(fmt, *shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device="cuda") * scale, FP16), fmt)
+
+    rows = []
+    for arch, calls in ((EP_ARCH, counts["ep_calls"]), (EP_RANKS_ARCH, counts["ep_ranks_calls"])):
+        cfg = get_config(arch)
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        cap = moe.capacity(TRAIN_BATCH * TRAIN_SEQ,
+                           moe.MoEConfig(e, cfg.top_k, d, f, cfg.capacity_factor, "ep"))
+
+        def n_calls(m, k, n):
+            return sum(v for key, v in calls.items() if key[:3] == (m, k, n))
+
+        # The train step's operands: the fp16 expert block cast to E4M3 by
+        # the engine (row-major, so the call takes its K-major copy).
+        rows.append(_gemm_row(f"{arch} expert up/gate {cap}x{d}x{f}", q(E4M3, cap, d),
+                              q(E4M3, d, f, scale=d ** -0.5), FP16, n_calls(cap, d, f),
+                              model=arch))
+        rows.append(_gemm_row(f"{arch} expert down {cap}x{f}x{d}", q(E4M3, cap, f),
+                              q(E4M3, f, d, scale=f ** -0.5), FP16, n_calls(cap, f, d),
+                              model=arch))
+        if arch == EP_ARCH:
+            rows.append(_gemm_row(f"{arch} expert dW up {d}x{cap}x{f}", q(E4M3, cap, d).T,
+                                  q(E5M2, cap, f, scale=1e-3), FP16, n_calls(d, cap, f),
+                                  model=arch))
+            rows.append(_gemm_row(f"{arch} expert dW down {f}x{cap}x{d}", q(E4M3, cap, f).T,
+                                  q(E5M2, cap, d, scale=1e-3), FP16, n_calls(f, cap, d),
+                                  model=arch))
+    return rows
+
+
 def phase_kernel_line(counts, paper_rows=()) -> list:
     entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
                _flash_entry(counts), *_family_entries(counts), *_recurrent_entries(counts),
-               *_spec_state_entries(counts), *_encdec_entries(counts), *paper_rows]
+               *_spec_state_entries(counts), *_encdec_entries(counts), *_ep_entries(counts),
+               *paper_rows]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
@@ -5189,6 +5542,7 @@ def main() -> int:
     _timed("phase 19(a)", phase_examples)
     with torch.inference_mode():
         paper_rows = _timed("phase 19(b)", phase_paper_gemms)
+    counts |= _timed("phase 21", phase_ep)
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
                "train_copies": train["copies"]}
     with torch.inference_mode():

@@ -11,8 +11,17 @@ Layout: <dir>/step_<N>/
                  restore
 
 A restore fills the structure of a template tree (``like``), placing each
-tensor on the template's device in the template's format. Python ints
-(the step and skip counters) round-trip as such.
+tensor on the template's device, in the template's format and layout (a
+K-major weight stays K-major). Python ints (the step and skip counters)
+round-trip as such.
+
+Sharded state (``shardings=``, a tree of
+``distrib.sharding.NamedSharding`` matching the tree, None where a leaf is
+whole): :func:`save` gathers each leaf to its full shape on every rank of
+the mesh (a collective: every rank calls it) and rank 0 writes it, in the
+single-process format; :func:`restore` reads the full leaf and keeps the
+rank's piece. So a checkpoint saved at one world size restores at another
+(the elastic scale-down of ``distrib/fault.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves, unflatten
+from repro_torch.distrib import sharding as shd
 
 _BIT_VIEWS = {
     torch.bfloat16: (torch.int16, np.uint16),
@@ -48,8 +58,22 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return t.numpy(), name
 
 
-def _host_tree(tree) -> list:
-    return [_to_host(leaf) for leaf in leaves(tree)]
+def _host_tree(tree, shardings=None) -> list:
+    flat = leaves(tree)
+    if shardings is None:
+        return [_to_host(leaf) for leaf in flat]
+    shs = shd.spec_leaves(shardings)
+    if len(shs) != len(flat):
+        raise ValueError(f"{len(shs)} shardings for {len(flat)} leaves")
+    return [_to_host(leaf if sh is None else shd.gather_full(leaf, sh.spec, sh.mesh))
+            for leaf, sh in zip(flat, shs)]
+
+
+def _writes(shardings) -> bool:
+    """Whether this process writes: rank 0 of a sharded save, any process
+    of a whole one."""
+    shs = [sh for sh in shd.spec_leaves(shardings) if sh is not None] if shardings else []
+    return not shs or shs[0].mesh.rank == 0
 
 
 def _write(directory: str, step: int, host: list, extra: dict | None, keep: int) -> str:
@@ -72,9 +96,13 @@ def _write(directory: str, step: int, host: list, extra: dict | None, keep: int)
 
 
 def save(directory: str, step: int, tree: Any, *, extra: dict | None = None,
-         keep: int = 3) -> str:
-    """Synchronous atomic save of ``tree`` as step ``step``. Returns its path."""
-    return _write(directory, step, _host_tree(tree), extra, keep)
+         keep: int = 3, shardings: Any = None) -> str:
+    """Synchronous atomic save of ``tree`` as step ``step`` (gathered first
+    under ``shardings``; rank 0 writes). Returns its path."""
+    host = _host_tree(tree, shardings)
+    if not _writes(shardings):
+        return os.path.join(directory, f"step_{step:08d}")
+    return _write(directory, step, host, extra, keep)
 
 
 class AsyncSaver:
@@ -87,9 +115,11 @@ class AsyncSaver:
         self._error: BaseException | None = None
 
     def save(self, directory: str, step: int, tree: Any, *, extra: dict | None = None,
-             keep: int = 3) -> None:
+             keep: int = 3, shardings: Any = None) -> None:
         self.wait()
-        host = _host_tree(tree)
+        host = _host_tree(tree, shardings)
+        if not _writes(shardings):
+            return
 
         def run():
             try:
@@ -127,7 +157,7 @@ def latest_step(directory: str) -> int | None:
     return max(steps, default=None)
 
 
-def _from_host(arr: np.ndarray, name: str, like):
+def _from_host(arr: np.ndarray, name: str, like, sh=None):
     if not isinstance(like, torch.Tensor):
         return type(like)(arr.item())
     dtype = _TORCH_DTYPES[name]
@@ -135,14 +165,18 @@ def _from_host(arr: np.ndarray, name: str, like):
         t = torch.from_numpy(arr.copy()).view(_BIT_VIEWS[dtype][0]).view(dtype)
     else:
         t = torch.from_numpy(arr.copy())
+    if sh is not None:
+        t = sh.shard(t)
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"shape mismatch: checkpoint {tuple(t.shape)} vs target {tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+    out = torch.empty_like(like, dtype=like.dtype)  # the template's layout
+    return out.copy_(t.to(like.dtype))
 
 
-def restore(directory: str, step: int, like: Any) -> Any:
-    """The checkpoint of ``step``, in the structure, devices and formats of
-    ``like``."""
+def restore(directory: str, step: int, like: Any, *, shardings: Any = None) -> Any:
+    """The checkpoint of ``step``, in the structure, devices, formats and
+    layouts of ``like``; with ``shardings``, each leaf's piece for this rank
+    (``like`` holds the pieces)."""
     path = os.path.join(directory, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, "_COMPLETE")):
         raise FileNotFoundError(f"incomplete or missing checkpoint: {path}")
@@ -152,15 +186,16 @@ def restore(directory: str, step: int, like: Any) -> Any:
     if meta["n_leaves"] != len(template):
         raise ValueError(f"checkpoint/tree structure mismatch: checkpoint has "
                          f"{meta['n_leaves']} leaves, target tree has {len(template)}")
+    shs = shd.spec_leaves(shardings) if shardings is not None else [None] * len(template)
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        flat = [_from_host(data[f"leaf_{i}"], meta["dtypes"][i], ref)
-                for i, ref in enumerate(template)]
+        flat = [_from_host(data[f"leaf_{i}"], meta["dtypes"][i], ref, sh)
+                for i, (ref, sh) in enumerate(zip(template, shs))]
     return unflatten(like, flat)
 
 
-def restore_latest(directory: str, like: Any):
+def restore_latest(directory: str, like: Any, *, shardings: Any = None):
     """(step, tree) of the newest complete checkpoint, or (None, None)."""
     step = latest_step(directory)
     if step is None:
         return None, None
-    return step, restore(directory, step, like)
+    return step, restore(directory, step, like, shardings=shardings)

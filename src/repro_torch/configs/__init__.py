@@ -40,6 +40,14 @@ _ARCHS = {
 
 ARCH_IDS = tuple(_ARCHS)
 
+# Input-shape set shared by all LM-family archs: name -> (seq_len, batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _ARCHS:
@@ -48,3 +56,13 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         )
     mod = _ARCHS[arch]
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """Whether (arch x shape) is a runnable dry-run cell: ``long_500k``
+    needs sub-quadratic context."""
+    if shape == "long_500k" and not cfg.supports_500k:
+        return False, (
+            "long_500k needs sub-quadratic context; full-attention arch skipped"
+        )
+    return True, ""

@@ -87,6 +87,11 @@ class PrecisionPolicy:
         for f in ("storage_fwd", "storage_bwd", "compute", "acc", "out", "param"):
             object.__setattr__(self, f, as_dtype(getattr(self, f)))
 
+    @property
+    def fp8_storage(self) -> bool:
+        """Operands cross memory in an fp8 format."""
+        return self.storage_fwd.itemsize == 1
+
     def cast_in_fwd(self, x):
         """Input cast unit, forward path: storage -> compute."""
         return cast(cast(x, self.storage_fwd), self.compute)

@@ -92,6 +92,20 @@ _AMBIENT: contextvars.ContextVar[Engine | None] = contextvars.ContextVar(
 )
 
 
+def ambient_engine() -> Engine | None:
+    """The innermost active :func:`engine_scope`'s engine, or None."""
+    return _AMBIENT.get()
+
+
+def set_ambient_engine(engine: Engine | None) -> Engine | None:
+    """Set the ambient engine of the current context; returns the previous
+    one. Prefer :func:`engine_scope`; this serves the deprecated
+    ``set_default_backend`` shim and interactive use."""
+    prev = _AMBIENT.get()
+    _AMBIENT.set(engine)
+    return prev
+
+
 def current_engine() -> Engine:
     """The innermost :func:`engine_scope`'s engine, else :data:`DEFAULT_ENGINE`."""
     amb = _AMBIENT.get()

@@ -1,4 +1,14 @@
-"""Models of the port: the dense decoder and its building blocks."""
-from repro_torch.models.registry import build, make_batch
+"""Models of the port: the decoder and its building blocks, the model
+registry and the input specs of each cell."""
+from repro_torch.models.registry import (
+    ShapeDtype,
+    batch_shapes,
+    build,
+    decode_input_specs,
+    make_batch,
+    train_input_specs,
+)
+from repro_torch.models.transformer import MeshCtx, Transformer
 
-__all__ = ["build", "make_batch"]
+__all__ = ["MeshCtx", "ShapeDtype", "Transformer", "batch_shapes", "build",
+           "decode_input_specs", "make_batch", "train_input_specs"]

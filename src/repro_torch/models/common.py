@@ -123,7 +123,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 # 0.4-47% of the values. On CPU tensors the functions below evaluate the same
 # expansions in the same order (each fused multiply-add through fp64, as
 # ``rglru.fma``), which gives XLA's bits on every one of 2^20 N(0, 64) draws
-# (tests/test_torch_xla_math.py). On the card, and for other formats, they are
+# (tests/test_torch_xla_math.py). On the card (and on ``meta`` tensors), and for other formats, they are
 # torch's functions. The gradients are torch's formulas on these values.
 
 _FLT_MIN = 2.0 ** -126
@@ -221,7 +221,7 @@ class _XlaRounded(torch.autograd.Function):
 
 
 def _xla_rounded(x: torch.Tensor, torch_fn, values, grad) -> torch.Tensor:
-    if x.is_cuda or x.dtype != torch.float32:
+    if x.device.type != "cpu" or x.dtype != torch.float32:
         return torch_fn(x)
     return _XlaRounded.apply(x, values, grad)
 
@@ -245,7 +245,7 @@ def xla_sigmoid(x: torch.Tensor) -> torch.Tensor:
 def xla_fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a * b + c, contracted into one fused multiply-add on fp32 CPU tensors
     as XLA's compiled code contracts a multiply that feeds an add."""
-    if a.is_cuda or a.dtype != torch.float32:
+    if a.device.type != "cpu" or a.dtype != torch.float32:
         return a * b + c
     return _fma(a, b, c)
 
@@ -254,6 +254,13 @@ def xla_softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x) as ``jax.nn.softplus`` writes it, logaddexp(x, 0), with
     XLA's exp and log1p."""
     return x.clamp(min=0) + xla_log1p(xla_exp(-x.abs()))
+
+
+ACTIVATIONS = {
+    "gelu": gelu,
+    "silu": silu,
+    "relu": torch.relu,
+}
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -1,24 +1,46 @@
-"""Mixture-of-Experts FFN, the ``dense`` implementation (counterpart of
-``repro.models.moe``): every expert runs on every token, and the router's
-gates weight the results. ``impl="ep"`` (expert parallelism over a mesh)
-is not ported. Training takes the load-balancing aux loss (``aux=True``)
-and differentiates through the router; serving leaves it out.
+"""Mixture-of-Experts FFN (counterpart of ``repro.models.moe``), with the
+reference's two implementations. Training takes the load-balancing aux
+loss (``aux=True``) and differentiates through the router; serving leaves
+it out.
 
-The arithmetic is the reference's ``apply_dense``: the router in fp32
-(softmax, top-k, the top-k probabilities renormalised), the gate matrix
-with one term per expert, all experts' up and gate projections as one wide
-GEMM each, ``silu`` in fp32 cast back to the compute format, the gates cast
-to that format before they multiply, and the down projection as one GEMM.
-The reference's router is a plain ``jnp.matmul``; here it runs through the
-engine under the fp32 policy on the model's backend (on the card the
-GEMM-Op kernel's SIMT schedule, on the CPU its plain version).
+``dense``: every expert runs on every token, and the router's gates weight
+the results. The arithmetic is the reference's ``apply_dense``: the router
+in fp32 (softmax, top-k, the top-k probabilities renormalised), the gate
+matrix with one term per expert, all experts' up and gate projections as
+one wide GEMM each, ``silu`` in fp32 cast back to the compute format, the
+gates cast to that format before they multiply, and the down projection
+as one GEMM. The reference's router is a plain ``jnp.matmul``; here it
+runs through the engine under the fp32 policy on the model's backend (on
+the card the GEMM-Op kernel's SIMT schedule, on the CPU its plain
+version). The reference's dense path applies ``silu`` whatever the
+config's ``act`` (``repro/models/moe.py:89``); the port raises for
+another activation there (no config has one).
+
+``ep``: expert parallelism over a mesh axis (``apply_ep``). Each rank
+holds a contiguous block of whole experts and the tokens of its data
+shard, replicated over the expert axis. It routes its tokens, sorts the
+assignments by expert (a stable sort, as ``jnp.argsort``), takes a window
+of ``cap`` assignments for each local expert, runs that expert's FFN on
+the gathered rows through ``Engine.matmul`` (the GEMM-Op kernel on the
+card), weights the rows by their probabilities in fp32 and adds them back
+with ``index_add_``; assignments past an expert's capacity are dropped.
+One sum over the axis in the input's format combines the ranks
+(``distrib/collectives.py``; its backward is the identity, and the layer's
+input takes the matching sum of gradients backward), and the aux loss is
+the mean over the axis. Without a mesh, ``impl="ep"`` computes
+``apply_dense``, as the reference's ``apply`` does.
 
 Layout: the reference keeps ``up``/``gate`` as (E, d, f) and ``down`` as
 (E, f, d), and reshapes them to (d, E*f) and (E*f, d) inside every call.
 The port stores them in those GEMM shapes once (column e*f + j of ``up``
 is expert e's column j, as the reference's transpose gives it), through
 :func:`~repro_torch.models.common.kmajor_weight` like every other weight,
-so no step copies an expert weight.
+so no step copies an expert weight. An expert's block is a slice of
+them: ``up``/``gate`` columns are contiguous K-major blocks; ``down``
+rows e*f .. of a K-major (E*f, d) view are K-major with a row pitch of
+E*f, which the GEMM's tensor-core and small-row schedules read in place
+(16-byte aligned at every config's f), so no call copies them for their
+layout.
 """
 from __future__ import annotations
 
@@ -29,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.precision import cast
+from repro_torch.distrib import collectives, compat
 from repro_torch.engine import Engine
 from repro_torch.models import common
 
@@ -80,7 +103,9 @@ def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux:
     aux loss). ``aux=False`` leaves the aux loss out (None), as XLA drops it
     from the reference's jitted serving steps, which do not use it."""
     if cfg.act != "swiglu":
-        raise NotImplementedError(f"MoE activation {cfg.act!r} is not ported yet")
+        raise NotImplementedError(
+            f"dense MoE with act {cfg.act!r}: the reference's dense path applies silu "
+            "whatever the act, and its EP path honours it; no config has another act")
     b, s, d = x.shape
     e, f = cfg.n_experts, cfg.d_ff
     x2 = x.reshape(b * s, d)
@@ -97,16 +122,92 @@ def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux:
     return y.reshape(b, s, d), aux
 
 
+def _expert_ffn(up_w, gate_w, down_w, x: torch.Tensor, cfg: MoEConfig, engine: Engine):
+    """One expert's FFN on its gathered rows: SwiGLU (``silu`` in fp32 cast
+    back), or ``gelu(g) * h`` for another ``act``, as the reference's."""
+    h = engine.matmul(x, up_w)
+    g = engine.matmul(x, gate_w)
+    if cfg.act == "swiglu":
+        h = common.silu(g.float()).to(h.dtype) * h
+    else:
+        h = common.gelu(g) * h
+    return engine.matmul(h, down_w)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def capacity(tokens: int, cfg: MoEConfig) -> int:
+    """Rows a local expert takes: the reference's
+    ``_ceil_to(int(t * k / E * capacity_factor) or 1, 8)``."""
+    return _ceil_to(int(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor) or 1, 8)
+
+
+def apply_ep(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, mesh, ep_axis, *,
+             aux: bool = True):
+    """Expert-parallel MoE over ``ep_axis`` of ``mesh``, one rank's body:
+    ``params`` holds this rank's block of experts (``distrib.sharding``'s
+    expert specs) and x (B_l, S, d) this rank's data shard (split over the
+    data axes by the caller). Returns (y (B_l, S, d), aux loss or None)."""
+    b, s, d = x.shape
+    t = b * s
+    f = cfg.d_ff
+    e_local = params["up"].shape[1] // f
+    n_shards = compat.axis_size(mesh, ep_axis)
+    shard = compat.axis_index(mesh, ep_axis)
+    e_total = e_local * n_shards
+    if e_total != cfg.n_experts:
+        raise ValueError(f"{e_local} local experts on {n_shards} ranks, the config has "
+                         f"{cfg.n_experts}")
+    x2 = collectives.copy_to(x.reshape(t, d), mesh, ep_axis)
+    top_p, top_i, aux_loss = _router(params, x2, cfg, engine, aux)
+    # Flatten the assignments and sort them by expert, stably.
+    flat_e = top_i.reshape(-1)
+    flat_p = top_p.reshape(-1)
+    flat_t = torch.arange(t, device=x.device).repeat_interleave(cfg.top_k)
+    order = torch.argsort(flat_e, stable=True)
+    sp, st = flat_p[order], flat_t[order]
+    # Assignments an expert (``bincount``, with a static shape).
+    counts = torch.zeros(e_total, dtype=flat_e.dtype, device=x.device).index_add(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    cap = capacity(t, cfg)
+    # Padded so that every window of cap assignments lies inside.
+    sp = torch.cat([sp, sp.new_zeros(cap)])
+    st = torch.cat([st, st.new_zeros(cap)])
+    window = torch.arange(cap, device=x.device)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for j in range(e_local):
+        eg = shard * e_local + j  # the global expert id
+        idx = starts[eg] + window
+        valid = window < counts[eg]
+        tok = torch.where(valid, st[idx], 0)
+        cols = slice(j * f, (j + 1) * f)
+        yj = _expert_ffn(params["up"][:, cols], params["gate"][:, cols], params["down"][cols],
+                         x2.index_select(0, tok), cfg, engine).float()
+        yj = yj * (sp[idx] * valid)[:, None]
+        out = out.index_add(0, tok, torch.where(valid[:, None], yj, 0.0))
+    # The sum over the expert ranks in the input's format (the reference
+    # sums in bf16 to halve the wire bytes; each token's partial sums
+    # were taken in fp32 locally).
+    y = collectives.sum_over(out.to(x.dtype), mesh, ep_axis)
+    if aux_loss is not None:
+        aux_loss = collectives.mean_over(aux_loss, mesh, ep_axis)
+    return y.reshape(b, s, d), aux_loss
+
+
 def check_impl(cfg: MoEConfig) -> None:
-    """Raise unless the port has ``cfg.impl`` (only ``"dense"``)."""
-    if cfg.impl == "ep":
-        raise NotImplementedError(
-            "MoE impl 'ep' (expert parallelism) needs a device mesh; it comes with the "
-            "distrib queue of ROADMAP.md (queue 1, item 6)")
-    if cfg.impl != "dense":
+    """Raise unless ``cfg.impl`` is ``"dense"`` or ``"ep"``."""
+    if cfg.impl not in ("dense", "ep"):
         raise ValueError(f"unknown MoE impl {cfg.impl!r}")
 
 
-def apply(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux: bool = True):
+def apply(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux: bool = True,
+          mesh=None, ep_axis=None):
+    """``apply_ep`` for ``impl="ep"`` on a mesh with an expert axis, else
+    ``apply_dense`` (the reference's rule)."""
     check_impl(cfg)
+    if cfg.impl == "ep" and mesh is not None and ep_axis is not None:
+        return apply_ep(params, x, cfg, engine, mesh, ep_axis, aux=aux)
     return apply_dense(params, x, cfg, engine, aux=aux)

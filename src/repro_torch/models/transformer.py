@@ -45,6 +45,7 @@ captures.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, NamedTuple
 
@@ -75,6 +76,17 @@ class CBProfile(NamedTuple):
     has_state_rows: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshCtx:
+    """The distribution context of the layers that run explicit collectives
+    (the MoE's expert parallelism): a :class:`~repro_torch.launch.mesh.Mesh`
+    and the roles of its axes."""
+
+    mesh: Any = None
+    dp_axes: Any = None  # batch-sharding axes, e.g. ("pod", "data")
+    ep_axis: str | None = None  # expert-parallel axis, e.g. "model"
+
+
 class _Cell(NamedTuple):
     """A recurrent kind's functions and config."""
 
@@ -99,7 +111,7 @@ class Transformer:
     backend only and raises on ``"cuda"``."""
 
     def __init__(self, cfg: ModelConfig, *, engine: Engine, device,
-                 fused_decode: bool = False):
+                 fused_decode: bool = False, mesh_ctx: MeshCtx | None = None):
         if (cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
                 or not set(cfg.block_pattern) <= ATTN_KINDS | RECURRENT_KINDS
                 or cfg.norm not in ("rmsnorm", "layernorm")):
@@ -110,6 +122,7 @@ class Transformer:
             )
         self.cfg = cfg
         self.engine = engine
+        self.mesh_ctx = mesh_ctx or MeshCtx()
         self.policy = engine.policy
         self.device = torch.device(device)
         self.dtype = E4M3 if cfg.fp8_params else self.policy.compute
@@ -158,7 +171,10 @@ class Transformer:
         draws differ from the reference's ``jax.random``; tests copy the
         reference's parameters with :func:`repro_torch.convert.params_from_jax`)."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # torch.Generator has no meta device, and a CPU one would draw every
+        # number: a meta model (the dry run's, which allocates nothing)
+        # takes shapes alone.
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         d = cfg.d_model
         params: Params = {
             "embed": common.embed_init(gen, cfg.vocab_size, d, self.dtype, dev),
@@ -226,7 +242,9 @@ class Transformer:
         if "norm2" in lp:
             h2 = self._norm(lp["norm2"], x)
             if "moe" in lp:
-                h2, aux_loss = moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=aux)
+                mc = self.mesh_ctx
+                h2, aux_loss = moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=aux,
+                                         mesh=mc.mesh, ep_axis=mc.ep_axis)
             else:
                 h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
             x = x + h2

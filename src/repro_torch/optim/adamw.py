@@ -47,6 +47,9 @@ class AdamW:
         zeros = lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device)  # noqa: E731
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
+    def global_norm(self, grads) -> torch.Tensor:
+        return global_norm(grads)
+
     def _lr(self, step: int) -> torch.Tensor:
         return self.lr(step) if callable(self.lr) else _f32(self.lr)
 

@@ -5,6 +5,7 @@ baseline (counterpart of ``repro.serving``)."""
 from repro_torch.serving.cache import (
     NULL_PAGE,
     OutOfPagesError,
+    PagedKVCache,
     PagePool,
     StateStore,
     copy_kv_page,
@@ -53,6 +54,7 @@ __all__ = [
     "NULL_PAGE",
     "OutOfPagesError",
     "PagePool",
+    "PagedKVCache",
     "QUEUED",
     "RUNNING",
     "Request",

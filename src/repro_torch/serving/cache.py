@@ -248,3 +248,8 @@ class StateStore:
         """Device bytes held by the recurrent layers' per-slot state rows."""
         return sum(t.numel() * t.element_size() for pool in self.pools
                    for t in pool.get("state", {}).values())
+
+
+# The reference's transitional name of the store (its first version held KV
+# pages only).
+PagedKVCache = StateStore

@@ -10,15 +10,38 @@ its chunk does.
 There is no loss scaling, as in the reference: an fp16 gradient that
 overflows gives a non-finite norm, and the anomaly guard skips that
 update.
+
+On a mesh (``mesh_ctx``) every rank runs the step on its data shard and
+its block of experts; with no mesh, or on a mesh of one, each reduction
+below is the identity:
+
+- the loss is the reference's mean over the *global* batch: each rank
+  divides its cross-entropy sum by the count of supervised positions
+  summed over the data axes, so ranks with different counts weigh right;
+  a mean of per-rank means would not. The aux loss is the mean of the
+  ranks' aux losses (each over its own tokens, as the reference's EP body
+  computes it);
+- the gradients are summed over the data axes in fp32 (the gradient of
+  the global loss; ``dist.all_reduce``, as GSPMD's reduction), and the
+  router's also over the expert axis, where each rank holds the share of
+  its own experts' gates;
+- the global norm counts every expert's gradient once;
+- ZeRO-1: each rank keeps the moments of its slice of each leaf (the
+  first dimension the data ranks divide, ``distrib.sharding.zero1_specs``),
+  updates that slice of the parameters and all-gathers the slices. AdamW
+  is elementwise, so the parameters are the unsharded update's bit for
+  bit.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import leaves, tree_map, unflatten
+from repro_torch.distrib import collectives, sharding
 from repro_torch.engine import Engine
 from repro_torch.optim import global_norm
 
@@ -56,15 +79,21 @@ def chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor, mask: tor
     return total, mask.sum()
 
 
+def _loss_terms(model, params, batch, eng):
+    """(cross-entropy sum, supervised positions, aux loss) of ``batch``."""
+    h, aux = model.forward(params, batch, engine=eng)
+    labels, mask = _shift_labels(batch["tokens"])
+    total, denom = chunked_xent(model, params, h, labels, mask, engine=eng)
+    return total, denom, aux
+
+
 def make_loss_fn(model, *, backend: str | None = None) -> Callable:
     """loss_fn(params, batch) -> (loss, {"xent", "aux"}) on the model's
     engine, with ``backend`` swapping its execution backend alone."""
     eng = model.engine.with_backend(backend) if backend else model.engine
 
     def loss_fn(params, batch):
-        h, aux = model.forward(params, batch, engine=eng)
-        labels, mask = _shift_labels(batch["tokens"])
-        total, denom = chunked_xent(model, params, h, labels, mask, engine=eng)
+        total, denom, aux = _loss_terms(model, params, batch, eng)
         loss = total / denom.clamp(min=1.0)
         return loss + AUX_LOSS_WEIGHT * aux, {"xent": loss, "aux": aux}
 
@@ -79,8 +108,16 @@ class TrainState(NamedTuple):
     skipped: int
 
 
+def _mesh_of(model, mesh_ctx):
+    """(mesh context, mesh or None, data axes, data ranks) of a step."""
+    mc = mesh_ctx if mesh_ctx is not None else getattr(model, "mesh_ctx", None)
+    mesh = mc.mesh if mc is not None else None
+    dp = tuple(mc.dp_axes or ()) if mesh is not None else ()
+    return mc, mesh, dp, mesh.axis_size(dp) if mesh is not None else 1
+
+
 def make_train_step(model, optimizer, *, grad_accum: int = 1,
-                    backend: str | None = None) -> Callable:
+                    backend: str | None = None, mesh_ctx=None) -> Callable:
     """train_step(state, batch) -> (state, metrics).
 
     ``batch`` ("tokens", and the stub "frames" or "vis_embeds" of the
@@ -93,39 +130,141 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
     their gradients (summed in the parameters' format, as the reference
     does). The state is not modified: each step returns new parameters and
     moments.
+
+    ``mesh_ctx`` (default the model's): on a mesh, ``batch`` is this rank's
+    data shard, ``state`` this rank's (:func:`init_train_state`), and the
+    step runs the reductions of the module docstring. With no mesh, or on a
+    mesh of one, every reduction is the identity and the step is the
+    single-process one.
     """
-    loss_fn = make_loss_fn(model, backend=backend)
+    mc, mesh, dp, n_dp = _mesh_of(model, mesh_ctx)
+    moe_cfg = getattr(model, "moe_cfg", None)
+    ep = mc.ep_axis if mesh is not None and moe_cfg is not None and moe_cfg.impl == "ep" else None
+    n_ep = mesh.axis_size(ep) if ep is not None else 1
+    eng = model.engine.with_backend(backend) if backend else model.engine
+    router_axes = dp + ((ep,) if ep is not None else ())
+    cache: dict = {}
+
+    def reduce(g: torch.Tensor, axes) -> torch.Tensor:
+        if mesh is None or mesh.axis_size(axes) == 1:
+            return g
+        return collectives.all_reduce(g.float(), mesh, axes).to(g.dtype)
 
     def grad_fn(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = loss_fn(live, batch)
+        total, denom, aux = _loss_terms(model, live, batch, eng)
+        count = collectives.all_reduce(denom, mesh, dp).clamp(min=1.0)
+        loss = total / count + AUX_LOSS_WEIGHT * aux / n_dp
         grads = torch.autograd.grad(loss, leaves(live))
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, unflatten(params, grads)
+        xent = collectives.all_reduce(total.detach(), mesh, dp) / count
+        aux = collectives.all_reduce(aux.detach(), mesh, dp) / n_dp
+        return xent + AUX_LOSS_WEIGHT * aux, {"xent": xent, "aux": aux}, list(grads)
 
     def train_step(state: TrainState, batch):
-        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
-        batch["tokens"] = batch["tokens"].long()
+        batch = _on_device(batch, model.device)
         if grad_accum > 1:
-            loss, grads = 0.0, tree_map(torch.zeros_like, state.params)
-            micro = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])
-                     for k, v in batch.items()}
-            for i in range(grad_accum):
-                lv, metrics, g = grad_fn(state.params, {k: v[i] for k, v in micro.items()})
+            loss, grads = 0.0, [torch.zeros_like(p) for p in leaves(state.params)]
+            for mb in _micro(batch, grad_accum):
+                lv, metrics, g = grad_fn(state.params, mb)
                 loss = loss + lv
-                grads = tree_map(torch.add, grads, g)
+                grads = [a + b for a, b in zip(grads, g)]
             loss = loss / grad_accum
-            grads = tree_map(lambda g: g / grad_accum, grads)
+            grads = [g / grad_accum for g in grads]
         else:
             loss, metrics, grads = grad_fn(state.params, batch)
-
-        gnorm = global_norm(grads)
+        if not cache:
+            paths = [p for p, _ in sharding.leaf_paths(state.params)]
+            cache["axes"] = [router_axes if _is_router(p) else dp for p in paths]
+            cache["expert"] = [_is_expert(p) for p in paths]
+            cache["dims"] = zero1_dims(state.params, model.cfg, mc)
+        grads = [reduce(g, axes) for g, axes in zip(grads, cache["axes"])]
+        if n_ep == 1:
+            gnorm = global_norm(grads)
+        else:  # every expert's gradient once, the replicated leaves' once
+            sq = [g.float().square().sum() for g in grads]
+            own = torch.stack([q for q, e in zip(sq, cache["expert"]) if e]).sum()
+            rep = torch.stack([q for q, e in zip(sq, cache["expert"]) if not e]).sum()
+            gnorm = (rep + collectives.all_reduce(own, mesh, ep)).sqrt()
         if not bool(torch.isfinite(gnorm) & torch.isfinite(loss)):
             new_params, new_opt, skipped = state.params, state.opt_state, state.skipped + 1
         else:
-            new_params, new_opt = optimizer.update(state.params, grads, state.opt_state,
-                                                   state.step, gnorm)
+            new_params, new_opt = zero1_update(optimizer, state.params,
+                                               unflatten(state.params, grads), state.opt_state,
+                                               state.step, gnorm, cache["dims"], mesh, dp)
             skipped = state.skipped
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, skipped=skipped)
         return TrainState(state.step + 1, new_params, new_opt, skipped), metrics
 
     return train_step
+
+
+def _on_device(batch, device) -> dict:
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    batch["tokens"] = batch["tokens"].long()
+    return batch
+
+
+def _micro(batch: dict, n: int):
+    micro = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in batch.items()}
+    return [{k: v[i] for k, v in micro.items()} for i in range(n)]
+
+
+def _is_expert(path: str) -> bool:
+    return bool(re.match(r".*moe/(up|gate|down)$", path))
+
+
+def _is_router(path: str) -> bool:
+    return bool(re.match(r".*moe/router/w$", path))
+
+
+def zero1_dims(params, cfg, mesh_ctx) -> list:
+    """For each leaf of this rank's ``params``, the dimension whose slices
+    the data ranks hold under ZeRO-1, or None (a leaf too small to split,
+    or a single data rank)."""
+    mc, _, dp, n_dp = _mesh_of(None, mesh_ctx)
+    if n_dp == 1:
+        return [None] * len(leaves(params))
+    specs = sharding.zero1_specs(sharding.executed_param_specs(params, cfg, mc), params, dp, n_dp)
+    return [sharding.split_dim(s, dp) for s in sharding.spec_leaves(specs)]
+
+
+def _slice(t: torch.Tensor, dim, mesh, dp) -> torch.Tensor:
+    if dim is None:
+        return t
+    c = t.shape[dim] // mesh.axis_size(dp)
+    return t.narrow(dim, mesh.axis_index(dp) * c, c)
+
+
+def zero1_update(optimizer, params, grads, opt_state, step: int, gnorm: torch.Tensor, dims: list,
+                 mesh, dp_axes):
+    """The ZeRO-1 update: each leaf's slice along its dimension in ``dims``
+    (None: the whole leaf) updated with this rank's moments of it, then the
+    slices gathered over ``dp_axes`` into the leaf's own layout. Returns
+    (new params, new moments of the slices)."""
+    flat = leaves(params)
+    p_sl = unflatten(params, [_slice(p, d, mesh, dp_axes) for p, d in zip(flat, dims)])
+    g_sl = unflatten(params, [_slice(g, d, mesh, dp_axes) for g, d in zip(leaves(grads), dims)])
+    new_sl, new_opt = optimizer.update(p_sl, g_sl, opt_state, step, gnorm)
+    new = [q if d is None else collectives.gather_into(torch.empty_like(p), q, mesh, dp_axes, d)
+           for p, q, d in zip(flat, leaves(new_sl), dims)]
+    return unflatten(params, new), new_opt
+
+
+def init_train_state(model, optimizer, params, *, mesh_ctx=None) -> TrainState:
+    """This rank's initial state: ``params`` as it holds them (its block of
+    experts on a mesh: ``distrib.sharding.local_params``) and fresh moments
+    of its ZeRO-1 slices (the whole leaves with one data rank)."""
+    mc, mesh, dp, _ = _mesh_of(model, mesh_ctx)
+    dims = zero1_dims(params, model.cfg, mc)
+    sliced = unflatten(params, [_slice(p, d, mesh, dp) for p, d in zip(leaves(params), dims)])
+    return TrainState(0, params, optimizer.init(sliced), 0)
+
+
+def state_specs(state: TrainState, cfg, mesh_ctx) -> TrainState:
+    """The spec of every leaf of a rank's state on the full (single-process)
+    shapes: the parameters' executed specs, the moments' ZeRO-1 specs, the
+    counters none (``checkpoint.manager``'s ``shardings=``)."""
+    _, _, dp, n_dp = _mesh_of(None, mesh_ctx)
+    pspecs = sharding.executed_param_specs(state.params, cfg, mesh_ctx)
+    mspecs = sharding.zero1_specs(pspecs, state.params, dp, n_dp) if n_dp > 1 else pspecs
+    return TrainState(None, pspecs, {"mu": mspecs, "nu": mspecs}, None)

@@ -504,8 +504,15 @@ def test_chatglm_train_steps_match_reference(policy, remat):
 
 
 def test_train_launcher_trains_gemma_and_refuses_moe():
-    """gemma2 and phi3.5-moe train through the launcher; phi's expert
-    parallelism (``--moe-impl ep``) is refused."""
+    """gemma2 and phi3.5-moe train through the launcher, phi also with
+    expert parallelism (``--moe-impl ep``, on a mesh of one: ``apply_ep``
+    with every expert; at 2 x 8 tokens the capacity, 16 rows, drops
+    nothing, so its first loss is the dense layer's within 1e-3 relative:
+    the gates weight the rows in fp32 there, in the compute format in the
+    dense layer). What the model refuses is an MoE implementation neither
+    package has."""
+    import dataclasses
+
     from repro_torch.launch import train as ttrain
 
     for arch in ("gemma2-2b", "phi3.5-moe-42b-a6.6b"):
@@ -514,10 +521,17 @@ def test_train_launcher_trains_gemma_and_refuses_moe():
         out = ttrain.train(args)
         assert len(out["history"]) == 2
         assert all(np.isfinite(h["loss"]) for h in out["history"])
-    args = ttrain.parse_args(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--device", "cpu",
-                              "--steps", "1", "--seq", "8", "--batch", "2", "--moe-impl", "ep"])
-    with pytest.raises(NotImplementedError, match="distrib"):
-        ttrain.train(args)
+    first = {}
+    for impl in ("ep", "dense"):
+        args = ttrain.parse_args(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke", "--device", "cpu",
+                                  "--steps", "1", "--seq", "8", "--batch", "2", "--moe-impl",
+                                  impl])
+        first[impl] = ttrain.train(args)["history"][0]["loss"]
+    assert np.isfinite(first["ep"])
+    assert abs(first["ep"] - first["dense"]) <= 1e-3 * abs(first["dense"])
+    cfg = dataclasses.replace(tget_config("phi3.5-moe-42b-a6.6b", smoke=True), moe_impl="alltoall")
+    with pytest.raises(ValueError, match="unknown MoE impl"):
+        tbuild(cfg, device="cpu")
 
 
 # -- the server ---------------------------------------------------------------------------

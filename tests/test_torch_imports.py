@@ -50,16 +50,20 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_the_scan_covers_every_subpackage():
     """The scans walk the whole package: observability, the roofline, the
-    examples, the plan tables, the analysis passes and the perf model
+    examples, the plan tables, the analysis passes, the perf model, the
+    scale-out layer, the mesh, the dry run and the deprecated shims
     included."""
     seen = {p.relative_to(PORT).parts[0] for p in _port_files() if PORT in p.parents}
-    assert {"obs", "roofline", "examples", "serving", "kernels", "configs", "analysis"} <= seen
+    assert {"obs", "roofline", "examples", "serving", "kernels", "configs", "analysis",
+            "distrib"} <= seen
     for name in ("obs/trace.py", "obs/metrics.py", "obs/profiler.py", "obs/export.py",
                  "roofline/analysis.py", "roofline/cost.py", "configs/paper_tinyml.py",
                  "examples/train_tinyml.py", "examples/viterbi_decode.py", "kernels/tuning.py",
                  "core/perfmodel.py", "analysis/__init__.py", "analysis/__main__.py",
                  "analysis/cli.py", "analysis/contracts.py", "analysis/rules.py",
-                 "analysis/tiles.py"):
+                 "analysis/tiles.py", "distrib/__init__.py", "distrib/collectives.py",
+                 "distrib/compat.py", "distrib/fault.py", "distrib/sharding.py",
+                 "launch/mesh.py", "launch/dryrun.py", "core/redmule.py"):
         assert PORT / name in _port_files(), name
 
 
@@ -201,8 +205,9 @@ def test_encdec_and_vlm_refuse_continuous_batching_as_the_reference_does(change)
 
 
 def test_moe_expert_parallel_impl_raises():
-    """The MoE family builds with the dense implementation; expert
-    parallelism (``moe_impl="ep"``) needs a mesh and raises."""
+    """The MoE family builds with the dense implementation and with expert
+    parallelism (``moe_impl="ep"``: the dense layer without a mesh, as in
+    the reference); an implementation neither package has raises."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -210,5 +215,6 @@ def test_moe_expert_parallel_impl_raises():
 
     cfg = get_config("granite-moe-1b-a400m", smoke=True)
     assert build(cfg, device="cpu").moe_cfg.impl == "dense"
-    with pytest.raises(NotImplementedError, match="distrib"):
-        build(dataclasses.replace(cfg, moe_impl="ep"), device="cpu")
+    assert build(dataclasses.replace(cfg, moe_impl="ep"), device="cpu").moe_cfg.impl == "ep"
+    with pytest.raises(ValueError, match="unknown MoE impl"):
+        build(dataclasses.replace(cfg, moe_impl="alltoall"), device="cpu")

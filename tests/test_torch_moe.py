@@ -6,7 +6,9 @@ copied across with ``convert.py``; inputs are made with numpy from a seed.
 ``apply_dense`` is held to 1e-5 of max|y| under fp32 (the router's fp32
 GEMM and the expert GEMMs sum in another order in torch than in XLA), and
 bit for bit under redmule_hfp8 with E4M3 weights, where every product is
-exact and the sums round once. The router picks its experts by
+exact and the sums round once. ``impl="ep"`` is held here without a mesh
+and on a mesh of one; ``tests/test_torch_moe_ep.py`` holds it on several
+ranks. The router picks its experts by
 ``torch.topk`` against ``jax.lax.top_k``: a near-tie between two experts'
 probabilities could pick another expert, so the seeds are fixed up front
 (0-3, not chosen after the fact) and fp32 keeps such ties far apart; no
@@ -87,10 +89,36 @@ def test_dense_routes_topk_only():
 
 
 def test_ep_raises():
+    """``impl="ep"`` computes what the reference computes instead of raising:
+    without a mesh the dense layer (the reference's ``apply`` falls back to
+    ``apply_dense``), bit for bit with the port's own and within the dense
+    bound of the reference's; on a mesh of one the reference's EP body
+    (``apply_ep`` on a 1 x 1 mesh, jitted), within 3e-7 of max|y| under
+    fp32. What still raises is an impl neither package has."""
+    from repro.launch.mesh import make_mesh as jmake_mesh
+    from repro_torch.launch.mesh import make_mesh
+
     params, x, tparams = _layer(0, "fp32")
-    cfg = moe.MoEConfig(*CFG)._replace(impl="ep")
-    with pytest.raises(NotImplementedError, match="distrib"):
-        moe.apply(tparams, torch.from_numpy(x), cfg, Engine(policy="fp32", backend="torch"))
+    jcfg = CFG._replace(impl="ep")
+    cfg = moe.MoEConfig(*jcfg)
+    eng, jeng = Engine(policy="fp32", backend="torch"), JEngine(policy="fp32", backend="xla")
+    xt = torch.from_numpy(x)
+    got, aux = moe.apply(tparams, xt, cfg, eng)
+    dense, daux = moe.apply_dense(tparams, xt, cfg, eng)
+    assert torch.equal(got, dense) and torch.equal(aux, daux)
+    want, waux = jmoe.apply(params, jnp.asarray(x), jcfg, jeng)
+    want = np.asarray(want, np.float32)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    got, aux = moe.apply(tparams, xt, cfg, eng, mesh=mesh, ep_axis="model")
+    jmesh = jmake_mesh((1, 1), ("data", "model"))
+    want, waux = jax.jit(lambda p, xx: jmoe.apply(p, xx, jcfg, jeng, mesh=jmesh, dp_axes=("data",),
+                                                  ep_axis="model"))(params, jnp.asarray(x))
+    want = np.asarray(want, np.float32)
+    assert np.abs(got.numpy() - want).max() <= 3e-7 * np.abs(want).max()
+    np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown MoE impl"):
+        moe.apply(tparams, xt, cfg._replace(impl="alltoall"), eng)
 
 
 def _models(policy, kv, fp8_params):
@@ -175,19 +203,68 @@ def test_smoke_model_prefill_and_decode_match_reference(case):
         assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= tol
 
 
-def test_moe_training_and_train_launcher_raise():
-    """MoE training runs with the dense implementation; expert parallelism
-    raises in the model and through the train launcher's ``--moe-impl``."""
+def test_moe_training_and_train_launcher_raise(monkeypatch):
+    """MoE training runs with either implementation. ``moe_impl="ep"``
+    builds (no mesh: the dense layer), and the train launcher's
+    ``--moe-impl ep`` trains on a mesh of one with ``apply_ep`` (every layer
+    of every step) and, under fp32, the same losses as a train step on the
+    model built on that mesh; that step, from the reference's parameters
+    on its batches, gives the reference's losses (its jitted step on its
+    model built on a 1 x 1 mesh, as its launcher builds it) within 1e-5
+    relative; an impl the port does not have raises at build."""
+    from repro.data.pipeline import for_model as jfor_model
+    from repro.launch.mesh import make_mesh as jmake_mesh
+    from repro.models.transformer import MeshCtx as JMeshCtx
+    from repro.optim import AdamW as JAdamW
+    from repro.training import TrainState as JTrainState
+    from repro.training import make_train_step as jmake_train_step
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import MeshCtx
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.training import TrainState, make_train_step
 
-    cfg = dataclasses.replace(tget_config("granite-moe-1b-a400m", smoke=True), moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="distrib"):
-        tbuild(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="distrib"):
-        train.main(["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu",
-                    "--steps", "1", "--seq", "8", "--batch", "2", "--moe-impl", "ep"])
-    out = train.main(["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu",
-                      "--steps", "2", "--seq", "8", "--batch", "2", "--moe-impl", "dense"])
+    cfg = dataclasses.replace(tget_config("granite-moe-1b-a400m", smoke=True), moe_impl="ep",
+                              policy="fp32")
+    assert tbuild(cfg, device="cpu").moe_cfg.impl == "ep"
+    with pytest.raises(ValueError, match="unknown MoE impl"):
+        tbuild(dataclasses.replace(cfg, moe_impl="alltoall"), device="cpu")
+    calls = []
+    real = moe.apply_ep
+    monkeypatch.setattr(moe, "apply_ep", lambda *a, **k: calls.append(1) or real(*a, **k))
+    args = ["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--steps", "2",
+            "--seq", "8", "--batch", "2", "--policy", "fp32", "--lr", "1e-3"]
+    out = train.main([*args, "--moe-impl", "ep"])
+    assert len(calls) == 2 * cfg.n_layers
+    mesh_ctx = MeshCtx(mesh=make_mesh((1, 1), ("data", "model")), dp_axes=("data",),
+                       ep_axis="model")
+    model = tbuild(cfg, mesh_ctx, device="cpu")
+    opt = AdamW(lr=cosine_schedule(1e-3, 20, 2))
+    params = model.init(0)
+    state, step = TrainState(0, params, opt.init(params), 0), make_train_step(model, opt)
+    from repro_torch.data import for_model
+
+    data = for_model(cfg, 8, 2, seed=0)
+    for i, h in enumerate(out["history"]):
+        state, m = step(state, data.batch(i))
+        assert float(m["loss"]) == h["loss"]
+    jcfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True), moe_impl="ep",
+                               policy="fp32")
+    jmodel = build(jcfg, JMeshCtx(mesh=jmake_mesh((1, 1), ("data", "model")),
+                                  dp_axes=("data",), ep_axis="model"))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jopt, opt = JAdamW(lr=1e-3), AdamW(lr=1e-3)
+    jstate = JTrainState(jnp.zeros((), jnp.int32), jparams, jopt.init(jparams),
+                         jnp.zeros((), jnp.int32))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    state, step = TrainState(0, params, opt.init(params), 0), make_train_step(model, opt)
+    jstep = jax.jit(jmake_train_step(jmodel, jopt))
+    jdata = jfor_model(jcfg, seq_len=8, global_batch=2)
+    for i in range(2):
+        jstate, jm = jstep(jstate, jdata.batch(i))
+        state, m = step(state, jdata.batch(i))
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-5 * abs(float(jm["loss"]))
+    out = train.main([*args, "--moe-impl", "dense"])
     assert len(out["history"]) == 2 and all(np.isfinite(h["loss"]) for h in out["history"])
 
 
