@@ -212,9 +212,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
     processes on the one card over gloo: granite-moe at 2 layers with its
     experts over a (1, 2) mesh, the kernels' path against the plain path
     (logits with E4M3 weights within 5e-2, a train step's loss within
-    1e-4 and grad norm 5e-3); (c) the train launcher with ``--mesh 2,1``
+    1e-4 and grad norm 5e-3; tensor parallelism runs on its attention
+    too, with the same bounds); (c) the train launcher with ``--mesh 2,1``
     (data parallelism, ZeRO-1 moments), 2 steps: both ranks' losses and
     parameters equal bit for bit; the expert GEMMs in the kernel line (11);
+22. tensor parallelism and FSDP, after phase 21: two processes on the
+    one card over gloo, gemma2-2b at full width cut to 2 layers,
+    redmule_hfp8, remat "block", 2 x 1024 tokens: (a) TP over a (1, 2)
+    mesh: 3 steps against 3 one-process steps from the same parameters
+    and batch: the first step's loss and grad norm (1e-4 and 5e-3
+    relative), the later losses (1e-5), the gathered parameters after the
+    third step (their difference's norm over the one-process update's:
+    0.02 over all leaves, 0.05 for the worst leaf), both ranks'
+    replicated leaves bit for bit; the GEMM launches by shape (q, k/v, o
+    and down with fp32 partials, up/gate, the xent chunks' vocab half),
+    the collectives' calls and bytes a step, ms a step, peak memory a
+    rank; (b) FSDP over (2, 1) (``tp_axis=None``) against the same
+    one-process steps (later losses 2e-4, parameters 0.3 and 0.75:
+    ``TP_LATER_BOUND`` says why); the TP GEMM shapes in the kernel line
+    (11);
 9. train parity: granite-3-8b at full width with 2 layers, one step's loss
    and gradients at the train run's batch (2 x 1024) on the kernels' path
    against the plain path on the card, under fp32 and redmule_hfp8 (bound
@@ -2018,8 +2034,9 @@ def _recording_routers(calls: list, backend: str | None = None):
 
     router = moe._router
 
-    def recording(params, x2, cfg, engine, aux=True):
-        out = router(params, x2, cfg, engine.with_backend(backend) if backend else engine, aux)
+    def recording(params, x2, cfg, engine, aux=True, dp=None):
+        out = router(params, x2, cfg, engine.with_backend(backend) if backend else engine, aux,
+                     dp)
         calls.append((out[0].float().clone(), out[1].clone()))
         return out
 
@@ -5425,7 +5442,8 @@ def _ep_ranks() -> dict:
             f"on the plain path {res['forward_plain_router']:.3g} (bound 0), tokens "
             f"{flips['plain router']}; train "
             f"step loss {lc:.6f} vs plain {lt:.6f} (rel {d_loss:.3g}, bound 1e-4), grad norm "
-            f"{gc_:.5f} vs {gt:.5f} (rel {d_gnorm:.3g}, bound 5e-3)")
+            f"{gc_:.5f} vs {gt:.5f} (rel {d_gnorm:.3g}, bound 5e-3); tensor parallelism over "
+            f"the same axis on every other layer, the bounds kept")
         bound = EP_RANKS_LOGITS_BOUND if any(flips["cuda"]) else tight
         if not (res["forward"] <= bound and d_loss <= 1e-4 and d_gnorm <= 5e-3
                 and res["forward_plain_router"] == 0
@@ -5495,11 +5513,261 @@ def _ep_entries(counts) -> list:
     return rows
 
 
+# -- phase 22 --------------------------------------------------------------------
+
+TP_ARCH, TP_LAYERS = "gemma2-2b", 2
+# Each rank's first step against the one-process step of the same
+# parameters and batch, both on the kernels, relative: the loss within
+# 1e-4 and the grad norm within 5e-3 (phase 21(b)'s train-step bounds).
+# The arithmetic differs only in the order of fp32 sums: a row-parallel
+# GEMM's two fp32 partials are summed after the kernel's own sums, a
+# column-parallel dX likewise, and the vocab-parallel logsumexp sums its
+# two halves; an ulp moved by that can flip one E4M3 or E5M2 rounding of
+# the next GEMM's operands.
+TP_BOUND = (1e-4, 5e-3)
+# Steps 2 and 3 against the one-process steps from the same parameters,
+# by mode: the losses relative, and the parameters after the third step
+# as the norm of their difference over the norm of the one-process update
+# (all leaves, and the worst leaf). The updates carry the step's own
+# arithmetic (the sliced AdamW, FSDP's per-use gradient sums). TP read 0
+# for all three (its fp32 sums of E4M3 x E4M3 products are exact in
+# either order); the bounds leave room for one rounding flip. FSDP read
+# 5.2e-5, 0.201 and 0.507: each rank's dW partial over its rows is
+# rounded to fp16 before the fp32 sum over the data axes, and AdamW's
+# early steps move an element by about lr whatever its gradient's size,
+# so an element whose tiny gradient changes sign moves by up to 2 lr. A
+# wrong slice or sum moves whole leaves by their update (1 and above).
+TP_LATER_BOUND = {"tp": (1e-5, 0.02, 0.05), "fsdp": (2e-4, 0.3, 0.75)}
+
+
+def _tp_rank(rank: int, world: int, store: str, queue) -> None:
+    """One of phase 22's two processes on the one card, over gloo."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.data import for_model
+        from repro_torch.distrib import collectives as coll
+        from repro_torch.distrib import sharding as shd
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import MeshCtx, build
+        from repro_torch.optim import AdamW
+        from repro_torch.training import init_train_state, make_train_step, state_specs
+
+        cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS,
+                                  policy="redmule_hfp8", remat="block")
+        batch = {"tokens": torch.from_numpy(for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch(
+            0)["tokens"]).cuda().long()}
+        opt = AdamW(lr=1e-4)
+        result = {"rank": rank}
+        # The one-process steps of the whole parameters (no mesh).
+        one = build(cfg, device="cuda")
+        init = one.init(0)
+        first = [t.detach().clone() for t in leaves(init)]
+        state = init_train_state(one, opt, init)
+        step = make_train_step(one, opt)
+        torch.cuda.reset_peak_memory_stats()
+        ref = {"losses": [], "gnorms": []}
+        for _ in range(3):
+            state, m = step(state, batch)
+            ref["losses"].append(float(m["loss"]))
+            ref["gnorms"].append(float(m["grad_norm"]))
+        result["one"], result["one_peak"] = ref, torch.cuda.max_memory_allocated()
+        one_params = [t.detach() for t in leaves(state.params)]
+        updates = [float((a.float() - b.float()).norm()) for a, b in zip(one_params, first)]
+        del one, init, first, state, step, m
+        torch.cuda.empty_cache()
+        for mode, shape in (("tp", (1, world)), ("fsdp", (world, 1))):
+            mesh = make_mesh(shape, ("data", "model"))
+            ctx = (MeshCtx(mesh=mesh, dp_axes=("data",), ep_axis="model") if mode == "tp" else
+                   MeshCtx(mesh=mesh, dp_axes=("data", "model"), ep_axis=None, tp_axis=None))
+            model = build(cfg, ctx, device="cuda")
+            state = init_train_state(model, opt, shd.local_params(model.init(0), cfg, ctx),
+                                     mesh_ctx=ctx)
+            step = make_train_step(model, opt, mesh_ctx=ctx)
+            n, i = mesh.axis_size(ctx.dp_axes), mesh.axis_index(ctx.dp_axes)
+            rows = {k: v[i * TRAIN_BATCH // n:(i + 1) * TRAIN_BATCH // n]
+                    for k, v in batch.items()}
+            calls = collections.Counter()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = {"losses": [], "gnorms": [], "ms": []}
+            for k in range(3):
+                coll.reset_traffic()
+                t0 = time.perf_counter()
+                with _recording_plans(calls if k == 0 else collections.Counter()):
+                    state, m = step(state, rows)
+                    out["losses"].append(float(m["loss"]))  # waits for the card
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["gnorms"].append(float(m["grad_norm"]))
+            out["traffic"] = {t: (coll.traffic_calls[t], coll.traffic[t]) for t in coll.traffic}
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["calls"] = dict(calls)
+            out["skipped"] = state.skipped
+            # The gathered parameters against the one-process ones; the
+            # digest of the leaves every TP rank holds whole (replicated).
+            specs = shd.spec_leaves(state_specs(state, cfg, ctx).params)
+            digest, err2, upd2, worst = hashlib.sha256(), 0.0, 0.0, (0.0, "")
+            for (path, t), sp, want, upd in zip(shd.leaf_paths(state.params), specs, one_params,
+                                                updates):
+                whole = shd.gather_full(t, sp, mesh) if sp is not None else t
+                err = float((whole.float() - want.float()).norm())
+                err2, upd2 = err2 + err * err, upd2 + upd * upd
+                worst = max(worst, (err / upd if upd else (0.0 if err == 0 else math.inf), path))
+                if mode == "tp" and (sp is None or all(p is None for p in sp)):
+                    digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                                  .tobytes())
+            out["param_err"], out["param_worst"] = math.sqrt(err2 / upd2), worst
+            out["digest"] = digest.hexdigest()
+            out["local_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state.params))
+            result[mode] = out
+            del model, state, step
+            torch.cuda.empty_cache()
+        queue.put(result)
+        dist.destroy_process_group()
+    except BaseException:  # carried to the parent, which fails the phase
+        import traceback
+
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def _tp_shapes(cfg) -> dict:
+    """Phase 22(a)'s GEMMs a rank runs at tp 2, (M, K, N) by name."""
+    m, d, hd = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.head_dim
+    q, kv, f = cfg.n_heads * hd // 2, cfg.n_kv_heads * hd // 2, cfg.d_ff // 2
+    return {"q": (m, d, q), "k/v": (m, d, kv), "o (fp32 out)": (m, q, d),
+            "up/gate": (m, d, f), "down (fp32 out)": (m, f, d),
+            "xent chunk": (TRAIN_BATCH * 512, d, cfg.vocab_size // 2)}
+
+
+def phase_tp() -> dict:
+    """Phase 22: two processes on the one card (``_tp_rank``); a rank that
+    fails, or outlasts 300 s, fails the phase."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+
+    # The earlier phases' cached blocks go back to the card: each rank's
+    # step needs ~20 GB of it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tp ranks: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card "
+        f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) as they start")
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke_tp_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, args=(r, 2, str(store), queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            r = queue.get(timeout=300)
+            results[r["rank"]] = r
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = [r["error"] for r in results.values() if "error" in r]
+    if errors or len(results) != 2:
+        raise AssertionError("phase 22 ranks failed:\n" + "\n".join(errors))
+    cfg = get_config(TP_ARCH)
+    shapes = _tp_shapes(cfg)
+    for mode in ("tp", "fsdp"):
+        for r in (0, 1):
+            res, out = results[r], results[r][mode]
+            lo, go = res["one"]["losses"][0], res["one"]["gnorms"][0]
+            d_loss, d_gnorm = abs(out["losses"][0] - lo) / abs(lo), abs(out["gnorms"][0] - go) / go
+            d_later = max(abs(a - b) / abs(b) for a, b in zip(out["losses"][1:],
+                                                              res["one"]["losses"][1:]))
+            b_later, b_err, b_worst = TP_LATER_BOUND[mode]
+            traffic = ", ".join(f"{t} {c} calls {b / 1e6:.1f} MB"
+                                for t, (c, b) in sorted(out["traffic"].items()))
+            log(f"tp ranks (22{'a' if mode == 'tp' else 'b'}) {mode} rank {r}: {TP_ARCH} "
+                f"{TP_LAYERS} layers, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, mesh "
+                f"{'(1, 2)' if mode == 'tp' else '(2, 1)'}: step 1 loss {out['losses'][0]:.6f} "
+                f"vs one process {lo:.6f} (rel {d_loss:.3g}, bound {TP_BOUND[0]:g}), grad norm "
+                f"{out['gnorms'][0]:.5f} vs {go:.5f} (rel {d_gnorm:.3g}, bound {TP_BOUND[1]:g});"
+                f" losses {[round(v, 5) for v in out['losses']]} vs one process "
+                f"{[round(v, 5) for v in res['one']['losses']]} (steps 2-3 rel {d_later:.3g}, "
+                f"bound {b_later:g}); parameters after 3 steps off the one-process ones by "
+                f"{out['param_err']:.4g} of its update's norm, worst leaf "
+                f"{out['param_worst'][0]:.4g} ({out['param_worst'][1]}; bounds {b_err:g}, "
+                f"{b_worst:g}); ms a step (gloo through the "
+                f"host) {[round(v, 1) for v in out['ms']]}, peak memory "
+                f"{out['peak_bytes'] / 1e9:.2f} GB (one process "
+                f"{res['one_peak'] / 1e9:.2f} GB), parameters held "
+                f"{out['local_bytes'] / 1e9:.3f} GB; the last step's collectives: {traffic}")
+            if not (d_loss <= TP_BOUND[0] and d_gnorm <= TP_BOUND[1] and not out["skipped"]
+                    and d_later <= b_later and out["param_err"] <= b_err
+                    and out["param_worst"][0] <= b_worst
+                    and all(np.isfinite(out["losses"]))):
+                raise AssertionError(f"tp ranks {mode} rank {r}: outside the bounds")
+        if mode == "tp" and results[0][mode]["digest"] != results[1][mode]["digest"]:
+            raise AssertionError(f"tp ranks {mode}: the two ranks' replicated leaves differ")
+        if results[0][mode]["losses"] != results[1][mode]["losses"]:
+            raise AssertionError(f"tp ranks {mode}: the two ranks' losses differ")
+    calls = collections.Counter(results[0]["tp"]["calls"])
+    by_shape = collections.Counter()
+    for key, v in calls.items():
+        by_shape[key[:3]] += v
+    log("tp ranks (22a) GEMM launches a step by shape: " + ", ".join(
+        f"{name} {s[0]}x{s[1]}x{s[2]} {by_shape[s]}" for name, s in shapes.items()))
+    for name, s in shapes.items():
+        if by_shape[s] <= 0:
+            raise AssertionError(f"tp ranks: no GEMM launch at {name} {s}")
+    return {"tp_calls": calls}
+
+
+def _tp_entries(counts) -> list:
+    """Phase 22(a)'s GEMMs at tp 2, launches read from rank 0's first step
+    by (M, K, N): the column-parallel ones (fp16 out), the row-parallel
+    ones with their fp32 partials, and the tied table's vocab half of a
+    cross-entropy chunk (the (V/2, d) piece read through its transpose).
+    The backward's dX of q and of up/gate (E5M2 x E4M3^T, fp32 partials)
+    share o's and down's (M, K, N), so their launches are counted there."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import E4M3, FP16, FP32, cast
+
+    cfg = get_config(TP_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    calls = counts["tp_calls"]
+
+    def q(fmt, *shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device="cuda") * scale, FP16), fmt)
+
+    def n_calls(s):
+        return sum(v for key, v in calls.items() if key[:3] == s)
+
+    rows = []
+    for name, (m, k, n) in _tp_shapes(cfg).items():
+        out = FP32 if "fp32" in name else FP16
+        if name == "xent chunk":  # h @ table.T over the rank's rows of the table
+            x, w = q(E4M3, m, k), q(E4M3, n, k, scale=0.02).T
+        else:
+            x, w = q(E4M3, m, k), q(E4M3, k, n, scale=k ** -0.5)
+        rows.append(_gemm_row(f"{TP_ARCH} tp2 {name} {m}x{k}x{n}", x, w, out, n_calls((m, k, n)),
+                              model=TP_ARCH))
+    return rows
+
+
 def phase_kernel_line(counts, paper_rows=()) -> list:
     entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
                _flash_entry(counts), *_family_entries(counts), *_recurrent_entries(counts),
                *_spec_state_entries(counts), *_encdec_entries(counts), *_ep_entries(counts),
-               *paper_rows]
+               *_tp_entries(counts), *paper_rows]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} was not launched on its main path")
@@ -5543,6 +5811,7 @@ def main() -> int:
     with torch.inference_mode():
         paper_rows = _timed("phase 19(b)", phase_paper_gemms)
     counts |= _timed("phase 21", phase_ep)
+    counts |= _timed("phase 22", phase_tp)
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
                "train_copies": train["copies"]}
     with torch.inference_mode():

@@ -24,10 +24,20 @@ The autograd functions carry the expert-parallel MoE layer's reductions
 regions: :func:`sum_over` sums the experts' partial outputs over the
 axis in their format, its backward the identity; :func:`copy_to` enters
 the region, the identity forward and a sum of the gradients over the
-axis backward; :func:`mean_over` averages a value every rank holds, the
-gradient divided by the axis's size backward.
+axis backward (in fp32 for tensor parallelism); :func:`mean_over` averages a value every rank holds, the
+gradient divided by the axis's size backward. ``distrib/tensor_parallel.py``
+builds the tensor-parallel layers and FSDP's per-use gathers on them.
+
+Every collective that moves data (an axis of more than one rank, ``meta``
+tensors included) adds the bytes this rank puts on the wire to
+:data:`traffic` under its ``tag``, on the ring model the dry run uses
+(``launch/dryrun.py::_ring``): an all-reduce of P bytes over n ranks
+2 (n - 1) / n P, an all-gather of pieces of P bytes (n - 1) P.
+:func:`reset_traffic` clears it.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 import torch.distributed as dist
@@ -42,28 +52,50 @@ E5M2_MAX = 57344.0  # E5M2's largest finite value
 _INV_LN2 = float(torch.tensor(1.0) / _log_values(torch.tensor(2.0)))
 
 
+# tag -> wire bytes this process has sent (the ring model), and calls.
+traffic: Counter = Counter()
+traffic_calls: Counter = Counter()
+
+
+def reset_traffic() -> None:
+    traffic.clear()
+    traffic_calls.clear()
+
+
+def _count(tag: str, payload: int, n: int, kind: str) -> None:
+    if n > 1:
+        traffic[tag] += (2.0 * (n - 1) / n if kind == "all_reduce" else float(n - 1)) * payload
+        traffic_calls[tag] += 1
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor as flat bytes (the collectives' carrier for the
     fp8 formats, which gloo does not take)."""
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
-def all_reduce(t: torch.Tensor, mesh, axis, *, op: str = "sum") -> torch.Tensor:
-    """The sum (or, ``op="mean"``, the mean) of ``t`` over the axis, in
-    ``t``'s format, as a new tensor."""
+def all_reduce(t: torch.Tensor, mesh, axis, *, op: str = "sum",
+               tag: str = "all_reduce") -> torch.Tensor:
+    """The sum (``op="mean"``: the mean; ``op="max"``: the largest value)
+    of ``t`` over the axis, in ``t``'s format, as a new tensor."""
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"unknown reduction {op!r}")
     n = mesh.axis_size(axis) if mesh is not None else 1
     out = t.contiguous().clone()
+    _count(tag, out.numel() * out.element_size(), n, "all_reduce")
     if n > 1 and not t.is_meta:
-        dist.all_reduce(out, group=mesh.group(axis))
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=mesh.group(axis))
     return out / n if op == "mean" else out
 
 
-def all_gather(t: torch.Tensor, mesh, axis) -> list[torch.Tensor]:
+def all_gather(t: torch.Tensor, mesh, axis, *, tag: str = "all_gather") -> list[torch.Tensor]:
     """Every rank's ``t`` along the axis, in axis order, bit for bit (fp8
     included): the pieces must share shape and format."""
     n = mesh.axis_size(axis) if mesh is not None else 1
     if n == 1:
         return [t]
+    _count(tag, t.numel() * t.element_size(), n, "all_gather")
     if t.is_meta:
         return [torch.empty_like(t) for _ in range(n)]
     flat = _bytes(t)
@@ -75,7 +107,7 @@ def all_gather(t: torch.Tensor, mesh, axis) -> list[torch.Tensor]:
 def gather_into(out: torch.Tensor, piece: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
     """Fill ``out`` with every rank's ``piece`` along ``dim``, in axis order
     (the ZeRO-1 parameter gather); ``out`` keeps its own strides."""
-    pieces = all_gather(piece, mesh, axis)
+    pieces = all_gather(piece, mesh, axis, tag="zero1_param_all_gather")
     c = piece.shape[dim]
     for i, p in enumerate(pieces):
         out.narrow(dim, i * c, c).copy_(p)
@@ -116,8 +148,8 @@ def compressed_psum(x: torch.Tensor, mesh, axis, err: torch.Tensor):
     if n == 1:
         total = deq
     else:
-        qs = all_gather(q, mesh, axis)
-        scales = all_gather(scale.reshape(1), mesh, axis)
+        qs = all_gather(q, mesh, axis, tag="compressed_psum")
+        scales = all_gather(scale.reshape(1), mesh, axis, tag="compressed_psum")
         total = qs[0].float() / scales[0]
         for qr, sr in zip(qs[1:], scales[1:]):
             total = total + qr.float() / sr
@@ -139,30 +171,31 @@ def init_error_tree(params):
 
 class _SumOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return all_reduce(x, mesh, axis)
+    def forward(ctx, x, mesh, axis, tag):
+        return all_reduce(x, mesh, axis, tag=tag)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+    def forward(ctx, x, mesh, axis, fp32, tag):
+        ctx.mesh, ctx.axis, ctx.fp32, ctx.tag = mesh, axis, fp32, tag
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+        total = all_reduce(g.float() if ctx.fp32 else g, ctx.mesh, ctx.axis, tag=ctx.tag)
+        return total.to(g.dtype), None, None, None, None
 
 
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         ctx.n = mesh.axis_size(axis)
-        return all_reduce(x, mesh, axis, op="mean")
+        return all_reduce(x, mesh, axis, op="mean", tag="scalars")
 
     @staticmethod
     def backward(ctx, g):
@@ -173,14 +206,16 @@ def _trivial(mesh, axis) -> bool:
     return mesh is None or mesh.axis_size(axis) == 1
 
 
-def sum_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+def sum_over(x: torch.Tensor, mesh, axis, *, tag: str = "ep_sum") -> torch.Tensor:
     """psum: the sum over the axis in x's format; the identity backward."""
-    return x if _trivial(mesh, axis) else _SumOver.apply(x, mesh, axis)
+    return x if _trivial(mesh, axis) else _SumOver.apply(x, mesh, axis, tag)
 
 
-def copy_to(x: torch.Tensor, mesh, axis) -> torch.Tensor:
-    """The identity; backward, the gradients' sum over the axis."""
-    return x if _trivial(mesh, axis) else _CopyTo.apply(x, mesh, axis)
+def copy_to(x: torch.Tensor, mesh, axis, *, fp32: bool = False,
+            tag: str = "ep_grad_all_reduce") -> torch.Tensor:
+    """The identity; backward, the gradients' sum over the axis (in fp32,
+    then cast back, with ``fp32``: tensor parallelism's rule)."""
+    return x if _trivial(mesh, axis) else _CopyTo.apply(x, mesh, axis, fp32, tag)
 
 
 def mean_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:

@@ -25,9 +25,12 @@ the port keeps no stacked layer axis) and layouts:
 A K-major fp8 weight is the (K, N) view of an (N, K) tensor: its spec is
 on the logical (K, N) shape, as every other weight's.
 
-The port executes data parallelism, ZeRO-1 and expert parallelism
-(:func:`executed_param_specs`); tensor parallelism and FSDP are specified
-here and sized by the dry run, and their execution is still to come.
+The port executes every spec here (:func:`executed_param_specs`): data
+parallelism with ZeRO-1 moments, tensor parallelism over the mesh's
+'model' axis with the experts over it too (``param_specs``), FSDP (every
+leaf over the whole mesh, ``fsdp_param_specs``) and ZeRO-3 (the TP specs
+extended over the data axes, ``zero1_specs`` on the parameters). The
+layers that run on the pieces are in ``distrib/tensor_parallel.py``.
 """
 from __future__ import annotations
 
@@ -115,20 +118,43 @@ def param_specs(params: Any, cfg, tp: int) -> Any:
 
 
 def executed_param_specs(params: Any, cfg, mesh_ctx) -> Any:
-    """The specs the port executes on ``mesh_ctx``: the MoE experts over
-    its EP axis (``param_specs``' expert entries, where the experts divide
-    over it), every other leaf replicated (tensor parallelism is specified
-    by :func:`param_specs` but not executed yet)."""
-    ep = mesh_ctx.ep_axis if mesh_ctx is not None and mesh_ctx.mesh is not None else None
-    tp = mesh_ctx.mesh.axis_size(ep) if ep is not None else 1
-    specs = param_specs(params, cfg, tp)
+    """The specs the port executes on ``mesh_ctx`` (the reference's
+    programs): with no mesh every leaf replicated; with ``tp_axis`` None
+    (FSDP) :func:`fsdp_param_specs` over the data axes, the whole mesh;
+    else :func:`param_specs` at the TP size with 'model' named
+    ``tp_axis``, extended over the data axes for ZeRO-3
+    (``mesh_ctx.zero3``)."""
+    if mesh_ctx is None or mesh_ctx.mesh is None:
+        return map_with_path(lambda _, leaf: (None,) * len(leaf.shape), params)
+    mesh, dp = mesh_ctx.mesh, tuple(mesh_ctx.dp_axes or ())
+    if mesh_ctx.tp_axis is None:
+        specs = fsdp_param_specs(params, dp, mesh.axis_size(dp))
+        return _map_specs(lambda spec, _: _drop_ones(spec, mesh), specs, specs)
+    tp_axis = mesh_ctx.tp_axis
+    specs = param_specs(params, cfg, mesh.axis_size(tp_axis))
+    if tp_axis != "model":
+        specs = _map_specs(lambda spec, _: tuple(tp_axis if s == "model" else s for s in spec),
+                           specs, specs)
+    if getattr(mesh_ctx, "zero3", False) and mesh.axis_size(dp) > 1:
+        specs = zero1_specs(specs, params, dp, mesh.axis_size(dp))
+    return _map_specs(lambda spec, _: _drop_ones(spec, mesh), specs, specs)
 
-    def keep(path, spec):
-        if ep is not None and re.match(r".*moe/(up|gate|down)$", path):
-            return tuple(ep if s == "model" else s for s in spec)
-        return (None,) * len(spec)
 
-    return map_with_path(keep, specs)
+def _drop_ones(spec: Spec, mesh) -> Spec:
+    """``spec`` without the axes of one rank (a split over them is none)."""
+    def part(p):
+        names = tuple(a for a in _names(p) if mesh.shape[a] > 1)
+        return None if not names else names[0] if len(names) == 1 else names
+
+    return tuple(part(p) for p in spec)
+
+
+def over_axes(spec: Spec, axes) -> Spec:
+    """``spec`` with every entry that is not over ``axes`` replaced by None
+    (the data-axis part of an FSDP or ZeRO-3 spec, which a layer gathers
+    per use)."""
+    want = set(_names(axes))
+    return tuple(p if p is not None and set(_names(p)) <= want else None for p in spec)
 
 
 def batch_specs(batch_tree: Any, dp_axes) -> Any:
@@ -320,8 +346,10 @@ def _dense_strides(t: torch.Tensor, shape=None) -> tuple:
 
 
 def local_params(params: Any, cfg, mesh_ctx) -> Any:
-    """This rank's parameters cut from the full ones: its block of experts
-    under :func:`executed_param_specs`, every other leaf as it is."""
+    """This rank's parameters cut from the full ones under
+    :func:`executed_param_specs`: each split leaf's piece as a tensor of
+    its own (a K-major fp8 weight's piece K-major), every replicated leaf
+    as it is."""
     specs = executed_param_specs(params, cfg, mesh_ctx)
     flat = [t if all(s is None for s in spec) else _owned(shard_of(t, spec, mesh_ctx.mesh))
             for (_, t), spec in zip(leaf_paths(params), spec_leaves(specs))]
@@ -329,7 +357,8 @@ def local_params(params: Any, cfg, mesh_ctx) -> Any:
     return map_with_path(lambda _p, _t: next(it), params)
 
 
-def gather_full(piece: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def gather_full(piece: torch.Tensor, spec: Spec, mesh, *,
+                tag: str = "gather_full") -> torch.Tensor:
     """The full tensor of which every rank holds the piece ``spec`` gives it
     (a collective over the spec's axes: every rank of them calls it)."""
     from repro_torch.distrib import collectives
@@ -337,13 +366,14 @@ def gather_full(piece: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     axes = tuple(a for part in spec for a in _names(part))
     if not axes:
         return piece
+    axes = tuple(a for a in mesh.axis_names if a in axes)  # the mesh's order
     shape = list(piece.shape)
     for d, part in enumerate(_fit(spec, piece.dim())):
         for a in _names(part):
             shape[d] *= mesh.shape[a]
     out = torch.empty_strided(tuple(shape), _dense_strides(piece, shape), dtype=piece.dtype,
                               device=piece.device)
-    for r, p in zip(mesh.group_ranks(axes), collectives.all_gather(piece, mesh, axes)):
+    for r, p in zip(mesh.group_ranks(axes), collectives.all_gather(piece, mesh, axes, tag=tag)):
         view = out
         for d, (a, b) in enumerate(piece_slices(shape, spec, mesh, mesh.coords_of(r))):
             view = view.narrow(d, a, b - a)

@@ -1,0 +1,291 @@
+"""Tensor parallelism and FSDP of the port's train step: the explicit
+counterpart of what GSPMD inserts into the reference's train step from
+``param_specs`` and ``fsdp_param_specs`` (``distrib/sharding.py``).
+
+A rank holds its pieces of the weights (``sharding.local_params``) and
+runs the layers on them; everything else is replicated over the 'model'
+axis. The convention is Megatron's: a replicated activation carries its
+*whole* gradient on every rank, a piece carries the gradient of its
+piece. So a replicated leaf's gradient is the same on every TP rank and
+the train step sums it over the data axes alone.
+
+- :func:`column_linear`: a weight split by output columns on a replicated
+  input. Forward the local GEMM; backward each rank's dX is a partial sum
+  over its columns, made in fp32 by the GEMM-Op kernel, summed over the
+  axis in fp32 and then cast to the compute format.
+- :func:`row_linear`: a weight split by input rows on a split input.
+  Forward the local GEMM emits fp32 partials (``out_dtype=policy.acc``),
+  they are summed over the axis and cast to ``policy.out`` once, after
+  the sum (the reference's all-reduce sits on the dot's fp32 result,
+  ``jnp.matmul(..., preferred_element_type=acc)``, before its cast; a sum
+  of 16-bit partials would round every output twice). Backward local.
+- :func:`gather_from`: a split activation made whole (an all-gather);
+  backward this rank's slice of the whole gradient. :func:`split_to`, its
+  conjugate: this rank's slice of a replicated activation with no
+  communication; backward an all-gather of the gradient pieces, so the
+  replicated side gets its whole gradient. :func:`grad_sum`: the identity,
+  backward the fp32 sum over the axis (a replicated tensor whose ranks
+  each use a part of it, as GQA's replicated K/V heads).
+- :func:`vocab_embed` and :func:`vocab_xent`: the vocab-parallel
+  embedding and cross-entropy (Megatron's), over the table's rows and the
+  logits' columns; only (B, c) values cross the wire, never logits.
+- :func:`use_param`: FSDP's and ZeRO-3's per-use gather of a parameter
+  split over the data axes. Forward ``gather_full``; backward the fp32
+  sum of the gradient over those axes (gloo has no reduce-scatter: an
+  all-reduce, then this rank's piece).
+
+Each GEMM here is the hybrid-FP8 core of ``engine/autodiff.py`` (E4M3
+forward operands, E5M2 cotangents) on the GEMM-Op kernel, with the
+collective inside the autograd Function. Every collective carries its
+tag into ``collectives.traffic``, which ``launch/dryrun.py`` plans.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import semiring
+from repro_torch.core.precision import cast, take_rows
+from repro_torch.distrib import collectives, sharding
+from repro_torch.engine import autodiff
+from repro_torch.models import common
+
+NEG_ZERO = -0.0  # x + (-0.0) == x for every x, signed zeros included
+
+
+class TP(NamedTuple):
+    """The tensor-parallel axis of a mesh (of more than one rank)."""
+
+    mesh: Any
+    axis: str
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.axis_index(self.axis)
+
+
+def tp_of(mesh_ctx) -> TP | None:
+    """The TP axis of a ``MeshCtx``, or None (no mesh, FSDP mode, or an
+    axis of one rank)."""
+    if mesh_ctx is None or mesh_ctx.mesh is None or mesh_ctx.tp_axis is None:
+        return None
+    if mesh_ctx.mesh.axis_size(mesh_ctx.tp_axis) == 1:
+        return None
+    return TP(mesh_ctx.mesh, mesh_ctx.tp_axis)
+
+
+# -- the GEMMs ------------------------------------------------------------------------
+
+
+def _sum32(t: torch.Tensor, tp: TP, tag: str) -> torch.Tensor:
+    return collectives.all_reduce(t.float(), tp.mesh, tp.axis, tag=tag)
+
+
+class _ColumnCore(torch.autograd.Function):
+    """z = a @ b on a replicated a and b's column piece; backward the dX
+    partials in fp32, summed over the axis, then cast."""
+
+    @staticmethod
+    def forward(ctx, a, b, engine, tp):
+        pol = engine.policy
+        aq, bq = cast(a, pol.storage_fwd), cast(b, pol.storage_fwd)
+        ctx.engine, ctx.tp = engine, tp
+        ctx.save_for_backward(aq, bq)
+        return autodiff._kernel_gemm(aq, bq, None, semiring.MATMUL, ctx.engine)
+
+    @staticmethod
+    def backward(ctx, g):
+        aq, bq = ctx.saved_tensors
+        pol = ctx.engine.policy
+        need_a, need_b = ctx.needs_input_grad[:2]
+        _, db = autodiff._mp_backward(ctx.engine, (False, need_b), aq, bq, g)
+        da = None
+        if need_a:
+            gq = cast(cast(g, pol.compute), pol.storage_bwd)
+            part = autodiff._kernel_gemm(gq, autodiff._swap_last(bq), None, semiring.MATMUL,
+                                         ctx.engine, out_dtype=pol.acc)
+            part = autodiff._sum_to_shape(part, aq.shape)
+            da = _sum32(part, ctx.tp, "tp_grad_all_reduce").to(pol.compute)
+        return da, db, None, None
+
+
+class _RowCore(torch.autograd.Function):
+    """z = sum over the axis of a_r @ b_r (a's column piece, b's row
+    piece): fp32 partials summed, then one cast to ``policy.out``."""
+
+    @staticmethod
+    def forward(ctx, a, b, engine, tp):
+        pol = engine.policy
+        aq, bq = cast(a, pol.storage_fwd), cast(b, pol.storage_fwd)
+        ctx.engine = engine
+        ctx.save_for_backward(aq, bq)
+        part = autodiff._kernel_gemm(aq, bq, None, semiring.MATMUL, engine, out_dtype=pol.acc)
+        return cast(_sum32(part, tp, "tp_row_all_reduce"), pol.out)
+
+    @staticmethod
+    def backward(ctx, g):
+        aq, bq = ctx.saved_tensors
+        da, db = autodiff._mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g)
+        return da, db, None, None
+
+
+def column_linear(x: torch.Tensor, p: dict, engine, tp: TP) -> torch.Tensor:
+    """x (..., K) replicated @ this rank's columns of ``p["w"]`` (+ its
+    bias piece): (..., N / tp) in ``policy.out``."""
+    pol = engine.policy
+    y = _ColumnCore.apply(autodiff._to_compute(x, pol), autodiff._to_compute(p["w"], pol),
+                          engine, tp)
+    return y if p.get("b") is None else y + p["b"].to(y.dtype)
+
+
+def row_linear(x: torch.Tensor, p: dict, engine, tp: TP) -> torch.Tensor:
+    """x (..., K / tp), this rank's columns, @ this rank's rows of
+    ``p["w"]``, summed over the axis in fp32 and cast once; the bias (whole
+    on every rank) added once, after the sum."""
+    pol = engine.policy
+    y = _RowCore.apply(autodiff._to_compute(x, pol), autodiff._to_compute(p["w"], pol),
+                       engine, tp)
+    return y if p.get("b") is None else y + p["b"].to(y.dtype)
+
+
+def linear(x: torch.Tensor, p: dict, engine, tp: TP | None, full_out: int) -> torch.Tensor:
+    """``dense_apply`` of a weight whose (K, N) may be split by columns:
+    :func:`column_linear` where its piece is narrower than ``full_out``,
+    the plain GEMM where it is whole."""
+    if tp is None or p["w"].shape[-1] == full_out:
+        return common.dense_apply(p, x, engine)
+    return column_linear(x, p, engine, tp)
+
+
+def out_linear(x: torch.Tensor, p: dict, engine, tp: TP | None, full_in: int) -> torch.Tensor:
+    """``dense_apply`` of a weight whose rows may be split: ``x`` is then
+    this rank's columns (:func:`row_linear`), else whole (the plain GEMM)."""
+    if tp is None or p["w"].shape[0] == full_in:
+        return common.dense_apply(p, x, engine)
+    return row_linear(x, p, engine, tp)
+
+
+def whole_linear(x: torch.Tensor, p: dict, engine, tp: TP | None, full_out: int) -> torch.Tensor:
+    """``dense_apply`` whose output is needed whole: a column-split weight's
+    piece (:func:`column_linear`) then :func:`gather_from`."""
+    if tp is None or p["w"].shape[-1] == full_out:
+        return common.dense_apply(p, x, engine)
+    return gather_from(column_linear(x, p, engine, tp), tp)
+
+
+# -- activations ------------------------------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
+        return torch.cat(collectives.all_gather(x.contiguous(), tp.mesh, tp.axis,
+                                                tag="tp_all_gather"), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.tp.index * ctx.n, ctx.n), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        n = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(collectives.all_gather(g.contiguous(), ctx.tp.mesh, ctx.tp.axis,
+                                                tag="tp_all_gather"), dim=ctx.dim), None, None
+
+
+def gather_from(x: torch.Tensor, tp: TP, dim: int = -1) -> torch.Tensor:
+    """The whole of an activation split over the axis along ``dim``; the
+    backward keeps this rank's slice of the (whole) gradient."""
+    return _Gather.apply(x, tp, dim % x.dim())
+
+
+def split_to(x: torch.Tensor, tp: TP, dim: int = -1) -> torch.Tensor:
+    """This rank's slice of a replicated activation along ``dim``; the
+    backward all-gathers the gradient's slices."""
+    return _Split.apply(x, tp, dim % x.dim())
+
+
+def grad_sum(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The identity; backward the gradient summed over the axis in fp32."""
+    return collectives.copy_to(x, tp.mesh, tp.axis, fp32=True, tag="tp_grad_all_reduce")
+
+
+# -- vocab parallelism --------------------------------------------------------------------
+
+
+def _psum(x: torch.Tensor, tp: TP, tag: str) -> torch.Tensor:
+    """The sum over the axis; the identity backward."""
+    return collectives.sum_over(x, tp.mesh, tp.axis, tag=tag)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, tp: TP,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``tokens`` from a table whose rows are split over the
+    axis (this rank's block), in ``dtype``: each rank takes the rows it
+    holds (``take_rows``), puts -0.0 in the others and the ranks' rows are
+    summed in fp32. Exactly one rank holds a token's row and -0.0 is the
+    sum's identity (signed zeros and NaN included), so the result is the
+    whole table's row bit for bit."""
+    rows = table.shape[0]
+    local = tokens - tp.index * rows
+    held = (local >= 0) & (local < rows)
+    x = take_rows(table, local.clamp(0, rows - 1)).float()
+    x = torch.where(held[..., None], x, NEG_ZERO)
+    return _psum(x, tp, "tp_embed_all_reduce").to(dtype)
+
+
+def vocab_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+               tp: TP) -> torch.Tensor:
+    """sum over masked positions of logsumexp(z) - z[label], for logits
+    (B, c, V / tp) fp32 holding this rank's block of the vocab: the max
+    over the axis (its gradient stops, as ``logsumexp``'s), the sum of
+    exp over it, and the label's logit from the one rank that holds it."""
+    v_local = logits.shape[-1]
+    m = collectives.all_reduce(logits.detach().amax(-1), tp.mesh, tp.axis, op="max",
+                               tag="tp_xent_all_reduce")
+    sum_exp = _psum(torch.exp(logits - m[..., None]).sum(-1), tp, "tp_xent_all_reduce")
+    logz = m + torch.log(sum_exp)
+    local = labels - tp.index * v_local
+    held = (local >= 0) & (local < v_local)
+    ll = logits.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    ll = _psum(torch.where(held, ll, 0.0), tp, "tp_xent_all_reduce")
+    return ((logz - ll) * mask).sum()
+
+
+# -- FSDP and ZeRO-3 --------------------------------------------------------------------
+
+
+class _UseParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, piece, spec, mesh):
+        ctx.spec, ctx.mesh, ctx.dtype = spec, mesh, piece.dtype
+        return sharding.gather_full(piece, spec, mesh, tag="fsdp_param_all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        axes = tuple(a for a in ctx.mesh.axis_names
+                     if any(a in sharding._names(p) for p in ctx.spec))
+        whole = collectives.all_reduce(g.float(), ctx.mesh, axes, tag="fsdp_grad_all_reduce")
+        return sharding.shard_of(whole, ctx.spec, ctx.mesh).to(ctx.dtype), None, None
+
+
+def use_param(piece: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole parameter of a piece split over the data axes by ``spec``
+    (the data-axis part of its spec, ``sharding.over_axes``); the
+    gradient comes back as this rank's piece of its sum over those axes."""
+    if all(p is None for p in spec):
+        return piece
+    return _UseParam.apply(piece, spec, mesh)

@@ -22,13 +22,18 @@ allocated:
   rank's batch, the whole model, as the port runs it today): the step runs
   on ``meta`` tensors under ``roofline/cost.py``'s recorder, which counts
   every kernel call from its shapes;
-- the collectives the port's own plan issues, each rank's bytes on the
-  wire (a ring: 2 (n-1)/n of the payload for an all-reduce, (n-1)/n for
-  an all-gather): the gradients' all-reduce over the data axes, the
-  ZeRO-1 parameter gather, the expert-parallel sum (``--moe-impl ep``,
-  forward and backward), and, as planned for tensor parallelism, one
-  all-reduce of a (tokens, d_model) activation for each row-parallel
-  weight a layer, forward (and backward for training);
+- the collectives the port issues, each rank's bytes on the wire (a
+  ring: 2 (n-1)/n of the payload for an all-reduce, (n-1)/n for an
+  all-gather), under the tags of ``distrib/collectives.py``'s
+  ``traffic`` counter. A train cell's are counted from the executed
+  specs and the activations' shapes: its layers' (tensor-parallel sums
+  and gathers, FSDP's per-use gathers and gradient sums, the
+  expert-parallel sums; ``layer_traffic``) and the step's gradient sums
+  over the data axes, ZeRO-1 gather and scalars (``step_traffic``). The
+  tests hold the executed step's counter against them. A prefill or
+  decode cell (serving runs on one rank) keeps the plan: one fp32
+  all-reduce of a (tokens, d_model) activation a row-parallel weight,
+  the sum in the format the train step's row-parallel GEMMs sum in;
 - the roofline on one H100 (``roofline/analysis.py``'s peaks): the
   replica's counts over the TP size (the planned split), the collectives
   at NVLink's one-way rate; and its bottleneck.
@@ -74,7 +79,13 @@ from repro_torch.launch.mesh import (
     n_dp_of,
     tp_size_of,
 )
-from repro_torch.models import MeshCtx, build, decode_input_specs, train_input_specs
+from repro_torch.models import (
+    MeshCtx,
+    build,
+    decode_input_specs,
+    meta_params,
+    train_input_specs,
+)
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline import cost
 from repro_torch.training import make_loss_fn
@@ -94,21 +105,6 @@ def _apply_overrides(cfg, args):
     if getattr(args, "kv_dtype", None):
         over["kv_cache_dtype"] = args.kv_dtype
     return dataclasses.replace(cfg, **over) if over else cfg
-
-
-def meta_params(cfg) -> dict:
-    """The parameter tree of ``cfg`` on ``meta`` at full depth, from one
-    unit of its block pattern (and one encoder layer): layer i is the
-    unit's layer i % len(pattern), the same shapes and formats that
-    ``Transformer.init`` gives it (leaves shared between layers)."""
-    p = len(cfg.block_pattern)
-    unit = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, p),
-                               n_encoder_layers=min(cfg.n_encoder_layers, 1))
-    params = build(unit, device=META, backend="torch").init(0)
-    params["layers"] = [params["layers"][i % p] for i in range(cfg.n_layers)]
-    if cfg.n_encoder_layers:
-        params["encoder"] = params["encoder"][:1] * cfg.n_encoder_layers
-    return params
 
 
 def _meta_batch(cfg, batch: int, seq: int) -> dict:
@@ -250,35 +246,237 @@ def _ring(payload: float, n: int, kind: str) -> float:
     return (2.0 if kind == "all_reduce" else 1.0) * (n - 1) / n * payload
 
 
-_ROW_PARALLEL = r".*((attn|cross)/o/w|ffn/down/w|cell/out/w|embed/table)$"
+def mesh_context(mesh, mode: str) -> MeshCtx:
+    """The executed context of a sharding mode: ``tp`` (TP and EP over
+    'model', ZeRO-1 moments), ``zero3`` (the TP pieces over the data axes
+    too) or ``fsdp`` (every axis data-parallel, ``tp_axis=None``)."""
+    if mode == "fsdp":
+        return MeshCtx(mesh=mesh, dp_axes=tuple(mesh.axis_names), ep_axis=None, tp_axis=None)
+    return MeshCtx(mesh=mesh, dp_axes=dp_axes_of(mesh), ep_axis="model", zero3=mode == "zero3")
 
 
-def _collectives(cfg, kind, params, pspecs, mesh, tp, n_dp, tokens, zero1, fsdp):
-    """Each rank's wire bytes a step, by collective, under the port's plan."""
-    act = get_policy(cfg.policy).compute.itemsize
+def layer_traffic(cfg, params, mesh_ctx, batch: int, seq: int) -> dict:
+    """One rank's wire bytes by tag of the collectives the layers issue in
+    the loss and its gradients, on ``batch`` rows of ``seq`` positions,
+    counted from the executed specs of ``params`` (the whole shapes) and
+    the activations' shapes, as ``distrib/tensor_parallel.py`` places them:
+
+    - a column-parallel weight (its columns over the TP axis) sums its
+      input's gradient in fp32 in the backward (none for the frontends'
+      inputs, which take no gradient); where its output is needed whole
+      (xLSTM's qkv and wx, the frontends' projections) it is gathered;
+    - a row-parallel weight (its rows over the axis) sums its fp32
+      partial outputs in the forward;
+    - attention with its query heads split and K/V whole takes its
+      groups' KV heads (their gradients summed in fp32), or, where the
+      split ends inside a head, gathers q and slices the output (whose
+      gradient is gathered); the RG-LRU gathers its conv output for its
+      gates; xLSTM's gated output is sliced for a split ogate or out; the
+      dense MoE slices its gate matrix to its experts (its gradient
+      gathered) and takes the router's expert shares over the data ranks;
+    - vocab parallelism: one fp32 sum of the embedded rows, and three
+      fp32 sums of (rows, positions) values a cross-entropy chunk;
+    - expert parallelism: the input's gradient summed, the output summed
+      (the compute format), the aux loss averaged;
+    - FSDP and ZeRO-3: every leaf split over the data axes gathered per
+      use and its gradient summed in fp32 over them.
+
+    A layer's forward collectives run twice under ``remat="block"`` (the
+    backward runs the block again), a cross-entropy chunk's always (each
+    chunk is checkpointed). The expert-parallel output sum and aux mean
+    end their block and save nothing for the backward, and torch's
+    checkpoint stops its rerun at the last saved tensor: they run once."""
+    mesh, tp_axis = mesh_ctx.mesh, mesh_ctx.tp_axis
+    tp = mesh.axis_size(tp_axis) if tp_axis is not None else 1
+    pol = get_policy(cfg.policy)
+    o, c = pol.out.itemsize, pol.compute.itemsize
+    again = 2 if cfg.remat == "block" else 1
+    d, hd = cfg.d_model, cfg.head_dim
+    inputs = train_input_specs(cfg, batch, seq)
+    n_tok = batch * inputs["tokens"][0][1]
+    n_vis = batch * cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    n_dec, n_enc = n_tok + n_vis, batch * seq if cfg.is_encoder_decoder else 0
+    paths = [p for p, _ in shd.leaf_paths(params)]
+    specs = dict(zip(paths, shd.spec_leaves(shd.executed_param_specs(params, cfg, mesh_ctx))))
+    out: dict = {}
+
+    def reduce(tag, nbytes, n, times=1):
+        out[tag] = out.get(tag, 0.0) + times * _ring(nbytes, n, "all_reduce")
+
+    def gather(tag, whole, n, times=1):
+        out[tag] = out.get(tag, 0.0) + times * _ring(whole, n, "all_gather")
+
+    def split(path, dim):
+        sp = specs.get(path)
+        return tp > 1 and sp is not None and tp_axis in shd._names(sp[dim])
+
+    def linear(path, rows, k, n, grad_in=True, whole=False, times=again):
+        if split(path, 1):
+            if grad_in:
+                reduce("tp_grad_all_reduce", rows * k * 4, tp)
+            if whole:
+                gather("tp_all_gather", rows * n * o, tp, times)
+        elif split(path, 0):
+            reduce("tp_row_all_reduce", rows * n * 4, tp, times)
+
+    def attention(pre, rows, kv_rows):
+        dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        linear(f"{pre}/q/w", rows, d, dq)
+        linear(f"{pre}/k/w", kv_rows, d, dkv)
+        linear(f"{pre}/v/w", kv_rows, d, dkv)
+        if split(f"{pre}/q/w", 1) and not split(f"{pre}/k/w", 1):
+            hq, g = dq // tp // hd, cfg.n_heads // cfg.n_kv_heads
+            if (dq // tp) % hd == 0 and (hq % g == 0 or g % hq == 0):
+                reduce("tp_grad_all_reduce", kv_rows * dkv * 4, tp, 2)
+            else:
+                gather("tp_all_gather", rows * dq * o, tp, again + 1)
+        linear(f"{pre}/o/w", rows, dq, d)
+
+    def ffn(pre, rows):
+        linear(f"{pre}/up/w", rows, d, cfg.d_ff)
+        if f"{pre}/gate/w" in specs:
+            linear(f"{pre}/gate/w", rows, d, cfg.d_ff)
+        linear(f"{pre}/down/w", rows, cfg.d_ff, d)
+
+    def moe(pre, rows):
+        if cfg.moe_impl == "ep" and mesh_ctx.ep_axis is not None:
+            n_ep = mesh.axis_size(mesh_ctx.ep_axis)
+            reduce("ep_grad_all_reduce", rows * d * c, n_ep)
+            reduce("ep_sum", rows * d * c, n_ep)  # once: see below
+            reduce("scalars", 4, n_ep)
+            return
+        ef = cfg.n_experts * cfg.d_ff
+        linear(f"{pre}/up", rows, d, ef)
+        linear(f"{pre}/gate", rows, d, ef)
+        if split(f"{pre}/up", 1):
+            gather("tp_all_gather", rows * cfg.n_experts * 4, tp)
+        linear(f"{pre}/down", rows, ef, d)
+        reduce("scalars", cfg.n_experts * 4, mesh.axis_size(mesh_ctx.dp_axes or ()), 2 * again)
+
+    def cell(pre, kind, rows):
+        if kind == "rglru":
+            if split(f"{pre}/lam", 0):
+                r = cfg.d_rnn
+                linear(f"{pre}/in_gate/w", rows, d, r)
+                linear(f"{pre}/in_x/w", rows, d, r)
+                gather("tp_all_gather", rows * r * o, tp, again)
+                linear(f"{pre}/gate_a/w", rows, r, r)
+                linear(f"{pre}/gate_x/w", rows, r, r)
+                linear(f"{pre}/out/w", rows, r, d)
+            return
+        if kind == "mlstm":
+            linear(f"{pre}/qkv/w", rows, d, 3 * d, whole=True)
+        else:
+            linear(f"{pre}/wx/w", rows, d, 4 * d, whole=True)
+        og = f"{pre}/ogate/w" in specs and split(f"{pre}/ogate/w", 1)
+        if og or split(f"{pre}/out/w", 0):  # the cells' output sliced
+            gather("tp_all_gather", rows * d * c, tp)
+        if f"{pre}/ogate/w" in specs:
+            linear(f"{pre}/ogate/w", rows, d, d)
+        if og and not split(f"{pre}/out/w", 0):
+            gather("tp_all_gather", rows * d * c, tp, again)
+        linear(f"{pre}/out/w", rows, d, d)
+
+    # The embedding, the frontends and the logits (outside the blocks).
+    if split("embed/table", 0):
+        reduce("tp_embed_all_reduce", n_tok * d * 4, tp)
+    if n_vis:
+        linear("vis_proj/w", n_vis, d, d, grad_in=False, whole=True, times=1)
+    if n_enc:
+        linear("enc_proj/w", n_enc, d, d, grad_in=False, whole=True, times=1)
+    if split("embed/table" if cfg.tie_embeddings else "head/w", 0 if cfg.tie_embeddings else 1):
+        reduce("tp_grad_all_reduce", n_tok * d * 4, tp)
+        reduce("tp_xent_all_reduce", n_tok * 4, tp, 3 * 2)
+    # The blocks.
+    for j in range(cfg.n_encoder_layers):
+        attention(f"encoder/{j}/attn", n_enc, n_enc)
+        if cfg.d_ff > 0:
+            ffn(f"encoder/{j}/ffn", n_enc)
+    p = len(cfg.block_pattern)
+    for i in range(cfg.n_layers):
+        kind, pre = cfg.block_pattern[i % p], f"layers/{i}"
+        if kind in ("attn", "attn_local"):
+            attention(f"{pre}/attn", n_dec, n_dec)
+        else:
+            cell(f"{pre}/cell", kind, n_dec)
+        if cfg.is_encoder_decoder:
+            attention(f"{pre}/cross", n_dec, n_enc)
+        if cfg.d_ff > 0:
+            (moe if cfg.is_moe else ffn)(f"{pre}/{'moe' if cfg.is_moe else 'ffn'}", n_dec)
+    # FSDP's and ZeRO-3's per-use gathers (a block's leaves gathered again
+    # in its backward under remat).
+    dp = tuple(mesh_ctx.dp_axes or ())
+    if tp_axis is None or mesh_ctx.zero3:
+        for (path, leaf), spec in zip(shd.leaf_paths(params), specs.values()):
+            axes = {a for q in shd.over_axes(spec, dp) for a in shd._names(q)}
+            if not axes:
+                continue
+            n = mesh.axis_size(tuple(a for a in mesh.axis_names if a in axes))
+            piece = shd.bytes_per_rank(leaf, spec, mesh)
+            times = again if path.startswith(("layers/", "encoder/")) else 1
+            gather("fsdp_param_all_gather", piece * n, n, times)
+            reduce("fsdp_grad_all_reduce", piece // leaf.element_size() * n * 4, n)
+    return {k: v for k, v in out.items() if v}
+
+
+def step_traffic(cfg, params, mesh_ctx, zero1: bool = True) -> dict:
+    """The train step's own collectives from the specs (``training/
+    loop.py``): each leaf's fp32 gradient summed over the data axes (the
+    router's also over the expert axis; none for a leaf split over them,
+    whose per-use gather summed it), the ZeRO-1 gather of each sliced
+    leaf, and the scalars (the supervised count, loss and aux sums; one
+    squared-norm sum for each set of axes a leaf is split over)."""
+    from repro_torch.training import loop
+
+    mesh, dp = mesh_ctx.mesh, tuple(mesh_ctx.dp_axes or ())
+    n_dp = mesh.axis_size(dp)
+    specs = shd.spec_leaves(shd.executed_param_specs(params, cfg, mesh_ctx))
+    dims = loop.zero1_dims(params, cfg, mesh_ctx)
+    ep = cfg.is_moe and cfg.moe_impl == "ep" and mesh_ctx.ep_axis is not None
+    out = {"dp_grad_all_reduce": 0.0, "zero1_param_all_gather": 0.0,
+           "scalars": 3 * _ring(4, n_dp, "all_reduce")}
+    groups = set()
+    for (path, leaf), spec, dim in zip(shd.leaf_paths(params), specs, dims):
+        axes = loop._axes_of(spec, mesh)
+        groups.add(axes)
+        piece = shd.bytes_per_rank(leaf, spec, mesh)
+        if not set(axes) & set(dp):
+            n = n_dp * (mesh.axis_size(mesh_ctx.ep_axis) if ep and loop._is_router(path) else 1)
+            out["dp_grad_all_reduce"] += _ring(piece // leaf.element_size() * 4, n, "all_reduce")
+        if dim is not None and zero1:
+            out["zero1_param_all_gather"] += _ring(piece, n_dp, "all_gather")
+    out["scalars"] += sum(_ring(4, mesh.axis_size(a), "all_reduce") for a in groups if a)
+    return {k: v for k, v in out.items() if v}
+
+
+_ROW_PARALLEL = r".*((attn|cross)/o/w|ffn/down/w|cell/out/w)$"
+
+
+def train_collectives(cfg, params, mesh_ctx, batch: int, seq: int, zero1: bool = True) -> dict:
+    """Each rank's wire bytes by tag of a train step at ``mesh_ctx`` on
+    ``batch`` rows of ``seq`` positions: the step's own
+    (``step_traffic``) and its layers' (``layer_traffic``)."""
+    out = step_traffic(cfg, params, mesh_ctx, zero1)
+    for tag, v in layer_traffic(cfg, params, mesh_ctx, batch, seq).items():
+        out[tag] = out.get(tag, 0.0) + v
+    return out
+
+
+def _serving_collectives(cfg, params, pspecs, mesh, tp, tokens, fsdp) -> dict:
+    """Each rank's planned wire bytes of a prefill or decode step (the
+    module docstring)."""
     out = {}
-    train = kind == "train"
-    if train and n_dp > 1:
-        # fp32 gradient sums over the data axes of every leaf the rank holds.
-        grads = shd.bytes_per_rank(params, pspecs, mesh, itemsize=4)
-        out["dp_grad_all_reduce"] = _ring(grads, n_dp, "all_reduce")
-        if zero1 and not fsdp:
-            held = shd.bytes_per_rank(params, pspecs, mesh)
-            out["zero1_param_all_gather"] = _ring(held, n_dp, "all_gather")
     if fsdp:
         held = shd.bytes_per_rank(params, pspecs, mesh)
-        out["fsdp_param_all_gather"] = _ring(held * mesh.size, mesh.size, "all_gather") * (
-            2 if train else 1)
+        out["fsdp_param_all_gather"] = _ring(held * mesh.size, mesh.size, "all_gather")
     if cfg.is_moe and cfg.moe_impl == "ep" and tp > 1 and not fsdp:
-        n_moe = cfg.n_layers
-        out["ep_sum"] = _ring(tokens * cfg.d_model * act, tp, "all_reduce") * n_moe * (
-            2 if train else 1)
+        act = get_policy(cfg.policy).compute.itemsize
+        out["ep_sum"] = _ring(tokens * cfg.d_model * act, tp, "all_reduce") * cfg.n_layers
     if tp > 1 and not fsdp:
         rows = sum(1 for path, spec in zip([p for p, _ in shd.leaf_paths(params)],
                                            shd.spec_leaves(pspecs))
                    if re.match(_ROW_PARALLEL, path) and spec and spec[0] == "model")
-        out["tp_row_all_reduce"] = _ring(tokens * cfg.d_model * act, tp, "all_reduce") * rows * (
-            2 if train else 1)
+        out["tp_row_all_reduce"] = _ring(tokens * cfg.d_model * 4, tp, "all_reduce") * rows
     return out
 
 
@@ -295,12 +493,11 @@ def lower_cell(arch: str, shape: str, mesh, *, args=None):
     mode = getattr(args, "sharding", "tp") if args is not None else "tp"
     no_zero1 = bool(getattr(args, "no_zero1", False)) if args is not None else False
     fsdp = mode == "fsdp"
+    mesh_ctx = mesh_context(mesh, mode)
     if fsdp:
         dp_axes, tp, n_dp = tuple(mesh.axis_names), 1, mesh.size
-        mesh_ctx = MeshCtx(mesh=mesh, dp_axes=dp_axes, ep_axis=None)
     else:
         dp_axes, tp, n_dp = dp_axes_of(mesh), tp_size_of(mesh), n_dp_of(mesh)
-        mesh_ctx = MeshCtx(mesh=mesh, dp_axes=dp_axes, ep_axis="model")
     model = build(cfg, device=META, backend="torch")
     params = meta_params(cfg)
     if fsdp:
@@ -356,8 +553,10 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, args=None) -> dict:
     counts = step_counts(cfg, kind, b, seq, ep_ctx)
     dec = max(seq // cfg.enc_dec_ratio, 1) if cfg.is_encoder_decoder else seq
     tokens = b * (1 if kind == "decode" else dec + cfg.n_frontend_tokens)
-    coll = _collectives(cfg, kind, params, pspecs, mesh, tp, n_dp, tokens, plan["zero1"],
-                        plan["fsdp"])
+    if kind == "train":
+        coll = train_collectives(cfg, params, plan["mesh_ctx"], b, seq, plan["zero1"])
+    else:
+        coll = _serving_collectives(cfg, params, pspecs, mesh, tp, tokens, plan["fsdp"])
     coll_bytes = float(sum(coll.values()))
     split = tp
     roof = ra.Roofline(compute_s=counts.compute_s / split,

@@ -22,14 +22,16 @@ Several processes (``torchrun``, which sets ``WORLD_SIZE``, ``RANK`` and
 or (pod, data, model), by default (world, 1), as the reference's
 ``make_mesh_from_args``. The process group is NCCL on the card (one card a
 process, ``cuda:LOCAL_RANK``) and gloo with ``--device cpu``. Each rank
-takes its data shard of every global batch, holds its block of experts
-under ``--moe-impl ep`` (over the 'model' axis; on one card a mesh of one
-with no group), and keeps the ZeRO-1 slices of the moments
-(``training/loop.py``); checkpoints are written whole by rank 0 and read
-back at any world size. Each rank beats its own ``Heartbeat`` under
-``<ckpt-dir>/hb`` and a ``StragglerMonitor`` marks slow steps in the step
-line. Tensor parallelism is not executed: the 'model' axis carries only
-the experts.
+takes its data shard of every global batch, runs tensor parallelism over
+the 'model' axis on every layer (its pieces of ``param_specs``, the
+experts among them; ``distrib/tensor_parallel.py``), and keeps the ZeRO-1
+slices of the moments (``training/loop.py``); checkpoints are written
+whole by rank 0 and read back at any mesh and world size. Each rank beats
+its own ``Heartbeat`` under ``<ckpt-dir>/hb`` and a ``StragglerMonitor``
+marks slow steps in the step line. As in the reference's launcher there
+is no sharding flag: FSDP and ZeRO-3 are reached through
+``make_train_step`` with their ``MeshCtx`` (``tp_axis=None``;
+``zero3=True``), and sized by the dry run (``--sharding``).
 
   torchrun --nproc_per_node 2 -m repro_torch.launch.train --smoke \
       --device cpu --mesh 2,1 --steps 2 --seq 16 --batch 4

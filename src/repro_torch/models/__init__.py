@@ -6,9 +6,10 @@ from repro_torch.models.registry import (
     build,
     decode_input_specs,
     make_batch,
+    meta_params,
     train_input_specs,
 )
 from repro_torch.models.transformer import MeshCtx, Transformer
 
 __all__ = ["MeshCtx", "ShapeDtype", "Transformer", "batch_shapes", "build",
-           "decode_input_specs", "make_batch", "train_input_specs"]
+           "decode_input_specs", "make_batch", "meta_params", "train_input_specs"]

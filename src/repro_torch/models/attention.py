@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.precision import cast, put_rows_, take_rows
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
@@ -165,7 +166,7 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
 def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
           engine: Engine, *, pool: dict | None = None,
           paged: PagedInfo | None = None, cache: dict | None = None,
-          causal: bool = True, cross_kv: tuple | None = None) -> torch.Tensor:
+          causal: bool = True, cross_kv: tuple | None = None, tp=None) -> torch.Tensor:
     """One attention layer. x: (B, S, D); positions: (S,) or (B, S) absolute
     positions. With ``pool`` (the layer's {"kp", "vp"} flat (n_tok, Hkv, hd)
     token pools, updated in place) and ``paged``, the serving paths; with
@@ -177,26 +178,63 @@ def apply(params, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
     over the encoder's keys and values (B, Se, Hkv, hd) in the compute
     format at positions k_pos (Se,), under a config without a window. Only
     q is projected here; neither q nor k is rotated, and the mask is not
-    causal."""
+    causal.
+
+    ``tp`` (a ``tensor_parallel.TP``; the full-sequence path only): the
+    params are this rank's pieces, and ``cross_kv`` holds k and v as the
+    rank's k and v pieces give them."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = common.dense_apply(params["q"], x, engine).reshape(b, s, hq, hd)
+    hd, dq = cfg.head_dim, cfg.n_heads * cfg.head_dim
+    q = tpl.linear(x, params["q"], engine, tp, dq)  # TP: this rank's columns
     if cross_kv is not None:
         k, v, k_pos = cross_kv
-        out = _online_attention(q, k, v, positions, k_pos, cfg, engine, causal=False)
-        return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
-    k = common.dense_apply(params["k"], x, engine).reshape(b, s, hkv, hd)
-    v = common.dense_apply(params["v"], x, engine).reshape(b, s, hkv, hd)
-    pos2d = positions if positions.dim() == 2 else positions[None]
-    q = common.apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_fraction)
-    k = common.apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_fraction)
-    if cache is not None:
-        out = _ring_attention(q, k, v, positions, cache, cfg, engine)
-    elif pool is None:
-        out = _online_attention(q, k, v, positions, positions, cfg, engine, causal=causal)
     else:
-        out = _paged_attention(q, k, v, positions, pool, paged, cfg, engine)
-    return common.dense_apply(params["o"], out.reshape(b, s, hq * hd), engine)
+        k = tpl.linear(x, params["k"], engine, tp, cfg.n_kv_heads * hd).reshape(b, s, -1, hd)
+        v = tpl.linear(x, params["v"], engine, tp, cfg.n_kv_heads * hd).reshape(b, s, -1, hd)
+        k_pos = positions
+    gathered = False
+    if q.shape[-1] != dq and k.shape[2] == cfg.n_kv_heads:
+        # q split over the axis, K/V whole: this rank's query heads take
+        # their groups' KV heads; where q's piece ends inside a head, q is
+        # gathered and every head attended replicated.
+        hq = q.shape[-1] // hd
+        span = None if q.shape[-1] % hd else _local_kv(tp.index * hq, hq, cfg)
+        if span is None:
+            q, gathered = tpl.gather_from(q, tp), True
+        else:
+            k = tpl.grad_sum(k, tp)[:, :, span[0]:span[1]]
+            v = tpl.grad_sum(v, tp)[:, :, span[0]:span[1]]
+    hq = q.shape[-1] // hd
+    q = q.reshape(b, s, hq, hd)
+    if hq != cfg.n_heads or k.shape[2] != cfg.n_kv_heads:
+        cfg = cfg._replace(n_heads=hq, n_kv_heads=k.shape[2])
+    if cross_kv is not None:
+        out = _online_attention(q, k, v, positions, k_pos, cfg, engine, causal=False)
+    else:
+        pos2d = positions if positions.dim() == 2 else positions[None]
+        q = common.apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_fraction)
+        k = common.apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_fraction)
+        if cache is not None:
+            out = _ring_attention(q, k, v, positions, cache, cfg, engine)
+        elif pool is None:
+            out = _online_attention(q, k, v, positions, positions, cfg, engine, causal=causal)
+        else:
+            out = _paged_attention(q, k, v, positions, pool, paged, cfg, engine)
+    out = out.reshape(b, s, hq * hd)
+    if gathered:
+        out = tpl.split_to(out, tp)
+    return tpl.out_linear(out, params["o"], engine, tp, dq)
+
+
+def _local_kv(q0: int, hq_l: int, cfg: AttnConfig):
+    """The KV heads [k0, k1) that query heads [q0, q0 + hq_l) use under GQA,
+    or None where their groups are not uniform over those heads."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hq_l % g == 0 and q0 % g == 0:
+        return q0 // g, (q0 + hq_l) // g
+    if g % hq_l == 0 and q0 // g == (q0 + hq_l - 1) // g:
+        return q0 // g, q0 // g + 1
+    return None
 
 
 def _paged_attention(q, k, v, positions, pool: dict, paged: PagedInfo, cfg: AttnConfig,

@@ -1,9 +1,12 @@
 """Feed-forward blocks, gated (SwiGLU, GeGLU) and plain (gelu, relu), every
-GEMM through the engine (counterpart of ``repro.models.ffn``)."""
+GEMM through the engine (counterpart of ``repro.models.ffn``). Under
+tensor parallelism (``tp``) up and gate are column-parallel and down is
+row-parallel (``distrib/tensor_parallel.py``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import common
 
@@ -23,16 +26,20 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, devi
     return p
 
 
-def apply(params, x: torch.Tensor, kind: str, engine: Engine) -> torch.Tensor:
-    up = common.dense_apply(params["up"], x, engine)
+def apply(params, x: torch.Tensor, kind: str, engine: Engine, tp=None,
+          d_ff: int | None = None) -> torch.Tensor:
+    """The block on x (..., d). With ``tp`` the params may be this rank's
+    pieces: a weight narrower than the config's ``d_ff`` is split."""
+    d_ff = params["up"]["w"].shape[1] if d_ff is None else d_ff
+    up = tpl.linear(x, params["up"], engine, tp, d_ff)
     if kind == "swiglu":
-        h = common.silu(common.dense_apply(params["gate"], x, engine)) * up
+        h = common.silu(tpl.linear(x, params["gate"], engine, tp, d_ff)) * up
     elif kind == "geglu":
-        h = common.gelu(common.dense_apply(params["gate"], x, engine)) * up
+        h = common.gelu(tpl.linear(x, params["gate"], engine, tp, d_ff)) * up
     elif kind == "gelu":
         h = common.gelu(up)
     elif kind == "relu":
         h = torch.relu(up)
     else:
         raise ValueError(kind)
-    return common.dense_apply(params["down"], h, engine)
+    return tpl.out_linear(h, params["down"], engine, tp, d_ff)

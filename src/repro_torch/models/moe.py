@@ -9,7 +9,12 @@ in fp32 (softmax, top-k, the top-k probabilities renormalised), the gate
 matrix with one term per expert, all experts' up and gate projections as
 one wide GEMM each, ``silu`` in fp32 cast back to the compute format, the
 gates cast to that format before they multiply, and the down projection
-as one GEMM. The reference's router is a plain ``jnp.matmul``; here it
+as one GEMM. Under tensor parallelism (``tp``, the experts over the
+'model' axis) each rank runs its block of experts: up and gate are
+column-parallel over their (d, E*f) columns, the gates' columns of its
+experts are its slice of the (replicated) gate matrix, and down is
+row-parallel, its partial y summed over the axis in fp32
+(``distrib/tensor_parallel.py``). The reference's router is a plain ``jnp.matmul``; here it
 runs through the engine under the fp32 policy on the model's backend (on
 the card the GEMM-Op kernel's SIMT schedule, on the CPU its plain
 version). The reference's dense path applies ``silu`` whatever the
@@ -52,6 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.precision import cast
 from repro_torch.distrib import collectives, compat
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import common
 
@@ -83,9 +89,21 @@ def init(gen: torch.Generator, cfg: MoEConfig, dtype: torch.dtype, device) -> di
     }
 
 
-def _router(params, x2: torch.Tensor, cfg: MoEConfig, engine: Engine, aux: bool = True):
+def _global_mean(m: torch.Tensor, dp) -> torch.Tensor:
+    """The mean of ``m`` over the data ranks (equal token counts a rank),
+    with the identity backward: each rank's gradient is then the global
+    loss's over its own tokens times the ranks' count, which the train
+    step's division of the aux loss by that count takes back out."""
+    mesh, axes = dp
+    whole = collectives.all_reduce(m.detach(), mesh, axes, op="mean", tag="scalars")
+    return m + (whole - m.detach())
+
+
+def _router(params, x2: torch.Tensor, cfg: MoEConfig, engine: Engine, aux: bool = True,
+            dp=None):
     """x2: (T, d) -> (top-k probs (T, k), top-k ids (T, k), aux loss or
-    None)."""
+    None). ``dp`` = (mesh, data axes): the aux loss's expert shares are the
+    global batch's, as the reference's over its whole batch."""
     logits = engine.with_policy("fp32").matmul(x2.float(), params["router"]["w"])
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
@@ -95,13 +113,18 @@ def _router(params, x2: torch.Tensor, cfg: MoEConfig, engine: Engine, aux: bool 
     # Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e.
     me = probs.mean(0)
     fe = F.one_hot(top_i, cfg.n_experts).float().sum(1).mean(0)
+    if dp is not None:
+        me, fe = _global_mean(me, dp), _global_mean(fe, dp)
     return top_p, top_i, cfg.n_experts * (me * fe).sum()
 
 
-def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux: bool = True):
+def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux: bool = True,
+                tp=None, dp=None):
     """x: (B, S, d). Returns (y (B, S, d) in the policy's output format,
     aux loss). ``aux=False`` leaves the aux loss out (None), as XLA drops it
-    from the reference's jitted serving steps, which do not use it."""
+    from the reference's jitted serving steps, which do not use it. With
+    ``tp`` the expert weights may be this rank's block of experts; with
+    ``dp`` (mesh, data axes) x is this rank's rows of the global batch."""
     if cfg.act != "swiglu":
         raise NotImplementedError(
             f"dense MoE with act {cfg.act!r}: the reference's dense path applies silu "
@@ -109,16 +132,20 @@ def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux:
     b, s, d = x.shape
     e, f = cfg.n_experts, cfg.d_ff
     x2 = x.reshape(b * s, d)
-    top_p, top_i, aux = _router(params, x2, cfg, engine, aux)
+    top_p, top_i, aux = _router(params, x2, cfg, engine, aux, dp)
     # Gate matrix (T, E): each chosen expert's probability, zeros elsewhere
     # (one term per expert, so it is the reference's one-hot sum exactly).
     # Out of place, so the gradient reaches the router in training.
     gates = torch.zeros((b * s, e), dtype=torch.float32, device=x.device).scatter(1, top_i, top_p)
-    up_all = engine.matmul(x2, params["up"])  # (T, E*f), all experts at once
-    gate_all = engine.matmul(x2, params["gate"])
+    # (T, E*f), all experts at once (under TP this rank's block of them).
+    up_all = tpl.linear(x2, {"w": params["up"]}, engine, tp, e * f)
+    gate_all = tpl.linear(x2, {"w": params["gate"]}, engine, tp, e * f)
+    e_l = up_all.shape[1] // f
+    if e_l != e:
+        gates = tpl.split_to(gates, tp, dim=1)
     h = common.silu(gate_all.float()).to(up_all.dtype) * up_all
-    h = h.reshape(-1, e, f) * gates[..., None].to(h.dtype)
-    y = engine.matmul(h.reshape(-1, e * f), params["down"])
+    h = (h.reshape(-1, e_l, f) * gates[..., None].to(h.dtype)).reshape(-1, e_l * f)
+    y = tpl.out_linear(h, {"w": params["down"]}, engine, tp, e * f)
     return y.reshape(b, s, d), aux
 
 
@@ -204,10 +231,13 @@ def check_impl(cfg: MoEConfig) -> None:
 
 
 def apply(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux: bool = True,
-          mesh=None, ep_axis=None):
+          mesh=None, ep_axis=None, tp=None, dp_axes=None):
     """``apply_ep`` for ``impl="ep"`` on a mesh with an expert axis, else
-    ``apply_dense`` (the reference's rule)."""
+    ``apply_dense`` (the reference's rule; ``tp`` its tensor parallelism,
+    ``dp_axes`` the data axes its batch is split over)."""
     check_impl(cfg)
     if cfg.impl == "ep" and mesh is not None and ep_axis is not None:
         return apply_ep(params, x, cfg, engine, mesh, ep_axis, aux=aux)
-    return apply_dense(params, x, cfg, engine, aux=aux)
+    dp = ((mesh, dp_axes) if aux and mesh is not None and dp_axes
+          and mesh.axis_size(dp_axes) > 1 else None)
+    return apply_dense(params, x, cfg, engine, aux=aux, tp=tp, dp=dp)

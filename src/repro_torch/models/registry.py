@@ -8,6 +8,7 @@ the audio model precomputed frame embeddings, both (B, n, d_model).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -35,6 +36,22 @@ def build(cfg: ModelConfig, mesh_ctx: Optional[MeshCtx] = None, *, device="cuda"
         raise ValueError("backend 'cuda' launches the kernels and needs the card")
     return Transformer(cfg, engine=Engine(policy=cfg.policy, backend=backend), device=device,
                        mesh_ctx=mesh_ctx)
+
+
+def meta_params(cfg) -> dict:
+    """The parameter tree of ``cfg`` on ``meta`` at full depth, from one
+    unit of its block pattern (and one encoder layer): layer i is the
+    unit's layer i % len(pattern), the same shapes and formats that
+    ``Transformer.init`` gives it (leaves shared between layers): what the
+    dry run sizes and what the specs of a rank's pieces are cut from."""
+    p = len(cfg.block_pattern)
+    unit = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, p),
+                               n_encoder_layers=min(cfg.n_encoder_layers, 1))
+    params = build(unit, device="meta", backend="torch").init(0)
+    params["layers"] = [params["layers"][i % p] for i in range(cfg.n_layers)]
+    if cfg.n_encoder_layers:
+        params["encoder"] = params["encoder"][:1] * cfg.n_encoder_layers
+    return params
 
 
 class ShapeDtype(NamedTuple):

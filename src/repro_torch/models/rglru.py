@@ -16,6 +16,12 @@ the decode step's ``a h + b``, and in fp32 and fp16 the convolution's sum
 of four products contracts likewise. :func:`fma` computes each from fp32
 operands in fp64 (the product is exact there) and rounds to fp32, on the
 CPU and on the card alike, so the scan gives the same bits on both.
+
+Tensor parallelism (``tp``, the training scan; ``distrib/tensor_parallel.py``):
+the recurrence is per channel, so a rank runs its channels of d_rnn.
+in_x and in_gate are column-parallel, the conv weight and ``lam`` its
+channels' pieces, gate_a and gate_x take the whole conv output (gathered
+over the axis) and give its channels, and out is row-parallel.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.precision import FP8_DTYPES
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import common
 
@@ -131,10 +138,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
     return y, xp[:, -(_CONV_W - 1):]
 
 
-def _gates(params, xr: torch.Tensor, engine: Engine):
-    """(a_t, gated input b_t) for the linear recurrence, in fp32."""
-    rgate = torch.sigmoid(common.dense_apply(params["gate_a"], xr, engine).float())
-    igate = torch.sigmoid(common.dense_apply(params["gate_x"], xr, engine).float())
+def _gates(params, xr: torch.Tensor, engine: Engine, tp=None):
+    """(a_t, gated input b_t) for the linear recurrence, in fp32. With
+    ``tp`` xr holds this rank's channels and the gates take it whole."""
+    xw = tpl.gather_from(xr, tp) if tp is not None else xr
+    r = xw.shape[-1]
+    rgate = torch.sigmoid(tpl.linear(xw, params["gate_a"], engine, tp, r).float())
+    igate = torch.sigmoid(tpl.linear(xw, params["gate_x"], engine, tp, r).float())
     log_a = -_C * softplus(params["lam"]) * rgate
     a = torch.exp(log_a)
     # The multiplier keeps the state's norm bounded: sqrt(1 - a^2).
@@ -143,7 +153,7 @@ def _gates(params, xr: torch.Tensor, engine: Engine):
 
 
 def apply_scan(params, x: torch.Tensor, cfg: RGLRUConfig, engine: Engine, *,
-               state: dict | None = None, lengths: torch.Tensor | None = None):
+               state: dict | None = None, lengths: torch.Tensor | None = None, tp=None):
     """The training and prefill path: the associative scan over time.
     x: (B, S, D). Returns (y (B, S, D), final state {"h", "conv"} fp32).
 
@@ -151,17 +161,22 @@ def apply_scan(params, x: torch.Tensor, cfg: RGLRUConfig, engine: Engine, *,
     prefill over a stored state row). ``lengths`` (B,) counts the valid
     tokens of right-padded rows: pad positions become scan identities
     (a = 1, b = 0), so the final ``h`` is each row's state at its last
-    valid token, and the conv state is gathered at that boundary."""
+    valid token, and the conv state is gathered at that boundary.
+
+    ``tp``: the params are this rank's pieces (the module docstring), with
+    no ``state`` or ``lengths`` (training)."""
     b_sz, s, _ = x.shape
-    gate = common.gelu(common.dense_apply(params["in_gate"], x, engine))
-    xr_raw = common.dense_apply(params["in_x"], x, engine)
+    if tp is not None and params["lam"].shape[0] == cfg.d_rnn:
+        tp = None  # the channels do not split: every weight is whole
+    gate = common.gelu(tpl.linear(x, params["in_gate"], engine, tp, cfg.d_rnn))
+    xr_raw = tpl.linear(x, params["in_x"], engine, tp, cfg.d_rnn)
     valid = None
     if lengths is not None:
         valid = (torch.arange(s, device=x.device)[None, :] < lengths[:, None])[..., None]
         xr_raw = torch.where(valid, xr_raw, 0.0)
     xr, conv_state = _causal_conv(xr_raw, params["conv_w"],
                                   None if state is None else state["conv"])
-    a, b = _gates(params, xr, engine)
+    a, b = _gates(params, xr, engine, tp)
     if state is not None:
         # Fold the carried h into the first step: h_1 = a_1 h_0 + b_1.
         b = torch.cat([fma(a[:, :1], state["h"][:, None], b[:, :1]), b[:, 1:]], dim=1)
@@ -169,7 +184,7 @@ def apply_scan(params, x: torch.Tensor, cfg: RGLRUConfig, engine: Engine, *,
         a = torch.where(valid, a, 1.0)
         b = torch.where(valid, b, 0.0)
     h = associative_scan(a, b)
-    out = common.dense_apply(params["out"], h.to(x.dtype) * gate, engine)
+    out = tpl.out_linear(h.to(x.dtype) * gate, params["out"], engine, tp, cfg.d_rnn)
     if valid is not None:
         # The conv state at each row's valid boundary: the last 3 inputs of
         # [carried conv | valid xr], i.e. ext[len : len + 3].

@@ -54,6 +54,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import E4M3, as_dtype, cast
+from repro_torch.distrib import sharding
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import attention, common, ffn, moe, rglru, xlstm
 from repro_torch.models.attention import AttnConfig, PagedInfo
@@ -78,13 +80,25 @@ class CBProfile(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """The distribution context of the layers that run explicit collectives
-    (the MoE's expert parallelism): a :class:`~repro_torch.launch.mesh.Mesh`
-    and the roles of its axes."""
+    """The distribution context of the training step's layers, which run
+    explicit collectives (``distrib/tensor_parallel.py``, the MoE's expert
+    parallelism): a :class:`~repro_torch.launch.mesh.Mesh` and the roles
+    of its axes. ``tp_axis`` None is FSDP: the whole mesh is
+    data-parallel (``dp_axes`` every axis), every parameter is split over
+    it and gathered per use. ``zero3`` splits the TP pieces over the data
+    axes too, gathered per use likewise."""
 
     mesh: Any = None
     dp_axes: Any = None  # batch-sharding axes, e.g. ("pod", "data")
     ep_axis: str | None = None  # expert-parallel axis, e.g. "model"
+    tp_axis: str | None = "model"  # tensor-parallel axis; None = FSDP
+    zero3: bool = False
+
+    @property
+    def tp_size(self) -> int:
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return self.mesh.shape[self.tp_axis]
 
 
 class _Cell(NamedTuple):
@@ -95,6 +109,15 @@ class _Cell(NamedTuple):
     decode: Any  # one step: (params, x, state, cfg, engine) -> (y, state)
     init_state: Any  # (batch, cfg, device) -> state
     cfg: Any
+
+
+def _map2(fn, tree, specs):
+    """``fn(leaf, spec)`` over a params tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map2(fn, v, sp) for v, sp in zip(tree, specs)]
+    return fn(tree, specs)
 
 
 def _row_mask(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -123,6 +146,8 @@ class Transformer:
         self.cfg = cfg
         self.engine = engine
         self.mesh_ctx = mesh_ctx or MeshCtx()
+        self.tp = tpl.tp_of(self.mesh_ctx)  # the training path's TP axis, or None
+        self._use_specs = None  # FSDP/ZeRO-3 per-use gathers, made on first use
         self.policy = engine.policy
         self.device = torch.device(device)
         self.dtype = E4M3 if cfg.fp8_params else self.policy.compute
@@ -225,32 +250,84 @@ class Transformer:
         (the KV pool with ``paged``, the ring buffer or state rows of
         static-batch serving without it; None in training). Returns (x, the
         MoE aux loss or None)."""
+        tp = self.tp if store is None else None  # serving runs on one rank
+        if store is None:
+            lp = self._use(lp, ("layers", i))
         h = self._norm(lp["norm1"], x)
         acfg = self.layer_cfgs[i]
         if acfg is not None:
             h = attention.apply(lp["attn"], h, positions, acfg, engine,
                                 pool=store if paged is not None else None, paged=paged,
-                                cache=store if paged is None else None)
+                                cache=store if paged is None else None, tp=tp)
         else:
             h = self._recurrent(self.cells[self.kinds[i]], lp["cell"], h, engine, store, paged,
                                 decode)
         x = x + h
         if "cross" in lp:
             x = x + self._cross(lp["cross"], self._norm(lp["norm_x"], x), positions, engine,
-                                store, enc)
+                                store, enc, tp)
         aux_loss = None
         if "norm2" in lp:
             h2 = self._norm(lp["norm2"], x)
             if "moe" in lp:
                 mc = self.mesh_ctx
                 h2, aux_loss = moe.apply(lp["moe"], h2, self.moe_cfg, engine, aux=aux,
-                                         mesh=mc.mesh, ep_axis=mc.ep_axis)
+                                         mesh=mc.mesh, ep_axis=mc.ep_axis, tp=tp,
+                                         dp_axes=mc.dp_axes if store is None else None)
             else:
-                h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine)
+                h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine, tp=tp, d_ff=self.cfg.d_ff)
             x = x + h2
         return x, aux_loss
 
-    def _cross(self, p, h, positions, engine: Engine, store, enc):
+    # -- FSDP and ZeRO-3 -------------------------------------------------------
+    def _use(self, tree, path: tuple):
+        """``tree`` (a layer's, or the whole model's) with every leaf that
+        the mesh context splits over the data axes gathered whole for this
+        use (``tensor_parallel.use_param``); leaves already whole pass."""
+        specs = self.use_specs()
+        if specs is None:
+            return tree
+        for k in path:
+            specs = specs[k]
+        mesh = self.mesh_ctx.mesh
+        return _map2(lambda t, sp: t if sp is None or tuple(t.shape) == sp[1]
+                     else tpl.use_param(t, sp[0], mesh), tree, specs)
+
+    def use_specs(self):
+        """The data-axis part of every leaf's executed spec where some leaf
+        has one (FSDP, ZeRO-3), else None: a tree of (spec, whole shape),
+        None for a leaf held whole over the data axes."""
+        mc = self.mesh_ctx
+        if mc.mesh is None or not (mc.tp_axis is None or mc.zero3):
+            return None
+        if self._use_specs is None:
+            from repro_torch.models.registry import meta_params
+
+            full = meta_params(self.cfg)
+            specs = sharding.executed_param_specs(full, self.cfg, mc)
+            dp = tuple(mc.dp_axes or ())
+            mesh = mc.mesh
+            out = []
+            for (_, t), sp in zip(sharding.leaf_paths(full), sharding.spec_leaves(specs)):
+                on_dp = sharding.over_axes(sp, dp)
+                # The gathered leaf: whole over the data axes, TP's piece else.
+                shape = tuple(n if q is not None else n // mesh.axis_size(sharding._names(p))
+                              for n, p, q in zip(t.shape, sp, on_dp))
+                out.append(None if all(p is None for p in on_dp) else (on_dp, shape))
+            it = iter(out)
+            self._use_specs = sharding.map_with_path(lambda _p, _t: next(it), full)
+        return self._use_specs
+
+    def use_top(self, params):
+        """``params`` with the leaves outside the layers (embeddings, head,
+        final norm, frontends) gathered for this step under FSDP/ZeRO-3;
+        the layers' leaves are gathered in their blocks."""
+        if self.use_specs() is None:
+            return params
+        return {k: v if k in ("layers", "encoder") else self._use(v, (k,))
+                for k, v in params.items()}
+
+    def _cross(self, p, h, positions, engine: Engine, store, enc, tp=None):
         """The cross-attention block over the encoder's output (the
         reference's ``_apply_block``). Given the encoder output, its K and
         V are projected, stored rounded to the KV format in the static
@@ -263,34 +340,40 @@ class Transformer:
             ck, cv = store["cross_k"].to(compute), store["cross_v"].to(compute)
         else:
             acfg = self.enc_cfg
-            shape = enc_out.shape[:2] + (acfg.n_kv_heads, acfg.head_dim)
-            ck = common.dense_apply(p["k"], enc_out, engine).reshape(shape)
-            cv = common.dense_apply(p["v"], enc_out, engine).reshape(shape)
+            shape = enc_out.shape[:2] + (-1, acfg.head_dim)
+            kv_cols = acfg.n_kv_heads * acfg.head_dim
+            ck = tpl.linear(enc_out, p["k"], engine, tp, kv_cols).reshape(shape)
+            cv = tpl.linear(enc_out, p["v"], engine, tp, kv_cols).reshape(shape)
             if store is not None:
                 store["cross_k"].copy_(cast(ck, store["cross_k"].dtype))
                 store["cross_v"].copy_(cast(cv, store["cross_v"].dtype))
             ck, cv = ck.to(compute), cv.to(compute)
-        return attention.apply(p, h, positions, self.enc_cfg, engine, cross_kv=(ck, cv, enc_pos))
+        return attention.apply(p, h, positions, self.enc_cfg, engine, cross_kv=(ck, cv, enc_pos),
+                               tp=tp)
 
-    def _enc_block(self, lp, x, positions, engine: Engine):
-        """One encoder layer: non-causal self-attention, then its FFN."""
+    def _enc_block(self, j: int, lp, x, positions, engine: Engine):
+        """Encoder layer ``j``: non-causal self-attention, then its FFN."""
+        lp = self._use(lp, ("encoder", j))
         x = x + attention.apply(lp["attn"], self._norm(lp["norm1"], x), positions, self.enc_cfg,
-                                engine, causal=False)
+                                engine, causal=False, tp=self.tp)
         if "norm2" in lp:
-            x = x + ffn.apply(lp["ffn"], self._norm(lp["norm2"], x), self.cfg.act, engine)
+            x = x + ffn.apply(lp["ffn"], self._norm(lp["norm2"], x), self.cfg.act, engine,
+                              tp=self.tp, d_ff=self.cfg.d_ff)
         return x
 
     def _encode(self, params, frames: torch.Tensor, engine: Engine, remat: bool = False):
         """The encoder on stub frame embeddings (B, Se, d): ``enc_proj`` on
         the frames in the compute format, the encoder layers, then
         ``enc_final_norm``. Returns (output, positions (Se,))."""
-        x = common.dense_apply(params["enc_proj"], frames.to(engine.policy.compute), engine)
+        d = self.cfg.d_model
+        x = tpl.whole_linear(frames.to(engine.policy.compute), params["enc_proj"], engine,
+                             self.tp, d)
         pos = torch.arange(frames.shape[1], device=x.device)
-        for lp in params["encoder"]:
+        for j, lp in enumerate(params["encoder"]):
             if remat:
-                x = checkpoint(self._enc_block, lp, x, pos, engine, use_reentrant=False)
+                x = checkpoint(self._enc_block, j, lp, x, pos, engine, use_reentrant=False)
             else:
-                x = self._enc_block(lp, x, pos, engine)
+                x = self._enc_block(j, lp, x, pos, engine)
         return self._norm(params["enc_final_norm"], x), pos
 
     def _frontends(self, params, batch, x, engine: Engine, remat: bool = False):
@@ -299,8 +382,8 @@ class Transformer:
         encoder-decoder's ``frames`` through the encoder. Returns (x, enc),
         enc = (encoder output, positions) or None."""
         if self.cfg.family == "vlm":
-            vis = common.dense_apply(params["vis_proj"],
-                                     batch["vis_embeds"].to(engine.policy.compute), engine)
+            vis = tpl.whole_linear(batch["vis_embeds"].to(engine.policy.compute),
+                                   params["vis_proj"], engine, self.tp, self.cfg.d_model)
             x = torch.cat([vis, x], dim=1)
         enc = (self._encode(params, batch["frames"], engine, remat)
                if self.cfg.is_encoder_decoder else None)
@@ -316,7 +399,7 @@ class Transformer:
         init state where it starts at position 0), runs the masked scan
         and commits the active rows."""
         if store is None:
-            return cell.apply(p, h, cell.cfg, engine)[0]
+            return cell.apply(p, h, cell.cfg, engine, tp=self.tp)[0]
         rows = store["state"]
         if paged is None:
             out, store["state"] = (cell.decode(p, h, rows, cell.cfg, engine) if decode
@@ -349,16 +432,24 @@ class Transformer:
         the reference's weakly typed product rounds it; a host scalar, so
         the decode graph captures no copy)."""
         compute = (engine or self.engine).policy.compute
-        x = common.embed_apply(params["embed"], tokens).to(compute)
+        table = params["embed"]["table"]
+        if self.tp is not None and table.shape[0] != self.cfg.vocab_size:
+            x = tpl.vocab_embed(table, tokens, self.tp, compute)
+        else:
+            x = common.embed_apply(params["embed"], tokens).to(compute)
         if self.embed_scale != 1.0:
             x = x * float(torch.tensor(self.embed_scale, dtype=compute))
         return x
 
     def logits(self, params, h: torch.Tensor, engine: Engine | None = None) -> torch.Tensor:
         """fp32 logits through the tied table or the untied head, then the
-        final softcap, in the reference's order."""
+        final softcap, in the reference's order. Under TP with the vocab
+        split, this rank's block of the vocab's logits (column-parallel)."""
         eng = engine or self.engine
-        if self.cfg.tie_embeddings:
+        w = params["embed"]["table"].T if self.cfg.tie_embeddings else params["head"]["w"]
+        if self.tp is not None and w.shape[1] != self.cfg.vocab_size:
+            out = tpl.column_linear(h, {"w": w}, eng, self.tp)
+        elif self.cfg.tie_embeddings:
             out = common.unembed_apply(params["embed"], h, eng)
         else:
             out = common.dense_apply(params["head"], h, eng)
@@ -376,6 +467,7 @@ class Transformer:
         eng = engine or self.engine
         remat = self.cfg.remat == "block"
         tokens = batch["tokens"]
+        params = self.use_top(params)
         x, enc = self._frontends(params, batch, self.embed(params, tokens, eng), eng, remat)
         positions = torch.arange(x.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -15,6 +15,12 @@ any Pallas kernel there; here they go through the engine under the fp32
 policy (:func:`_f32_matmul`), fp32 products summed in fp32, as the MoE
 router does.
 
+Tensor parallelism (``tp``, training; ``distrib/tensor_parallel.py``):
+the fused qkv and wx projections are column-split across their parts, so
+their output is gathered whole and the cells run replicated; ogate is
+column-parallel and out row-parallel on this rank's slice of the cells'
+output; ifg and r are whole.
+
 Each ``*_apply`` returns (y, final state), so prefill falls out of the
 training path; ``state=`` continues from a carried state and ``lengths=``
 masks right-padded rows, whose pad steps leave the state untouched.
@@ -26,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import common
 
@@ -67,12 +74,30 @@ def mlstm_init(gen: torch.Generator, cfg: XLSTMConfig, dtype: torch.dtype, devic
     }
 
 
-def _mlstm_heads(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine):
+def _out(params, y: torch.Tensor, x: torch.Tensor, engine: Engine, tp, d: int) -> torch.Tensor:
+    """``out`` on the cells' output y (B, S, d), gated by ``ogate`` where
+    the cell has one; with ``tp`` on this rank's slice of y where ogate's
+    columns or out's rows are split."""
+    og_split = tp is not None and "ogate" in params and params["ogate"]["w"].shape[1] != d
+    out_split = tp is not None and params["out"]["w"].shape[0] != d
+    if og_split:
+        y = tpl.split_to(y, tp)
+    if "ogate" in params:
+        og = tpl.linear(x, params["ogate"], engine, tp, d)
+        y = y * common.xla_sigmoid(og.float()).to(x.dtype)
+    if out_split and not og_split:
+        y = tpl.split_to(y, tp)
+    elif og_split and not out_split:
+        y = tpl.gather_from(y, tp)
+    return tpl.out_linear(y, params["out"], engine, tp if out_split else None, d)
+
+
+def _mlstm_heads(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, tp=None):
     """q, k / sqrt(hd), v (B, H, S, hd) in the output format, and the log
     input and log forget gates (B, H, S) in fp32."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = common.dense_apply(params["qkv"], x, engine).split(d, dim=-1)
+    q, k, v = tpl.whole_linear(x, params["qkv"], engine, tp, 3 * d).split(d, dim=-1)
     q = q.reshape(b, s, h, hd).transpose(1, 2)
     k = _scaled(k.reshape(b, s, h, hd).transpose(1, 2), math.sqrt(hd))
     v = v.reshape(b, s, h, hd).transpose(1, 2)
@@ -122,14 +147,14 @@ def _mlstm_chunk(engine: Engine, carry, qi, ki, vi, li, lf, tri):
 
 
 def mlstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
-                state: dict | None = None, lengths: torch.Tensor | None = None):
+                state: dict | None = None, lengths: torch.Tensor | None = None, tp=None):
     """The chunkwise-parallel mLSTM over x (B, S, D), in chunks of
     min(256, S); S must be a multiple of the chunk (the reference's
     ``ValueError``). Pad positions of ``lengths`` get log i = log 0 (no
     input) and log f = 0 (carry). Returns (y, {"C", "n", "m"} fp32)."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q, k, v, log_i, log_f = _mlstm_heads(params, x, cfg, engine)
+    q, k, v, log_i, log_f = _mlstm_heads(params, x, cfg, engine, tp)
     if lengths is not None:
         valid = (torch.arange(s, device=x.device)[None, :] < lengths[:, None])[:, None, :]
         log_i = torch.where(valid, log_i, _LOG_ZERO)
@@ -151,9 +176,7 @@ def mlstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
                                   log_i[..., sl], log_f[..., sl], tri)
         hs.append(h_t)
     y = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, d).to(x.dtype)
-    y = y * common.xla_sigmoid(common.dense_apply(params["ogate"], x, engine).float()).to(x.dtype)
-    out = common.dense_apply(params["out"], y, engine)
-    return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
+    return _out(params, y, x, engine, tp, d), {"C": carry[0], "n": carry[1], "m": carry[2]}
 
 
 def mlstm_decode(params, x: torch.Tensor, state: dict, cfg: XLSTMConfig, engine: Engine):
@@ -230,13 +253,13 @@ def _slstm_cell(engine: Engine, wx_t, r, h_prev, c_prev, n_prev, m_prev, nheads:
 
 
 def slstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
-                state: dict | None = None, lengths: torch.Tensor | None = None):
+                state: dict | None = None, lengths: torch.Tensor | None = None, tp=None):
     """The sequential sLSTM over x (B, S, D): one cell step a position. A
     pad step of ``lengths`` leaves the carry untouched. Returns (y,
     {"h", "c", "n", "m"} fp32)."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    wx = common.dense_apply(params["wx"], x, engine)  # (B, S, 4D)
+    wx = tpl.whole_linear(x, params["wx"], engine, tp, 4 * d)  # (B, S, 4D)
     if state is None:
         zeros = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
         carry = (zeros, zeros, zeros, torch.full_like(zeros, _LOG_ZERO))
@@ -251,8 +274,7 @@ def slstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig, engine: Engine, *,
         carry = new if keep is None else tuple(
             torch.where(keep[t], a, o) for a, o in zip(new, carry))
     y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    out = common.dense_apply(params["out"], y, engine)
-    return out, dict(zip(("h", "c", "n", "m"), carry))
+    return _out(params, y, x, engine, tp, d), dict(zip(("h", "c", "n", "m"), carry))
 
 
 def slstm_decode(params, x: torch.Tensor, state: dict, cfg: XLSTMConfig, engine: Engine):

@@ -12,20 +12,28 @@ overflows gives a non-finite norm, and the anomaly guard skips that
 update.
 
 On a mesh (``mesh_ctx``) every rank runs the step on its data shard and
-its block of experts; with no mesh, or on a mesh of one, each reduction
-below is the identity:
+its pieces of the parameters (``distrib.sharding.executed_param_specs``:
+tensor parallelism over 'model' with the experts over it, FSDP, ZeRO-3;
+the layers in ``distrib/tensor_parallel.py``); with no mesh, or on a
+mesh of one, each reduction below is the identity:
 
 - the loss is the reference's mean over the *global* batch: each rank
   divides its cross-entropy sum by the count of supervised positions
   summed over the data axes, so ranks with different counts weigh right;
   a mean of per-rank means would not. The aux loss is the mean of the
-  ranks' aux losses (each over its own tokens, as the reference's EP body
-  computes it);
+  ranks' aux losses: under expert parallelism each over its own tokens,
+  as the reference's EP body computes it; the dense MoE's over the global
+  batch on every rank (``models/moe.py``), as the reference's is;
 - the gradients are summed over the data axes in fp32 (the gradient of
   the global loss; ``dist.all_reduce``, as GSPMD's reduction), and the
-  router's also over the expert axis, where each rank holds the share of
-  its own experts' gates;
-- the global norm counts every expert's gradient once;
+  router's also over the expert axis under expert parallelism, where each
+  rank holds the share of its own experts' gates. A leaf split over
+  'model' needs no sum over it, and a replicated leaf's gradient is the
+  same on every TP rank (the column-parallel backward sums dX), so
+  neither is summed over 'model'. A leaf split over the data axes (FSDP,
+  ZeRO-3) was gathered per use, and its gradient summed over them there;
+- the global norm counts every piece of a split leaf once (the squares
+  summed over the leaf's axes) and every replicated leaf once;
 - ZeRO-1: each rank keeps the moments of its slice of each leaf (the
   first dimension the data ranks divide, ``distrib.sharding.zero1_specs``),
   updates that slice of the parameters and all-gathers the slices. AdamW
@@ -41,7 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import leaves, tree_map, unflatten
-from repro_torch.distrib import collectives, sharding
+from repro_torch.distrib import collectives, sharding, tensor_parallel
 from repro_torch.engine import Engine
 from repro_torch.optim import global_norm
 
@@ -67,6 +75,8 @@ def chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor, mask: tor
 
     def chunk_loss(h_c, y_c, m_c):
         logits = model.logits(params, h_c, engine)  # (B, c, V) fp32
+        if logits.shape[-1] != model.cfg.vocab_size:  # this rank's block of the vocab
+            return tensor_parallel.vocab_xent(logits, y_c, m_c, model.tp)
         logz = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, y_c[..., None])[..., 0]
         return ((logz - ll) * m_c).sum()
@@ -81,6 +91,7 @@ def chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor, mask: tor
 
 def _loss_terms(model, params, batch, eng):
     """(cross-entropy sum, supervised positions, aux loss) of ``batch``."""
+    params = model.use_top(params)
     h, aux = model.forward(params, batch, engine=eng)
     labels, mask = _shift_labels(batch["tokens"])
     total, denom = chunked_xent(model, params, h, labels, mask, engine=eng)
@@ -140,24 +151,23 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
     mc, mesh, dp, n_dp = _mesh_of(model, mesh_ctx)
     moe_cfg = getattr(model, "moe_cfg", None)
     ep = mc.ep_axis if mesh is not None and moe_cfg is not None and moe_cfg.impl == "ep" else None
-    n_ep = mesh.axis_size(ep) if ep is not None else 1
     eng = model.engine.with_backend(backend) if backend else model.engine
     router_axes = dp + ((ep,) if ep is not None else ())
     cache: dict = {}
 
     def reduce(g: torch.Tensor, axes) -> torch.Tensor:
-        if mesh is None or mesh.axis_size(axes) == 1:
+        if mesh is None or not axes or mesh.axis_size(axes) == 1:
             return g
-        return collectives.all_reduce(g.float(), mesh, axes).to(g.dtype)
+        return collectives.all_reduce(g.float(), mesh, axes, tag="dp_grad_all_reduce").to(g.dtype)
 
     def grad_fn(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         total, denom, aux = _loss_terms(model, live, batch, eng)
-        count = collectives.all_reduce(denom, mesh, dp).clamp(min=1.0)
+        count = collectives.all_reduce(denom, mesh, dp, tag="scalars").clamp(min=1.0)
         loss = total / count + AUX_LOSS_WEIGHT * aux / n_dp
         grads = torch.autograd.grad(loss, leaves(live))
-        xent = collectives.all_reduce(total.detach(), mesh, dp) / count
-        aux = collectives.all_reduce(aux.detach(), mesh, dp) / n_dp
+        xent = collectives.all_reduce(total.detach(), mesh, dp, tag="scalars") / count
+        aux = collectives.all_reduce(aux.detach(), mesh, dp, tag="scalars") / n_dp
         return xent + AUX_LOSS_WEIGHT * aux, {"xent": xent, "aux": aux}, list(grads)
 
     def train_step(state: TrainState, batch):
@@ -174,17 +184,15 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
             loss, metrics, grads = grad_fn(state.params, batch)
         if not cache:
             paths = [p for p, _ in sharding.leaf_paths(state.params)]
-            cache["axes"] = [router_axes if _is_router(p) else dp for p in paths]
-            cache["expert"] = [_is_expert(p) for p in paths]
+            specs = sharding.spec_leaves(leaf_specs(state.params, model.cfg, mc))
+            split = [_axes_of(sp, mesh) for sp in specs]
+            # Sum over the data axes unless the per-use gather did (FSDP, ZeRO-3).
+            cache["axes"] = [() if set(dp) & set(ax) else router_axes if _is_router(p) else dp
+                             for p, ax in zip(paths, split)]
+            cache["split"] = split
             cache["dims"] = zero1_dims(state.params, model.cfg, mc)
         grads = [reduce(g, axes) for g, axes in zip(grads, cache["axes"])]
-        if n_ep == 1:
-            gnorm = global_norm(grads)
-        else:  # every expert's gradient once, the replicated leaves' once
-            sq = [g.float().square().sum() for g in grads]
-            own = torch.stack([q for q, e in zip(sq, cache["expert"]) if e]).sum()
-            rep = torch.stack([q for q, e in zip(sq, cache["expert"]) if not e]).sum()
-            gnorm = (rep + collectives.all_reduce(own, mesh, ep)).sqrt()
+        gnorm = _split_norm(grads, cache["split"], mesh)
         if not bool(torch.isfinite(gnorm) & torch.isfinite(loss)):
             new_params, new_opt, skipped = state.params, state.opt_state, state.skipped + 1
         else:
@@ -198,6 +206,49 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
     return train_step
 
 
+def leaf_specs(params, cfg, mesh_ctx, moments: bool = False) -> Any:
+    """The executed specs of a rank's ``params`` (its moments' ZeRO-1 specs
+    with ``moments``), in ``params``' structure, from the config's whole
+    shapes: the pieces' own shapes do not say how they were cut."""
+    from repro_torch.models import meta_params
+
+    full = meta_params(cfg)
+    specs = sharding.executed_param_specs(full, cfg, mesh_ctx)
+    _, _, dp, n_dp = _mesh_of(None, mesh_ctx)
+    if moments and n_dp > 1:
+        specs = sharding.zero1_specs(specs, full, dp, n_dp)
+    by_path = dict(zip((p for p, _ in sharding.leaf_paths(full)), sharding.spec_leaves(specs)))
+    return sharding.map_with_path(lambda path, _: by_path[path], params)
+
+
+def _on_dp(spec, dp) -> bool:
+    return any(set(sharding._names(p)) & set(dp) for p in spec)
+
+
+def _axes_of(spec, mesh) -> tuple:
+    """The mesh axes a spec splits its leaf over, in the mesh's order."""
+    if mesh is None:
+        return ()
+    named = {a for p in spec for a in sharding._names(p)}
+    return tuple(a for a in mesh.axis_names if a in named)
+
+
+def _split_norm(grads, split, mesh) -> torch.Tensor:
+    """The global norm of gradients held as pieces: each group of leaves
+    split over the same axes has its squares summed over those axes, so
+    every piece counts once and every replicated leaf once."""
+    if not any(split):
+        return global_norm(grads)
+    groups: dict = {}
+    for g, axes in zip(grads, split):
+        groups.setdefault(axes, []).append(g.float().square().sum())
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for axes, sq in groups.items():
+        part = torch.stack(sq).sum()
+        total = total + (collectives.all_reduce(part, mesh, axes, tag="scalars") if axes else part)
+    return total.sqrt()
+
+
 def _on_device(batch, device) -> dict:
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     batch["tokens"] = batch["tokens"].long()
@@ -209,10 +260,6 @@ def _micro(batch: dict, n: int):
     return [{k: v[i] for k, v in micro.items()} for i in range(n)]
 
 
-def _is_expert(path: str) -> bool:
-    return bool(re.match(r".*moe/(up|gate|down)$", path))
-
-
 def _is_router(path: str) -> bool:
     return bool(re.match(r".*moe/router/w$", path))
 
@@ -220,12 +267,15 @@ def _is_router(path: str) -> bool:
 def zero1_dims(params, cfg, mesh_ctx) -> list:
     """For each leaf of this rank's ``params``, the dimension whose slices
     the data ranks hold under ZeRO-1, or None (a leaf too small to split,
-    or a single data rank)."""
+    a single data rank, or a leaf already split over the data axes: FSDP
+    and ZeRO-3 keep their moments on the pieces)."""
     mc, _, dp, n_dp = _mesh_of(None, mesh_ctx)
     if n_dp == 1:
         return [None] * len(leaves(params))
-    specs = sharding.zero1_specs(sharding.executed_param_specs(params, cfg, mc), params, dp, n_dp)
-    return [sharding.split_dim(s, dp) for s in sharding.spec_leaves(specs)]
+    executed = sharding.spec_leaves(leaf_specs(params, cfg, mc))
+    specs = sharding.spec_leaves(leaf_specs(params, cfg, mc, moments=True))
+    return [None if _on_dp(e, dp) else sharding.split_dim(s, dp)
+            for e, s in zip(executed, specs)]
 
 
 def _slice(t: torch.Tensor, dim, mesh, dp) -> torch.Tensor:
@@ -264,7 +314,6 @@ def state_specs(state: TrainState, cfg, mesh_ctx) -> TrainState:
     """The spec of every leaf of a rank's state on the full (single-process)
     shapes: the parameters' executed specs, the moments' ZeRO-1 specs, the
     counters none (``checkpoint.manager``'s ``shardings=``)."""
-    _, _, dp, n_dp = _mesh_of(None, mesh_ctx)
-    pspecs = sharding.executed_param_specs(state.params, cfg, mesh_ctx)
-    mspecs = sharding.zero1_specs(pspecs, state.params, dp, n_dp) if n_dp > 1 else pspecs
+    pspecs = leaf_specs(state.params, cfg, mesh_ctx)
+    mspecs = leaf_specs(state.params, cfg, mesh_ctx, moments=True)
     return TrainState(None, pspecs, {"mu": mspecs, "nu": mspecs}, None)

@@ -11,7 +11,9 @@ One spawn of two ranks (``tests/test_torch_ranks.py::rank_train``) runs:
   three steps: bit for bit, the K-major layout kept;
 - the train launcher with ``--mesh 2,1`` on the granite smoke decoder
   (data parallelism, ZeRO-1 moments), and with ``--mesh 1,2 --moe-impl
-  ep`` on the granite-moe smoke decoder (its 8 experts 4 a rank), 2 steps
+  ep`` on the granite-moe smoke decoder (its 8 experts 4 a rank, and
+  tensor parallelism over the same axis on every other layer: each rank
+  holds half of the table, q, k, v, o and the expert blocks), 2 steps
   each under fp32, each saving its checkpoint (rank 0 writes it whole).
 
 Against the same launcher in this process (a mesh of one, the global
@@ -145,8 +147,15 @@ def test_mesh_steps_match_one_process(name, ranks, single):
         np.testing.assert_array_equal(a, b)
     local = outs[0]["local"]
     whole = [tuple(t.shape) for t in leaves(single[name]["state"].params)]
-    if name == "ep":  # each rank holds half of every expert block
-        assert sum(a != b for a, b in zip(local, whole)) == 3 * 2  # up, gate, down a layer
+    if name == "ep":  # tensor and expert parallelism: each rank holds half of every split leaf
+        from repro_torch.distrib import sharding as shd
+
+        specs = shd.spec_leaves(shd.param_specs(single[name]["state"].params,
+                                                single[name]["cfg"], 2))
+        assert local == [tuple(n // 2 if p == "model" else n for n, p in zip(w, sp))
+                         for w, sp in zip(whole, specs)]
+        # The table, and q, k, v, o and the expert blocks up, gate, down a layer.
+        assert sum(a != b for a, b in zip(local, whole)) == 1 + 7 * 2
     else:
         assert local == whole
 

@@ -240,3 +240,158 @@ def rank_train(rank, world, ckpt_dir, runs, jobs, lr):
                      "local": [tuple(t.shape) for t in leaves(st.params)],
                      "hb": sorted(os.listdir(os.path.join(ckpt_dir, name, "hb")))}
     return out
+
+
+# -- tensor parallelism and FSDP --------------------------------------------------
+
+
+def rank_tp_layers(rank, world, case):
+    """The layer pieces of ``distrib/tensor_parallel.py`` over a (1, world)
+    mesh on this rank's pieces of the whole inputs in ``case`` (numpy):
+    each function's output and the gradients of sum(out * g) with respect
+    to its inputs (this rank's pieces)."""
+    from repro_torch.distrib import tensor_parallel as tpl
+    from repro_torch.engine import Engine
+
+    tp = tpl.TP(make_mesh((1, world), ("data", "model")), "model")
+    eng = Engine(policy="fp32", backend="torch")
+
+    def piece(a, dim):
+        a = torch.from_numpy(a)
+        n = a.shape[dim] // world
+        return a.narrow(dim, rank * n, n).clone().requires_grad_()
+
+    def run(fn, inputs, g):
+        out = fn(*inputs)
+        grads = torch.autograd.grad((out.float() * torch.from_numpy(g)).sum(), inputs)
+        return out.detach().numpy(), [t.numpy() for t in grads]
+
+    out = {}
+    x, w, g = case["x"], case["w"], case["g_col"]
+    xt = torch.from_numpy(x).requires_grad_()
+    out["column"] = run(lambda a, b: tpl.column_linear(a, {"w": b}, eng, tp),
+                        [xt, piece(w, 1)], g[..., rank * g.shape[-1] // world:
+                                             (rank + 1) * g.shape[-1] // world])
+    out["row"] = run(lambda a, b: tpl.row_linear(a, {"w": b}, eng, tp),
+                     [piece(case["xr"], -1), piece(case["wr"], 0)], case["g_row"])
+    out["gather"] = run(lambda a: tpl.gather_from(a, tp).square(), [piece(x, -1)], case["g_x"])
+    out["split"] = run(lambda a: tpl.split_to(a, tp).square(),
+                       [torch.from_numpy(x).requires_grad_()],
+                       case["g_x"][..., rank * x.shape[-1] // world:
+                                    (rank + 1) * x.shape[-1] // world])
+    # The embedding: bits of the rows, and the table piece's gradient.
+    table = piece(case["table"], 0)
+    emb = tpl.vocab_embed(table, torch.from_numpy(case["tokens"]), tp, torch.float32)
+    out["embed_bits"] = emb.detach().view(torch.int32).numpy()
+    out["embed_grad"] = torch.autograd.grad((emb * torch.from_numpy(case["g_emb"])).sum(),
+                                            table)[0].numpy()
+    logits = piece(case["logits"], -1)
+    loss = tpl.vocab_xent(logits, torch.from_numpy(case["labels"]),
+                          torch.from_numpy(case["mask"]), tp)
+    out["xent"] = (float(loss), torch.autograd.grad(loss, logits)[0].numpy())
+    # The row-parallel sum under redmule_hfp8: fp32 partials, one rounding.
+    h8 = Engine(policy="redmule_hfp8", backend="torch")
+    xr8, wr8 = case["x8"], case["w8"]
+    k = xr8.shape[-1] // world
+    out["row_hfp8"] = tpl.row_linear(torch.from_numpy(xr8[..., rank * k:(rank + 1) * k]),
+                                     {"w": torch.from_numpy(wr8[rank * k:(rank + 1) * k])},
+                                     h8, tp).float().numpy()
+    return out
+
+
+def _tp_ctx(mode, shape):
+    from repro_torch.models import MeshCtx
+
+    mesh = make_mesh(shape, ("data", "model"))
+    if mode == "fsdp":
+        return MeshCtx(mesh=mesh, dp_axes=("data", "model"), ep_axis=None, tp_axis=None)
+    return MeshCtx(mesh=mesh, dp_axes=("data",), ep_axis="model", zero3=mode == "zero3")
+
+
+def _replicated_grads(model, ctx, state, batch) -> dict:
+    """The gradients of this rank's replicated leaves (every spec entry
+    None) at the state, before any sum over the data axes."""
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.distrib import sharding as shd
+    from repro_torch.training import loop
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    b["tokens"] = b["tokens"].long()
+    total, denom, aux = loop._loss_terms(model, live, b, model.engine)
+    grads = torch.autograd.grad(total / denom + loop.AUX_LOSS_WEIGHT * aux, leaves(live))
+    specs = shd.spec_leaves(loop.leaf_specs(state.params, model.cfg, ctx))
+    return {p: g.numpy() for (p, _), g, sp in zip(shd.leaf_paths(state.params), grads, specs)
+            if all(s is None for s in sp) and not loop._is_router(p)}
+
+
+def rank_tp_train(rank, world, jobs, lr, runs=None, ckpt_dir=None):
+    """The mesh train step from given parameters, for each job (name ->
+    (arch, mode "tp" | "fsdp" | "zero3", mesh shape, MoE impl, policy, the
+    port's full parameters, global batches)): 2 AdamW steps at ``lr`` on
+    this rank's rows. Returns each job's metrics a step, its state after
+    the first step and the final state gathered whole, its pieces' shapes,
+    the first step's collective bytes by tag, and the replicated leaves'
+    gradients at the initial state.
+    Then each launcher run of ``runs`` (name -> argv) with its losses and
+    state, and its checkpoint restored on a (2, 1) mesh."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.distrib import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW
+    from repro_torch.training import init_train_state, make_train_step, state_specs
+
+    def gathered(state, cfg, ctx):
+        specs = state_specs(state, cfg, ctx)
+        full = [shd.gather_full(t, s, ctx.mesh) if s is not None else t
+                for t, s in zip(leaves(state), shd.spec_leaves(specs))]
+        return [t.float().numpy() if isinstance(t, torch.Tensor) else t for t in full]
+
+    out = {}
+    for name, (arch, mode, shape, impl, policy, params, batches) in jobs.items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), policy=policy, moe_impl=impl)
+        ctx = _tp_ctx(mode, shape)
+        model = build(cfg, ctx, device="cpu")
+        opt = AdamW(lr=lr)
+        state = init_train_state(model, opt, shd.local_params(params, cfg, ctx), mesh_ctx=ctx)
+        step = make_train_step(model, opt, mesh_ctx=ctx)
+        n, i = ctx.mesh.axis_size(ctx.dp_axes), ctx.mesh.axis_index(ctx.dp_axes)
+        rows = [{k: v[i * len(v) // n:(i + 1) * len(v) // n] for k, v in b.items()}
+                for b in batches]
+        res = {"replicated": _replicated_grads(model, ctx, state, rows[0]), "metrics": []}
+        for t, b in enumerate(rows):
+            coll.reset_traffic()
+            state, m = step(state, b)
+            if t == 0:
+                res["traffic"] = dict(coll.traffic)
+                res["first"] = gathered(state, cfg, ctx)
+            res["metrics"].append({k: float(m[k]) for k in ("loss", "aux", "grad_norm",
+                                                             "skipped")})
+        res["local"] = [tuple(t.shape) for t in leaves(state.params)]
+        res["full"] = gathered(state, cfg, ctx)
+        out[name] = res
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+    for name, args in (runs or {}).items():
+        d = os.path.join(ckpt_dir, name)
+        res = train.main([*args, "--ckpt-dir", d])
+        st, cfg = res["state"], res["cfg"]
+        ctx = _tp_ctx("tp", tuple(res["mesh"].shape.values()))
+        got = {"losses": [h["loss"] for h in res["history"]], "full": gathered(st, cfg, ctx)}
+        # The checkpoint restored on a (2, 1) mesh: this rank's pieces, gathered.
+        ctx2 = _tp_ctx("tp", (world, 1))
+        model2 = build(cfg, ctx2, device="cpu")
+        like = init_train_state(model2, AdamW(lr=1e-3),
+                                shd.local_params(model2.init(0), cfg, ctx2), mesh_ctx=ctx2)
+        sh = shd.tree_shardings(state_specs(like, cfg, ctx2), ctx2.mesh)
+        from repro_torch.checkpoint import manager as ckpt
+
+        _, restored = ckpt.restore_latest(d, like, shardings=sh)
+        got["restored_21"] = gathered(restored, cfg, ctx2)
+        out[name] = got
+    return out
