@@ -1071,17 +1071,27 @@ def _decode_split_cases(rng) -> None:
 # (label, B, Sq, Sk, Hq, Hkv, hd, causal, softcap, formats): granite-3-8b's
 # training shape, gemma2-2b's (hd 256, softcap 50) and a ragged
 # non-causal case with Sq != Sk.
+F32, F16, BF16_ = torch.float32, torch.float16, torch.bfloat16
 FLASH_CASES = [
-    ("granite", 1, 2048, 2048, 32, 8, 128, True, None,
-     (torch.float32, torch.float16, torch.bfloat16)),
-    ("gemma2", 1, 1024, 1024, 8, 4, 256, True, 50.0, (torch.float32, torch.bfloat16)),
-    ("ragged non-causal", 2, 77, 300, 4, 2, 64, False, None, (torch.float16,)),
+    ("granite", 1, 2048, 2048, 32, 8, 128, True, None, (F32, F16, BF16_)),
+    ("gemma2", 1, 1024, 1024, 8, 4, 256, True, 50.0, (F32, F16, BF16_)),
+    ("ragged non-causal", 2, 77, 300, 4, 2, 64, False, None, (F16,)),
     # The tensor-core kernel's edges: Sq not a multiple of its 128-row
     # tiles, non-causal with Sk != Sq at hd 128, hd 64, softcap.
-    ("ragged Sq", 1, 300, 300, 32, 8, 128, True, None, (torch.float16, torch.bfloat16)),
-    ("non-causal Sk != Sq", 2, 77, 300, 4, 2, 128, False, None, (torch.float16, torch.bfloat16)),
-    ("hd 64", 1, 1000, 1000, 8, 8, 64, True, None, (torch.float16, torch.bfloat16)),
-    ("softcap", 1, 300, 300, 8, 2, 128, True, 30.0, (torch.float16, torch.bfloat16)),
+    ("ragged Sq", 1, 300, 300, 32, 8, 128, True, None, (F16, BF16_)),
+    ("non-causal Sk != Sq", 2, 77, 300, 4, 2, 128, False, None, (F16, BF16_)),
+    ("hd 64", 1, 1000, 1000, 8, 8, 64, True, None, (F32, F16, BF16_)),
+    ("softcap", 1, 300, 300, 8, 2, 128, True, 30.0, (F16, BF16_)),
+    # hd 256 on the tensor cores (64-key tiles) without a softcap, Sq and Sk
+    # ragged against the 64-key and 128-row tiles, non-causal Sk != Sq;
+    # the fp32 ones on the register-tiled kernel's 64-row instance.
+    ("hd 256", 1, 2048, 2048, 16, 8, 256, True, None, (F32, F16, BF16_)),
+    ("hd 256 ragged Sq", 1, 300, 300, 8, 4, 256, True, None, (F32, F16, BF16_)),
+    ("hd 256 non-causal Sk != Sq", 2, 77, 300, 4, 2, 256, False, 30.0, (F16, BF16_)),
+    # The register-tiled kernel's other instances: hd 32 by cp.async, and
+    # the widening loads of a width no instance matches (fp32 and fp16).
+    ("hd 32", 1, 500, 500, 8, 2, 32, True, None, (F32,)),
+    ("hd 80 non-causal", 2, 200, 333, 4, 2, 80, False, None, (F32, F16)),
 ]
 
 # The kernel and its plain version compute scores, softmax and PV in fp32
@@ -1097,6 +1107,12 @@ FLASH_CASES = [
 # moves a row by about 1 / sqrt(e * length) of it, 0.01-0.03 at 2048 keys:
 # each case also plants one and requires that its error exceed the limit.
 FLASH_TOL = {torch.float32: 1e-4, torch.float16: 2.0 ** -9, torch.bfloat16: 2.0 ** -6}
+# The kernel line's dense attention rows, B1 S2048 causal: (Hq, Hkv, hd,
+# format) by key. granite's fp16 heads (tensor cores, hd 128), gemma2's
+# fp16 heads at hd 256 with 16 query heads (tensor cores, 64-key tiles) and
+# granite's heads in fp32 (the register-tiled kernel).
+FLASH_ROWS = {"fp16 hd128": (32, 8, 128, F16), "fp16 hd256": (16, 8, 256, F16),
+              "fp32 hd128": (32, 8, 128, F32)}
 
 
 def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1131,10 +1147,13 @@ def _flash_inputs(gen, b, sq, sk, hq, hkv, hd, dtype):
 
 
 def phase_flash() -> dict:
-    """The dense flash-attention kernel against its plain version, then its
-    main path: one call of the entry point ``ops.flash_attention`` on CUDA
-    tensors at granite's shape (no model path runs the dense kernel, in
-    the JAX package or here), read by its own launch counter."""
+    """The dense flash-attention kernels against their plain version, each
+    case on the route ``plan_flash`` names (fp16 and bf16 at hd 64, 128 and
+    256 on the tensor cores, the rest on the register-tiled kernel), then
+    the main path: one call of the entry point ``ops.flash_attention`` on
+    CUDA tensors at each of the kernel line's shapes (no model path runs
+    the dense kernel, in the JAX package or here), read by the launch
+    counters."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -1155,8 +1174,8 @@ def phase_flash() -> dict:
             route = fa.plan_flash(q, k, v)
             if ran != ((1, 0) if route == "tc" else (0, 1)):
                 raise AssertionError(f"{name}: planned route {route}, launches (tc, simt) {ran}")
-            if label == "granite" and route != ("simt" if dt == torch.float32 else "tc"):
-                raise AssertionError(f"{name}: granite's {dt} case is planned on {route}")
+            if route != ("tc" if dt != torch.float32 and hd in fa.TC_HEAD_DIMS else "simt"):
+                raise AssertionError(f"{name}: planned on {route}")
             routes[route] += 1
             if got.shape != want.shape or got.dtype != dt:
                 raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{dt}")
@@ -1175,18 +1194,28 @@ def phase_flash() -> dict:
             f"{str(dt).removeprefix('torch.')} {worst[dt]:.3g} within {FLASH_TOL[dt]:.3g}, "
             f"a dropped key {planted[dt]:.3g}" for dt in FLASH_TOL) + ")")
 
-    q, k, v = _flash_inputs(gen, 1, 2048, 2048, 32, 8, 128, torch.float16)
+    # The main path: the entry point at the kernel line's three shapes, one
+    # call each, read by the launch counters from zero.
     fa.dense_launches.reset()
     fa.dense_tc_launches.reset()
-    out = ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    launched = (fa.dense_tc_launches.n, fa.dense_launches.n)
-    if launched != (1, 0) or not torch.isfinite(out).all():
-        raise AssertionError(f"flash attention entry point: launches (tc, simt) {launched}, "
-                             f"finite {bool(torch.isfinite(out).all())}")
-    log(f"flash attention entry point: 1 launch on the tensor cores, output "
-        f"{tuple(out.shape)} finite")
-    return {"dense": launched[0]}
+    launched = {}
+    for key, (hq, hkv, hd, dt) in FLASH_ROWS.items():
+        q, k, v = _flash_inputs(gen, 1, 2048, 2048, hq, hkv, hd, dt)
+        before = (fa.dense_tc_launches.n, fa.dense_launches.n)
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ran = (fa.dense_tc_launches.n - before[0], fa.dense_launches.n - before[1])
+        want = (1, 0) if fa.plan_flash(q, k, v) == "tc" else (0, 1)
+        if ran != want or not torch.isfinite(out).all():
+            raise AssertionError(f"flash attention entry point {key}: launches (tc, simt) {ran}, "
+                                 f"finite {bool(torch.isfinite(out).all())}")
+        launched[key] = 1
+    if (fa.dense_tc_launches.n, fa.dense_launches.n) != (2, 1):
+        raise AssertionError("flash attention entry point: launches (tc, simt) "
+                             f"{(fa.dense_tc_launches.n, fa.dense_launches.n)}, not (2, 1)")
+    log("flash attention entry point: fp16 hd 128 and hd 256 on the tensor cores, fp32 hd 128 "
+        "on the register-tiled kernel, one launch each, outputs finite")
+    return {"dense": launched}
 
 
 # -- phase 6 ---------------------------------------------------------------------
@@ -5111,11 +5140,11 @@ def _encdec_entries(counts) -> list:
     return rows
 
 
-def _flash_entry(counts):
-    """The dense flash attention at granite's training shape in fp16
-    (causal), on the route ``plan_flash`` names (the tensor cores), as a
-    CUDA-graph replay with eager calls beside, bound by ``roofline/cost.py``'s
-    count, beside ``scaled_dot_product_attention`` on the same q and the KV
+def _flash_entries(counts) -> list:
+    """The dense flash attention at each of ``FLASH_ROWS``' shapes (causal),
+    on the route ``plan_flash`` names, as CUDA-graph replays with eager
+    calls beside, bound by ``roofline/cost.py``'s count, beside the plain
+    version and ``scaled_dot_product_attention`` on the same q and the KV
     heads expanded for it."""
     import torch.nn.functional as F
 
@@ -5123,34 +5152,43 @@ def _flash_entry(counts):
         flash_attention,
         flash_attention_plain,
         plan_flash,
+        simt_tile,
     )
     from repro_torch.roofline import cost
 
-    b, s, hq, hkv, hd = 1, 2048, 32, 8, 128
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = _flash_inputs(gen, b, s, s, hq, hkv, hd, torch.float16)
-    route = plan_flash(q, k, v)
-    got = flash_attention(q, k, v)
-    want = flash_attention_plain(q, k, v)
-    ms = time_ms(lambda: flash_attention(q, k, v), graph=True)
-    eager_ms = time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), iters=5)
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound = cost.flash_attention_cost(q, k, v, causal=True)
-    source = {"tc": "flash_attention_tc.cu", "simt": "flash_attention.cu"}[route]
-    return {
-        "name": f"flash_attention[B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal fp16]", "route": "cuda",
-        "source": f"src/repro_torch/csrc/{source}", "schedule": route,
-        "replaces": "src/repro/kernels/flash_attention.py:254",
-        "launches": counts["dense"],
-        "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms,
-        "bound_by": bound.bound_by, "library_ms": library_ms,
-        "tflop_s": bound.flops / ms / 1e9,
-    }
+    rows = []
+    for key, (hq, hkv, hd, dt) in FLASH_ROWS.items():
+        b, s = 1, 2048
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v = _flash_inputs(gen, b, s, s, hq, hkv, hd, dt)
+        route = plan_flash(q, k, v)
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        ms = time_ms(lambda: flash_attention(q, k, v), graph=True)
+        eager_ms = time_ms(lambda: flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), iters=5)
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        bound = cost.flash_attention_cost(q, k, v, causal=True)
+        source = {"tc": "flash_attention_tc.cu", "simt": "flash_attention.cu"}[route]
+        name = str(dt).removeprefix("torch.")
+        schedule = route if route == "tc" else f"simt {simt_tile(dt, hd)['loads']}"
+        rows.append({
+            "name": f"flash_attention[B{b} S{s} Hq{hq} Hkv{hkv} hd{hd} causal {name}]",
+            "route": "cuda", "source": f"src/repro_torch/csrc/{source}", "schedule": schedule,
+            "replaces": "src/repro/kernels/flash_attention.py:254",
+            "launches": counts["dense"][key],
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "row_err": row_err(got, want),
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms,
+            "bound_by": bound.bound_by, "library_ms": library_ms,
+            "tflop_s": bound.flops / ms / 1e9,
+        })
+        if not row_err(got, want) <= FLASH_TOL[dt]:
+            raise AssertionError(f"{rows[-1]['name']}: worst row {row_err(got, want):.3g}")
+    return rows
 
 
 def _log_entry(e) -> None:
@@ -5529,15 +5567,20 @@ TP_BOUND = (1e-4, 5e-3)
 # by mode: the losses relative, and the parameters after the third step
 # as the norm of their difference over the norm of the one-process update
 # (all leaves, and the worst leaf). The updates carry the step's own
-# arithmetic (the sliced AdamW, FSDP's per-use gradient sums). TP read 0
+# arithmetic (the sliced AdamW, the sums over the data axes). TP read 0
 # for all three (its fp32 sums of E4M3 x E4M3 products are exact in
-# either order); the bounds leave room for one rounding flip. FSDP read
-# 5.2e-5, 0.201 and 0.507: each rank's dW partial over its rows is
-# rounded to fp16 before the fp32 sum over the data axes, and AdamW's
-# early steps move an element by about lr whatever its gradient's size,
-# so an element whose tiny gradient changes sign moves by up to 2 lr. A
-# wrong slice or sum moves whole leaves by their update (1 and above).
-TP_LATER_BOUND = {"tp": (1e-5, 0.02, 0.05), "fsdp": (2e-4, 0.3, 0.75)}
+# either order). FSDP and DP read 1.1e-7, 3.7e-8 and 1.2e-5 once each
+# GEMM weight's dW was summed in fp32 over the data ranks before its one
+# cast (PR 24's FSDP, which rounded each rank's dW partial to fp16 first,
+# read 5.2e-5, 0.201 and 0.507): only the fp32 order of the halves' sums
+# and of the norms' sums differs. The bounds leave room for a rounding
+# flip, which AdamW's early steps turn into a move of up to 2 lr; a wrong
+# slice or sum moves whole leaves by their update (1 and above).
+TP_LATER_BOUND = {"tp": (1e-5, 0.02, 0.05), "fsdp": (1e-5, 0.02, 0.05), "dp": (1e-5, 0.02, 0.05)}
+# The modes and their (data, model) meshes of two ranks: TP, FSDP, and
+# plain data parallelism with ZeRO-1 moments (the control beside FSDP:
+# the same sums over 'data' without the per-use gathers).
+TP_MODES = {"tp": (1, 2), "fsdp": (2, 1), "dp": (2, 1)}
 
 
 def _tp_rank(rank: int, world: int, store: str, queue) -> None:
@@ -5583,10 +5626,10 @@ def _tp_rank(rank: int, world: int, store: str, queue) -> None:
         updates = [float((a.float() - b.float()).norm()) for a, b in zip(one_params, first)]
         del one, init, first, state, step, m
         torch.cuda.empty_cache()
-        for mode, shape in (("tp", (1, world)), ("fsdp", (world, 1))):
+        for mode, shape in TP_MODES.items():
             mesh = make_mesh(shape, ("data", "model"))
-            ctx = (MeshCtx(mesh=mesh, dp_axes=("data",), ep_axis="model") if mode == "tp" else
-                   MeshCtx(mesh=mesh, dp_axes=("data", "model"), ep_axis=None, tp_axis=None))
+            ctx = (MeshCtx(mesh=mesh, dp_axes=("data", "model"), ep_axis=None, tp_axis=None)
+                   if mode == "fsdp" else MeshCtx(mesh=mesh, dp_axes=("data",), ep_axis="model"))
             model = build(cfg, ctx, device="cuda")
             state = init_train_state(model, opt, shd.local_params(model.init(0), cfg, ctx),
                                      mesh_ctx=ctx)
@@ -5685,7 +5728,7 @@ def phase_tp() -> dict:
         raise AssertionError("phase 22 ranks failed:\n" + "\n".join(errors))
     cfg = get_config(TP_ARCH)
     shapes = _tp_shapes(cfg)
-    for mode in ("tp", "fsdp"):
+    for mode in TP_MODES:
         for r in (0, 1):
             res, out = results[r], results[r][mode]
             lo, go = res["one"]["losses"][0], res["one"]["gnorms"][0]
@@ -5695,9 +5738,9 @@ def phase_tp() -> dict:
             b_later, b_err, b_worst = TP_LATER_BOUND[mode]
             traffic = ", ".join(f"{t} {c} calls {b / 1e6:.1f} MB"
                                 for t, (c, b) in sorted(out["traffic"].items()))
-            log(f"tp ranks (22{'a' if mode == 'tp' else 'b'}) {mode} rank {r}: {TP_ARCH} "
+            log(f"tp ranks (22{dict(tp='a', fsdp='b', dp='c')[mode]}) {mode} rank {r}: {TP_ARCH} "
                 f"{TP_LAYERS} layers, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, mesh "
-                f"{'(1, 2)' if mode == 'tp' else '(2, 1)'}: step 1 loss {out['losses'][0]:.6f} "
+                f"{TP_MODES[mode]}: step 1 loss {out['losses'][0]:.6f} "
                 f"vs one process {lo:.6f} (rel {d_loss:.3g}, bound {TP_BOUND[0]:g}), grad norm "
                 f"{out['gnorms'][0]:.5f} vs {go:.5f} (rel {d_gnorm:.3g}, bound {TP_BOUND[1]:g});"
                 f" losses {[round(v, 5) for v in out['losses']]} vs one process "
@@ -5765,7 +5808,7 @@ def _tp_entries(counts) -> list:
 
 def phase_kernel_line(counts, paper_rows=()) -> list:
     entries = [*_gemm_entries(counts), *_simt_entries(counts), *_decode_entries(counts),
-               _flash_entry(counts), *_family_entries(counts), *_recurrent_entries(counts),
+               *_flash_entries(counts), *_family_entries(counts), *_recurrent_entries(counts),
                *_spec_state_entries(counts), *_encdec_entries(counts), *_ep_entries(counts),
                *_tp_entries(counts), *paper_rows]
     for e in entries:

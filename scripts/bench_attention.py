@@ -13,8 +13,9 @@
   ``scaled_dot_product_attention``;
 - the dense flash attention (``kernels.flash_attention.flash_attention``)
   at granite-3-8b's training shape, B1 S2048 Hq32 Hkv8 hd128, causal,
-  fp16 (the tensor-core kernel) and fp32 (the SIMT kernel), and at
-  gemma2-9b's heads, Hq16 Hkv8 hd256, fp16 (the SIMT kernel), each beside
+  fp16 (the tensor-core kernel) and fp32 (the register-tiled CUDA-core
+  kernel), and at Hq16 Hkv8 hd256 in fp16 (the tensor cores' 64-key
+  instance; the SIMT kernel before it had one), each beside
   ``scaled_dot_product_attention``, with its route.
 
 It uses only the wrappers' common signatures, so the same script times
@@ -169,8 +170,8 @@ def main() -> int:
             bench_decode("S16 Hq32 Hkv8 hd128 ps16 e4m3, 4096 tokens a slot, 256 pages",
                          decode_case(3, 16, [4095] * 16, 256), splits),
             bench_dense(),
-            # The SIMT kernel (csrc/flash_attention.cu): fp32, and hd 256
-            # (gemma2-9b's heads) in fp16.
+            # fp32 on the register-tiled kernel (csrc/flash_attention.cu), and
+            # hd 256 in fp16 on the tensor cores.
             bench_dense(torch.float32),
             bench_dense(torch.float16, hq=16, hkv=8, hd=256),
         ]

@@ -20,8 +20,10 @@ choose plans, so this module checks, without running a kernel:
   decode's slots) thins;
 - the Python mirrors of the ``csrc/`` constants (``TC_TILE_M/N`` against
   ``BM/BN``, ``SR_BLOCK_N``, ``SR_STEP``, ``SR_MAX_M``, the SIMT tiles,
-  ``_DECODE_GROUP`` against ``GB``) equal to the values read from the
-  sources.
+  ``_DECODE_GROUP`` against ``GB``, the dense attention's query and key
+  tiles and padding) equal to the values read from the sources, and each
+  dense attention instance's shared memory (tensor cores at hd 64, 128
+  and 256; the register-tiled kernel at each width) within a block's.
 
 Coverage is enforced structurally, as in the reference:
 :func:`discover_tables` finds every module-level split rule
@@ -67,6 +69,12 @@ MIRRORS = {
     ("redmule_gemm", "SIMT_TILE_N"): ("redmule_simt.cuh", "BN"),
     ("redmule_gemm", "SIMT_BK"): ("redmule_simt.cuh", "BK"),
     ("flash_attention", "_DECODE_GROUP"): ("paged_decode.cu", "GB"),
+    ("flash_attention", "TC_ROWS"): ("flash_attention_tc.cu", "BQ"),
+    ("flash_attention", "TC_KEYS"): ("flash_attention_tc.cu", "BKEYS"),
+    ("flash_attention", "TC_KEYS_HD256"): ("flash_attention_tc.cu", "BKEYS_HD256"),
+    ("flash_attention", "SIMT_KEYS"): ("flash_attention.cu", "BK"),
+    ("flash_attention", "SIMT_PAD"): ("flash_attention.cu", "PAD"),
+    ("flash_attention", "SIMT_P_ROW"): ("flash_attention.cu", "PK"),
 }
 _MODULES = {"redmule_gemm": redmule_gemm, "flash_attention": flash_attention}
 _CONSTEXPR = re.compile(r"constexpr\s+int\s+([^;(]+);")
@@ -168,7 +176,8 @@ def validate_tuning_tables(module=tuning, csrc: Path = CSRC) -> list[TileFinding
         findings.append(TileFinding(table, str(entry), detail))
 
     consts = {name: csrc_constants(csrc / name) for name in
-              ("redmule_gemm_tc.cu", "redmule_gemm_sr.cu", "redmule_simt.cuh", "paged_decode.cu")}
+              ("redmule_gemm_tc.cu", "redmule_gemm_sr.cu", "redmule_simt.cuh", "paged_decode.cu",
+               "flash_attention_tc.cu", "flash_attention.cu")}
 
     # -- coverage: no unknown tables -------------------------------------------
     known = set(GEMM_TABLES) | set(DECODE_TABLES)
@@ -220,6 +229,11 @@ def validate_tuning_tables(module=tuning, csrc: Path = CSRC) -> list[TileFinding
              "small_row": sr_smem_bytes(consts["redmule_gemm_sr.cu"])}
     for form in ("f32", "h2"):
         sizes[f"simt {form}"] = simt_smem_bytes(consts["redmule_simt.cuh"], form)
+    # The dense attention's instances (their tiles from the mirrors above).
+    for hd in flash_attention.TC_HEAD_DIMS:
+        sizes[f"flash tc hd {hd}"] = flash_attention.tc_tile(hd)["smem_bytes"]
+    for width in flash_attention.SIMT_WIDTHS:
+        sizes[f"flash simt hd {width}"] = flash_attention.simt_tile(FP32, width)["smem_bytes"]
     for label, size in sizes.items():
         if size > SMEM_PER_BLOCK:
             bad("smem", label, f"{size} bytes a block > the H100's {SMEM_PER_BLOCK}")

@@ -130,6 +130,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
   }
 }
 
+// The same for one m64n64k16 step (d: 32 accumulators a thread).
+template <bool BF16>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  if constexpr (BF16) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_OUT32 : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HOPPER_D32
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_OUT32 : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
 // d (+)= A.B for one m64nNk16 step (N = 128 or 64 by d's size): A from
 // registers (four packed 16-bit pairs a thread, the m16n8k16 A fragment of
 // the thread's warp's 16 rows), B MN-major in shared memory (the transpose

@@ -32,7 +32,14 @@ the train step sums it over the data axes alone.
 - :func:`use_param`: FSDP's and ZeRO-3's per-use gather of a parameter
   split over the data axes. Forward ``gather_full``; backward the fp32
   sum of the gradient over those axes (gloo has no reduce-scatter: an
-  all-reduce, then this rank's piece).
+  all-reduce, then this rank's piece), or for a weight summed in its uses
+  (:func:`summed_in_use`) just this rank's piece of the sum they made.
+- :class:`DataSum` and :func:`embed_rows`: the data-parallel gradient of a
+  weight summed inside its uses (``engine.autodiff.mark_summed``): each
+  GEMM-Op's dW in fp32, summed over the data axes before its one cast, as
+  GSPMD sums the reference's dot output; the embedding gather's
+  cotangent rows and their token ids gathered over the data axes in rank
+  order and scattered as one process scatters the global batch's.
 
 Each GEMM here is the hybrid-FP8 core of ``engine/autodiff.py`` (E4M3
 forward operands, E5M2 cotangents) on the GEMM-Op kernel, with the
@@ -41,6 +48,7 @@ tag into ``collectives.traffic``, which ``launch/dryrun.py`` plans.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, NamedTuple
 
 import torch
@@ -69,6 +77,39 @@ class TP(NamedTuple):
         return self.mesh.axis_index(self.axis)
 
 
+class DataSum(NamedTuple):
+    """How a weight's gradient is summed over data axes inside its uses
+    (``autodiff.mark_summed``): ``sum`` an fp32 partial over the axes,
+    ``gather`` rows (dim 0) from every rank in axis order."""
+
+    mesh: Any
+    axes: tuple
+    tag: str = "dp_grad_all_reduce"
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return collectives.all_reduce(t.float(), self.mesh, self.axes, tag=self.tag)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.cat(collectives.all_gather(t.contiguous(), self.mesh, self.axes,
+                                                tag="dp_embed_all_gather"), dim=0)
+
+
+# Leaves whose every use in a train step sums its own gradient over the
+# data axes: the GEMM-Op weights (dense, attention, FFN, the experts, the
+# heads and frontends' projections, sLSTM's recurrence through its fp32
+# copy; not the fp32 router, whose gradient the step sums as it always
+# did) and the embedding table (its gather, and the logits GEMM where it is
+# tied). Norm scales and biases, convolutions and RG-LRU's lambda keep the
+# step's sum of each rank's gradient.
+_SUMMED_IN_USE = re.compile(r"(.*/)?(w|r|table|moe/(up|gate|down))$")
+
+
+def summed_in_use(path: str) -> bool:
+    """Whether the leaf at ``path`` has its data-parallel gradient summed
+    inside its uses (the GEMM-Op weights and the embedding table)."""
+    return bool(_SUMMED_IN_USE.match(path)) and not path.endswith("router/w")
+
+
 def tp_of(mesh_ctx) -> TP | None:
     """The TP axis of a ``MeshCtx``, or None (no mesh, FSDP mode, or an
     axis of one rank)."""
@@ -91,10 +132,10 @@ class _ColumnCore(torch.autograd.Function):
     partials in fp32, summed over the axis, then cast."""
 
     @staticmethod
-    def forward(ctx, a, b, engine, tp):
+    def forward(ctx, a, b, engine, tp, summed):
         pol = engine.policy
         aq, bq = cast(a, pol.storage_fwd), cast(b, pol.storage_fwd)
-        ctx.engine, ctx.tp = engine, tp
+        ctx.engine, ctx.tp, ctx.summed = engine, tp, summed
         ctx.save_for_backward(aq, bq)
         return autodiff._kernel_gemm(aq, bq, None, semiring.MATMUL, ctx.engine)
 
@@ -103,7 +144,7 @@ class _ColumnCore(torch.autograd.Function):
         aq, bq = ctx.saved_tensors
         pol = ctx.engine.policy
         need_a, need_b = ctx.needs_input_grad[:2]
-        _, db = autodiff._mp_backward(ctx.engine, (False, need_b), aq, bq, g)
+        _, db = autodiff._mp_backward(ctx.engine, (False, need_b), aq, bq, g, ctx.summed)
         da = None
         if need_a:
             gq = cast(cast(g, pol.compute), pol.storage_bwd)
@@ -111,7 +152,7 @@ class _ColumnCore(torch.autograd.Function):
                                          ctx.engine, out_dtype=pol.acc)
             part = autodiff._sum_to_shape(part, aq.shape)
             da = _sum32(part, ctx.tp, "tp_grad_all_reduce").to(pol.compute)
-        return da, db, None, None
+        return da, db, None, None, None
 
 
 class _RowCore(torch.autograd.Function):
@@ -119,10 +160,10 @@ class _RowCore(torch.autograd.Function):
     piece): fp32 partials summed, then one cast to ``policy.out``."""
 
     @staticmethod
-    def forward(ctx, a, b, engine, tp):
+    def forward(ctx, a, b, engine, tp, summed):
         pol = engine.policy
         aq, bq = cast(a, pol.storage_fwd), cast(b, pol.storage_fwd)
-        ctx.engine = engine
+        ctx.engine, ctx.summed = engine, summed
         ctx.save_for_backward(aq, bq)
         part = autodiff._kernel_gemm(aq, bq, None, semiring.MATMUL, engine, out_dtype=pol.acc)
         return cast(_sum32(part, tp, "tp_row_all_reduce"), pol.out)
@@ -130,8 +171,9 @@ class _RowCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         aq, bq = ctx.saved_tensors
-        da, db = autodiff._mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g)
-        return da, db, None, None
+        da, db = autodiff._mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g,
+                                       ctx.summed)
+        return da, db, None, None, None
 
 
 def column_linear(x: torch.Tensor, p: dict, engine, tp: TP) -> torch.Tensor:
@@ -139,7 +181,7 @@ def column_linear(x: torch.Tensor, p: dict, engine, tp: TP) -> torch.Tensor:
     bias piece): (..., N / tp) in ``policy.out``."""
     pol = engine.policy
     y = _ColumnCore.apply(autodiff._to_compute(x, pol), autodiff._to_compute(p["w"], pol),
-                          engine, tp)
+                          engine, tp, autodiff.summed_by(p["w"]))
     return y if p.get("b") is None else y + p["b"].to(y.dtype)
 
 
@@ -149,7 +191,7 @@ def row_linear(x: torch.Tensor, p: dict, engine, tp: TP) -> torch.Tensor:
     on every rank) added once, after the sum."""
     pol = engine.policy
     y = _RowCore.apply(autodiff._to_compute(x, pol), autodiff._to_compute(p["w"], pol),
-                       engine, tp)
+                       engine, tp, autodiff.summed_by(p["w"]))
     return y if p.get("b") is None else y + p["b"].to(y.dtype)
 
 
@@ -223,6 +265,37 @@ def grad_sum(x: torch.Tensor, tp: TP) -> torch.Tensor:
     return collectives.copy_to(x, tp.mesh, tp.axis, fp32=True, tag="tp_grad_all_reduce")
 
 
+# -- the embedding gather ----------------------------------------------------------------
+
+
+class _SummedRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, how):
+        ctx.how, ctx.shape = how, table.shape
+        ctx.save_for_backward(idx)
+        return take_rows(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        rows = ctx.how.gather(g.reshape(-1, g.shape[-1]))
+        at = ctx.how.gather(idx.reshape(-1))
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return grad.index_put_((at,), rows, accumulate=True), None, None
+
+
+def embed_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_rows(table, idx)``; for a table summed in its uses
+    (``autodiff.summed_by``) the backward gathers every data rank's
+    cotangent rows and ids in rank order and scatters them all, as one
+    process scatters the global batch's (the same order, so the same
+    fp16 sums), instead of summing each rank's scattered table."""
+    how = autodiff.summed_by(table)
+    if how is None:
+        return take_rows(table, idx)
+    return _SummedRows.apply(table, idx, how)
+
+
 # -- vocab parallelism --------------------------------------------------------------------
 
 
@@ -239,10 +312,10 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, tp: TP,
     summed in fp32. Exactly one rank holds a token's row and -0.0 is the
     sum's identity (signed zeros and NaN included), so the result is the
     whole table's row bit for bit."""
-    rows = table.shape[0]
-    local = tokens - tp.index * rows
-    held = (local >= 0) & (local < rows)
-    x = take_rows(table, local.clamp(0, rows - 1)).float()
+    n_rows = table.shape[0]
+    local = tokens - tp.index * n_rows
+    held = (local >= 0) & (local < n_rows)
+    x = embed_rows(table, local.clamp(0, n_rows - 1)).float()
     x = torch.where(held[..., None], x, NEG_ZERO)
     return _psum(x, tp, "tp_embed_all_reduce").to(dtype)
 
@@ -268,24 +341,34 @@ def vocab_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
 # -- FSDP and ZeRO-3 --------------------------------------------------------------------
 
 
+def _spec_axes(spec, mesh) -> tuple:
+    return tuple(a for a in mesh.axis_names if any(a in sharding._names(p) for p in spec))
+
+
 class _UseParam(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, piece, spec, mesh):
-        ctx.spec, ctx.mesh, ctx.dtype = spec, mesh, piece.dtype
+    def forward(ctx, piece, spec, mesh, summed):
+        ctx.spec, ctx.mesh, ctx.dtype, ctx.summed = spec, mesh, piece.dtype, summed
         return sharding.gather_full(piece, spec, mesh, tag="fsdp_param_all_gather")
 
     @staticmethod
     def backward(ctx, g):
-        axes = tuple(a for a in ctx.mesh.axis_names
-                     if any(a in sharding._names(p) for p in ctx.spec))
-        whole = collectives.all_reduce(g.float(), ctx.mesh, axes, tag="fsdp_grad_all_reduce")
-        return sharding.shard_of(whole, ctx.spec, ctx.mesh).to(ctx.dtype), None, None
+        if not ctx.summed:
+            g = collectives.all_reduce(g.float(), ctx.mesh, _spec_axes(ctx.spec, ctx.mesh),
+                                       tag="fsdp_grad_all_reduce")
+        return sharding.shard_of(g, ctx.spec, ctx.mesh).to(ctx.dtype), None, None, None
 
 
-def use_param(piece: torch.Tensor, spec, mesh) -> torch.Tensor:
+def use_param(piece: torch.Tensor, spec, mesh, summed: bool = False) -> torch.Tensor:
     """The whole parameter of a piece split over the data axes by ``spec``
     (the data-axis part of its spec, ``sharding.over_axes``); the
-    gradient comes back as this rank's piece of its sum over those axes."""
+    gradient comes back as this rank's piece of its sum over those axes.
+    ``summed``: a weight summed in its uses (:func:`summed_in_use`): the
+    whole parameter is marked so (``autodiff.mark_summed``), and the
+    gradient that comes back is already their sum."""
     if all(p is None for p in spec):
         return piece
-    return _UseParam.apply(piece, spec, mesh)
+    whole = _UseParam.apply(piece, spec, mesh, summed)
+    if summed:
+        autodiff.mark_summed(whole, DataSum(mesh, _spec_axes(spec, mesh), "fsdp_grad_all_reduce"))
+    return whole

@@ -21,6 +21,15 @@ packages agree bit for bit at the engine level. A cast whose result is its
 input is skipped: a weight already stored in E4M3 goes to fp16 and back
 unchanged, so it reaches the kernel as it is, without a widened copy.
 
+Data parallelism: a train step on a mesh marks each weight whose gradient
+is summed over the data ranks (:func:`mark_summed`, with the step's
+``distrib.tensor_parallel.DataSum``). A GEMM whose weight operand is such a
+weight, or a view of one, emits that weight's gradient in the accumulator
+format, sums it over the ranks in fp32 and casts it once to the gradient
+format, inside its backward: GSPMD puts the reference's all-reduce on the
+dot's fp32 result, before its one cast, and autograd would round a
+gradient handed back in fp32 to its fp16 input before any later sum.
+
 Semiring ops (star in {min, max}): tropical subgradients. The cotangent
 goes to the arg-star lanes with JAX's own tie rules -- reduction ties split
 it evenly (``reduce_min``/``reduce_max``), and a circ min/max tie splits it
@@ -43,6 +52,42 @@ from repro_torch.kernels import ops as kernel_ops
 # K-chunk of the tropical backward recompute: bounds the live selection
 # block at (batch, M, _BWD_K_CHUNK, N) in the accumulator format.
 _BWD_K_CHUNK = 64
+
+_SUMMED = "_repro_data_sum"
+
+
+def mark_summed(t: torch.Tensor, how) -> torch.Tensor:
+    """Mark ``t`` (a parameter leaf of a train step, or FSDP's gathered
+    whole parameter) as summed over the data ranks inside its uses;
+    ``how.sum(x)`` sums an fp32 tensor over those ranks. Returns ``t``."""
+    setattr(t, _SUMMED, how)
+    return t
+
+
+def summed_by(t: torch.Tensor):
+    """The data sum of a marked tensor, or of the tensor ``t`` is a view
+    of (``table.T``, an expert's columns); None for any other."""
+    how = getattr(t, _SUMMED, None)
+    if how is None and t._base is not None:
+        how = getattr(t._base, _SUMMED, None)
+    return how
+
+
+def summed_like(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``t``, a copy of ``src`` in another format (sLSTM's fp32 recurrence
+    weight), marked as ``src`` is: its GEMMs then sum its gradient."""
+    how = summed_by(src)
+    return t if how is None else mark_summed(t, how)
+
+
+def _weight_grad(db: torch.Tensor, shape, summed, compute) -> torch.Tensor:
+    """A weight's gradient in the gradient format: summed to its shape, and
+    for a marked weight first summed over the data ranks (``db`` then in
+    the accumulator format)."""
+    db = _sum_to_shape(db, shape)
+    if summed is not None:
+        db = summed.sum(db)
+    return db.to(compute)
 
 
 def _swap_last(a: torch.Tensor) -> torch.Tensor:
@@ -85,10 +130,13 @@ def quantize_fwd(a: torch.Tensor, policy) -> torch.Tensor:
     return cast(_to_compute(a, policy), policy.storage_fwd)
 
 
-def _mp_backward(engine, needs, aq, bq, g):
+def _mp_backward(engine, needs, aq, bq, g, summed=None):
     """(da, db) of z = aq @ bq under the engine's policy: both GEMMs read the
-    cotangent in the backward storage format (E5M2 under hybrid FP8)."""
+    cotangent in the backward storage format (E5M2 under hybrid FP8). With
+    ``summed`` (bq's data sum) db is emitted in the accumulator format and
+    summed over the data ranks before its one cast."""
     pol = engine.policy
+    db_dtype = pol.compute if summed is None else pol.acc
     gq = cast(cast(g, pol.compute), pol.storage_bwd)
     da = db = None
     if needs[0]:
@@ -101,11 +149,11 @@ def _mp_backward(engine, needs, aq, bq, g):
             # one unbatched GEMM instead of a batched GEMM and a reduction.
             kdim, n = aq.shape[-1], gq.shape[-1]
             db = _kernel_gemm(_swap_last(aq.reshape(-1, kdim)), gq.reshape(-1, n), None,
-                              semiring.MATMUL, engine, out_dtype=pol.compute)
+                              semiring.MATMUL, engine, out_dtype=db_dtype)
         else:
             db = _kernel_gemm(_swap_last(aq), gq, None, semiring.MATMUL, engine,
-                              out_dtype=pol.compute)
-        db = _sum_to_shape(db, bq.shape).to(pol.compute)
+                              out_dtype=db_dtype)
+        db = _weight_grad(db, bq.shape, summed, pol.compute)
     return da, db
 
 
@@ -113,18 +161,18 @@ class _MpCore(torch.autograd.Function):
     """z = a @ b on compute-format operands, with the hybrid-FP8 VJP."""
 
     @staticmethod
-    def forward(ctx, a, b, engine):
+    def forward(ctx, a, b, engine, summed):
         pol = engine.policy
         aq, bq = cast(a, pol.storage_fwd), cast(b, pol.storage_fwd)
-        ctx.engine = engine
+        ctx.engine, ctx.summed = engine, summed
         ctx.save_for_backward(aq, bq)
         return _kernel_gemm(aq, bq, None, semiring.MATMUL, engine)
 
     @staticmethod
     def backward(ctx, g):
         aq, bq = ctx.saved_tensors
-        da, db = _mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g)
-        return da, db, None
+        da, db = _mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g, ctx.summed)
+        return da, db, None, None
 
 
 class _MpCoreY(torch.autograd.Function):
@@ -132,10 +180,10 @@ class _MpCoreY(torch.autograd.Function):
     dy is the cotangent, batch-summed to y's shape."""
 
     @staticmethod
-    def forward(ctx, a, b, y, engine):
+    def forward(ctx, a, b, y, engine, summed):
         pol = engine.policy
         aq, bq = cast(a, pol.storage_fwd), cast(b, pol.storage_fwd)
-        ctx.engine = engine
+        ctx.engine, ctx.summed = engine, summed
         ctx.y_meta = (tuple(y.shape), y.dtype)
         ctx.save_for_backward(aq, bq)
         return _kernel_gemm(aq, bq, y, semiring.MATMUL, engine)
@@ -143,19 +191,19 @@ class _MpCoreY(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         aq, bq = ctx.saved_tensors
-        da, db = _mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g)
+        da, db = _mp_backward(ctx.engine, ctx.needs_input_grad[:2], aq, bq, g, ctx.summed)
         dy = None
         if ctx.needs_input_grad[2]:
             y_shape, y_dtype = ctx.y_meta
             dy = _sum_to_shape(g.to(ctx.engine.policy.acc), y_shape).to(y_dtype)
-        return da, db, dy, None
+        return da, db, dy, None, None
 
 
 def mp_matmul(a: torch.Tensor, b: torch.Tensor, engine) -> torch.Tensor:
     """z = a @ b under the engine's policy, on the engine's backend,
     differentiable with the hybrid-FP8 rule."""
     pol = engine.policy
-    return _MpCore.apply(_to_compute(a, pol), _to_compute(b, pol), engine)
+    return _MpCore.apply(_to_compute(a, pol), _to_compute(b, pol), engine, summed_by(b))
 
 
 # -- tropical VJP ----------------------------------------------------------------
@@ -177,7 +225,7 @@ def _circ_factors(circ: Op, xe, we):
     return fx, 1.0 - fx
 
 
-def _tropical_backward(gop: GemmOp, engine, xq, wq, r, g):
+def _tropical_backward(gop: GemmOp, engine, xq, wq, r, g, summed=None):
     pol = engine.policy
     compute, acc = pol.compute, pol.acc
     xc, wc = xq.to(compute), wq.to(compute)
@@ -215,29 +263,28 @@ def _tropical_backward(gop: GemmOp, engine, xq, wq, r, g):
         fx, fw = _circ_factors(gop.circ, xe, we)
         dx[..., :, k0:k1] = (contrib * fx).sum(-1)
         dw[..., k0:k1, :] = (contrib * fw).sum(-3)
-    return (_sum_to_shape(dx, xq.shape).to(compute),
-            _sum_to_shape(dw, wq.shape).to(compute))
+    return _sum_to_shape(dx, xq.shape).to(compute), _weight_grad(dw, wq.shape, summed, compute)
 
 
 class _TropicalCore(torch.autograd.Function):
     """r = star_k circ(x, w) in the accumulator format, with the tropical VJP."""
 
     @staticmethod
-    def forward(ctx, x, w, gop, engine):
+    def forward(ctx, x, w, gop, engine, summed):
         pol = engine.policy
         xq, wq = cast(x, pol.storage_fwd), cast(w, pol.storage_fwd)
         # Accumulator-format output: min/max select (never round), so the
         # saved reduction compares bit for bit with the backward recompute.
         r = _kernel_gemm(xq, wq, None, gop, engine, out_dtype=pol.acc)
-        ctx.gop, ctx.engine = gop, engine
+        ctx.gop, ctx.engine, ctx.summed = gop, engine, summed
         ctx.save_for_backward(xq, wq, r)
         return r
 
     @staticmethod
     def backward(ctx, g):
         xq, wq, r = ctx.saved_tensors
-        dx, dw = _tropical_backward(ctx.gop, ctx.engine, xq, wq, r, g)
-        return dx, dw, None, None
+        dx, dw = _tropical_backward(ctx.gop, ctx.engine, xq, wq, r, g, ctx.summed)
+        return dx, dw, None, None, None
 
 
 def gemm_op(x, w, y, op, engine) -> torch.Tensor:
@@ -255,8 +302,8 @@ def gemm_op(x, w, y, op, engine) -> torch.Tensor:
     if gop.is_gemm:
         if y is None:
             return mp_matmul(x, w, engine)
-        return _MpCoreY.apply(_to_compute(x, pol), _to_compute(w, pol), y, engine)
-    r = _TropicalCore.apply(_to_compute(x, pol), _to_compute(w, pol), gop, engine)
+        return _MpCoreY.apply(_to_compute(x, pol), _to_compute(w, pol), y, engine, summed_by(w))
+    r = _TropicalCore.apply(_to_compute(x, pol), _to_compute(w, pol), gop, engine, summed_by(w))
     if y is not None:
         r = semiring.op_fn(gop.star)(y.to(r.dtype), r)
     return cast(r, pol.out)

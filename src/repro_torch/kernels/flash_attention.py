@@ -19,8 +19,9 @@ it, and ``chip_smoke.py`` holds the kernel against it on the card.
 :func:`flash_attention` launches one of two ports of
 ``repro/kernels/flash_attention.py::flash_attention_pallas``, by the route
 :func:`plan_flash` names from shapes and formats: ``csrc/flash_attention_tc.cu``
-(wgmma fed by TMA; fp16 and bf16 with hd 64 or 128) or
-``csrc/flash_attention.cu`` (fp32 on the CUDA cores; every other case):
+(wgmma fed by TMA; fp16 and bf16 with hd 64, 128 or 256) or
+``csrc/flash_attention.cu`` (register-tiled fp32 on the CUDA cores; fp32,
+and the other widths):
 dense online-softmax attention over (B, S, H, hd) tensors with a top-left
 causal mask, softcap, GQA read in place and ragged lengths masked in the
 kernel.
@@ -230,18 +231,67 @@ def paged_flash_decode_split_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return out.to(q.dtype)
 
 
+# The dense kernels' tiles, mirrors of the ``csrc/`` constants that
+# ``analysis/tiles.py`` reads back: csrc/flash_attention_tc.cu (``BQ``,
+# ``BKEYS``, ``BKEYS_HD256``, ``stages``, ``smem_bytes``) and
+# csrc/flash_attention.cu (``BK``, ``PAD``, ``PK``, ``rows``, ``smem_floats``).
+TC_HEAD_DIMS = (64, 128, 256)
+TC_ROWS = 128
+TC_KEYS = 128
+TC_KEYS_HD256 = 64
+SIMT_WIDTHS = (32, 64, 128, 256)
+SIMT_KEYS = 64
+SIMT_PAD = 4
+SIMT_P_ROW = SIMT_KEYS + 16
+
+
+def tc_tile(hd: int) -> dict:
+    """The tensor-core kernel's instance at head dim ``hd`` (64, 128 or
+    256): query rows and keys a tile, K/V stages, and the shared memory a
+    block takes (the Q tile, two tiles a stage, the barriers, the
+    1024-byte alignment pad)."""
+    if hd not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core kernel takes hd in {TC_HEAD_DIMS}, not {hd}")
+    keys = TC_KEYS_HD256 if hd == 256 else TC_KEYS
+    stages = 4 if hd == 64 else 2
+    smem = 1024 + (hd // 64) * 128 * (TC_ROWS + 2 * stages * keys) + (1 + 4 * stages) * 8
+    return {"rows": TC_ROWS, "keys": keys, "stages": stages, "smem_bytes": smem}
+
+
+def simt_tile(dtype: torch.dtype, hd: int) -> dict:
+    """The register-tiled CUDA-core kernel's instance for ``dtype`` at head
+    dim ``hd`` (<= 256): the smallest width of :data:`SIMT_WIDTHS` that
+    holds hd, its query rows a block (64 at width 256, else 128), keys a
+    tile, the loads (``"cp.async"`` for fp32 at exactly that width, else
+    ``"widening"``: each element widened to fp32, dims past hd zero) and
+    the shared memory a block takes."""
+    if not 1 <= hd <= _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes hd <= {_MAX_HEAD_DIM}, not {hd}")
+    width = next(w for w in SIMT_WIDTHS if hd <= w)
+    rows = 64 if width == 256 else 128
+    loads = "cp.async" if dtype == torch.float32 and hd == width else "widening"
+    floats = (rows + 2 * SIMT_KEYS) * (width + SIMT_PAD) + rows * SIMT_P_ROW
+    return {"width": width, "rows": rows, "keys": SIMT_KEYS, "loads": loads,
+            "smem_bytes": 4 * floats}
+
+
 def plan_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The dense flash attention's route for these operands, from shapes and
     formats alone: ``"tc"`` (``csrc/flash_attention_tc.cu``, wgmma fed by
-    TMA) for fp16 and bf16 with hd 64 or 128, else ``"simt"``
-    (``csrc/flash_attention.cu``, fp32 on the CUDA cores): fp32, and every
-    other hd. hd 256 (gemma2) stays on the SIMT kernel: its fp32 output
-    accumulator (128 registers a thread) beside the 64 of the score tile,
-    and a 64 KB Q tile with two 128 KB K/V stages, do not fit one block."""
+    TMA; :func:`tc_tile`) for fp16 and bf16 with hd 64, 128 or 256, else
+    ``"simt"`` (``csrc/flash_attention.cu``, register-tiled fp32 on the
+    CUDA cores; :func:`simt_tile` names its instance): fp32 at every hd,
+    and fp16 and bf16 at the other widths."""
     del k, v  # one format and hd for all three (the wrapper checks)
-    if q.dtype in (torch.float16, torch.bfloat16) and q.shape[-1] in (64, 128):
+    if q.dtype in (torch.float16, torch.bfloat16) and q.shape[-1] in TC_HEAD_DIMS:
         return "tc"
     return "simt"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at a 16-byte aligned address (the kernels' TMA maps and
+    16-byte loads need one): a copy where a view's offset breaks it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -251,7 +301,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd), one format among fp32, fp16
     and bf16, Hq a multiple of Hkv, hd <= 256. Returns (B, Sq, Hq, hd) in
     q's format. :func:`plan_flash` names the kernel; the tiles are each
-    kernel's own (tensor cores: 128 query rows, 128 keys; SIMT: 64, 32).
+    kernel's own (:func:`tc_tile`, :func:`simt_tile`).
     """
     tensors = (q, k, v)
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
@@ -262,7 +312,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if hq % hkv or hd > _MAX_HEAD_DIM or not (k.dtype == v.dtype == q.dtype):
         raise ValueError("the kernel takes Hq a multiple of Hkv, hd <= 256 and one format")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

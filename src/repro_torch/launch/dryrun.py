@@ -28,8 +28,10 @@ allocated:
   ``traffic`` counter. A train cell's are counted from the executed
   specs and the activations' shapes: its layers' (tensor-parallel sums
   and gathers, FSDP's per-use gathers and gradient sums, the
-  expert-parallel sums; ``layer_traffic``) and the step's gradient sums
-  over the data axes, ZeRO-1 gather and scalars (``step_traffic``). The
+  expert-parallel sums; ``layer_traffic``), the step's gradient sums
+  over the data axes, ZeRO-1 gather and scalars (``step_traffic``), and
+  the GEMM weights' and embedding table's sums inside their uses (one a
+  GEMM use, the embedding's rows gathered; ``use_sum_traffic``). The
   tests hold the executed step's counter against them. A prefill or
   decode cell (serving runs on one rank) keeps the plan: one fp32
   all-reduce of a (tokens, d_model) activation a row-parallel weight,
@@ -72,6 +74,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, cell_is_runnable, get_config
 from repro_torch.core.precision import get_policy
 from repro_torch.core.tree import leaves
 from repro_torch.distrib import sharding as shd
+from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.launch.mesh import (
     dp_axes_of,
     make_mesh,
@@ -415,7 +418,12 @@ def layer_traffic(cfg, params, mesh_ctx, batch: int, seq: int) -> dict:
             piece = shd.bytes_per_rank(leaf, spec, mesh)
             times = again if path.startswith(("layers/", "encoder/")) else 1
             gather("fsdp_param_all_gather", piece * n, n, times)
-            reduce("fsdp_grad_all_reduce", piece // leaf.element_size() * n * 4, n)
+            if tpl.summed_in_use(path):  # summed in its uses
+                for tag, v in use_sum_traffic(cfg, path, leaf, piece // leaf.element_size() * n * 4,
+                                              n, batch, seq, "fsdp_grad_all_reduce").items():
+                    out[tag] = out.get(tag, 0.0) + v
+            else:
+                reduce("fsdp_grad_all_reduce", piece // leaf.element_size() * n * 4, n)
     return {k: v for k, v in out.items() if v}
 
 
@@ -423,9 +431,10 @@ def step_traffic(cfg, params, mesh_ctx, zero1: bool = True) -> dict:
     """The train step's own collectives from the specs (``training/
     loop.py``): each leaf's fp32 gradient summed over the data axes (the
     router's also over the expert axis; none for a leaf split over them,
-    whose per-use gather summed it), the ZeRO-1 gather of each sliced
-    leaf, and the scalars (the supervised count, loss and aux sums; one
-    squared-norm sum for each set of axes a leaf is split over)."""
+    whose per-use gather summed it, nor for one summed in its uses,
+    :func:`use_sum_traffic`), the ZeRO-1 gather of each sliced leaf, and
+    the scalars (the supervised count, loss and aux sums; one squared-norm
+    sum for each set of axes a leaf is split over)."""
     from repro_torch.training import loop
 
     mesh, dp = mesh_ctx.mesh, tuple(mesh_ctx.dp_axes or ())
@@ -440,7 +449,7 @@ def step_traffic(cfg, params, mesh_ctx, zero1: bool = True) -> dict:
         axes = loop._axes_of(spec, mesh)
         groups.add(axes)
         piece = shd.bytes_per_rank(leaf, spec, mesh)
-        if not set(axes) & set(dp):
+        if not set(axes) & set(dp) and not (n_dp > 1 and tpl.summed_in_use(path)):
             n = n_dp * (mesh.axis_size(mesh_ctx.ep_axis) if ep and loop._is_router(path) else 1)
             out["dp_grad_all_reduce"] += _ring(piece // leaf.element_size() * 4, n, "all_reduce")
         if dim is not None and zero1:
@@ -452,14 +461,57 @@ def step_traffic(cfg, params, mesh_ctx, zero1: bool = True) -> dict:
 _ROW_PARALLEL = r".*((attn|cross)/o/w|ffn/down/w|cell/out/w)$"
 
 
+def use_sum_traffic(cfg, path: str, leaf, fp32_bytes: int, n: int, batch: int, seq: int,
+                    tag: str) -> dict:
+    """The wire bytes of summing one leaf's gradient over ``n`` data ranks
+    inside its uses (``tensor_parallel.summed_in_use``), its gradient
+    ``fp32_bytes`` in fp32: each GEMM use's fp32 sum (the head, and the
+    tied table, are used once a cross-entropy chunk; sLSTM's recurrence
+    weight once a position), and the embedding gather's all-gather of the
+    cotangent rows and their int64 token ids."""
+    from repro_torch.training import loop
+
+    s = train_input_specs(cfg, batch, seq)["tokens"][0][1]
+    chunks = -(-s // min(loop.XENT_CHUNK, s))
+    out = {}
+    if path == "embed/table":
+        row = cfg.d_model * leaf.element_size()
+        out["dp_embed_all_gather"] = _ring(n * batch * s * (row + 8), n, "all_gather")
+        uses = chunks if cfg.tie_embeddings else 0
+    elif path == "head/w":
+        uses = chunks
+    elif path.endswith("/r"):
+        uses = s
+    else:
+        uses = 1
+    if uses:
+        out[tag] = uses * _ring(fp32_bytes, n, "all_reduce")
+    return out
+
+
 def train_collectives(cfg, params, mesh_ctx, batch: int, seq: int, zero1: bool = True) -> dict:
     """Each rank's wire bytes by tag of a train step at ``mesh_ctx`` on
     ``batch`` rows of ``seq`` positions: the step's own
-    (``step_traffic``) and its layers' (``layer_traffic``)."""
+    (``step_traffic``), its layers' (``layer_traffic``), and the sums
+    over the data axes inside the uses of the leaves the step leaves to
+    them (``use_sum_traffic``)."""
+    from repro_torch.training import loop
+
     out = step_traffic(cfg, params, mesh_ctx, zero1)
-    for tag, v in layer_traffic(cfg, params, mesh_ctx, batch, seq).items():
-        out[tag] = out.get(tag, 0.0) + v
-    return out
+    parts = [layer_traffic(cfg, params, mesh_ctx, batch, seq)]
+    mesh, dp = mesh_ctx.mesh, tuple(mesh_ctx.dp_axes or ())
+    n_dp = mesh.axis_size(dp)
+    if n_dp > 1:
+        specs = shd.spec_leaves(shd.executed_param_specs(params, cfg, mesh_ctx))
+        for (path, leaf), spec in zip(shd.leaf_paths(params), specs):
+            if tpl.summed_in_use(path) and not set(loop._axes_of(spec, mesh)) & set(dp):
+                piece = shd.bytes_per_rank(leaf, spec, mesh)
+                parts.append(use_sum_traffic(cfg, path, leaf, piece // leaf.element_size() * 4,
+                                             n_dp, batch, seq, "dp_grad_all_reduce"))
+    for part in parts:
+        for tag, v in part.items():
+            out[tag] = out.get(tag, 0.0) + v
+    return {k: v for k, v in out.items() if v}
 
 
 def _serving_collectives(cfg, params, pspecs, mesh, tp, tokens, fsdp) -> dict:

@@ -291,12 +291,13 @@ class Transformer:
             specs = specs[k]
         mesh = self.mesh_ctx.mesh
         return _map2(lambda t, sp: t if sp is None or tuple(t.shape) == sp[1]
-                     else tpl.use_param(t, sp[0], mesh), tree, specs)
+                     else tpl.use_param(t, sp[0], mesh, summed=sp[2]), tree, specs)
 
     def use_specs(self):
         """The data-axis part of every leaf's executed spec where some leaf
-        has one (FSDP, ZeRO-3), else None: a tree of (spec, whole shape),
-        None for a leaf held whole over the data axes."""
+        has one (FSDP, ZeRO-3), else None: a tree of (spec, whole shape,
+        whether its uses sum its gradient: ``summed_in_use``), None for a
+        leaf held whole over the data axes."""
         mc = self.mesh_ctx
         if mc.mesh is None or not (mc.tp_axis is None or mc.zero3):
             return None
@@ -308,12 +309,13 @@ class Transformer:
             dp = tuple(mc.dp_axes or ())
             mesh = mc.mesh
             out = []
-            for (_, t), sp in zip(sharding.leaf_paths(full), sharding.spec_leaves(specs)):
+            for (path, t), sp in zip(sharding.leaf_paths(full), sharding.spec_leaves(specs)):
                 on_dp = sharding.over_axes(sp, dp)
                 # The gathered leaf: whole over the data axes, TP's piece else.
                 shape = tuple(n if q is not None else n // mesh.axis_size(sharding._names(p))
                               for n, p, q in zip(t.shape, sp, on_dp))
-                out.append(None if all(p is None for p in on_dp) else (on_dp, shape))
+                out.append(None if all(p is None for p in on_dp) else
+                           (on_dp, shape, tpl.summed_in_use(path)))
             it = iter(out)
             self._use_specs = sharding.map_with_path(lambda _p, _t: next(it), full)
         return self._use_specs
@@ -436,7 +438,7 @@ class Transformer:
         if self.tp is not None and table.shape[0] != self.cfg.vocab_size:
             x = tpl.vocab_embed(table, tokens, self.tp, compute)
         else:
-            x = common.embed_apply(params["embed"], tokens).to(compute)
+            x = tpl.embed_rows(table, tokens).to(compute)
         if self.embed_scale != 1.0:
             x = x * float(torch.tensor(self.embed_scale, dtype=compute))
         return x

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.distrib import tensor_parallel as tpl
-from repro_torch.engine import Engine
+from repro_torch.engine import Engine, autodiff
 from repro_torch.models import common
 
 _CHUNK = 256
@@ -235,7 +235,8 @@ def _slstm_cell(engine: Engine, wx_t, r, h_prev, c_prev, n_prev, m_prev, nheads:
     in a fusion of its own that contracts iw z, while h still reads the
     first. The returned c is the carried one."""
     rows = h_prev.transpose(0, 1)[None].expand(4, -1, -1, -1)  # (4, H, B, hd)
-    rh = _f32_matmul(engine, rows, r.float()).permute(2, 0, 1, 3)  # (B, 4, H, hd)
+    rf = autodiff.summed_like(r.float(), r)  # a data-parallel sum stays on r's fp32 copy
+    rh = _f32_matmul(engine, rows, rf).permute(2, 0, 1, 3)  # (B, 4, H, hd)
     pre = wx_t.reshape(wx_t.shape[0], 4, nheads, hd).float() + rh
     z = common.xla_tanh(pre[:, 0])
     log_i = pre[:, 1]

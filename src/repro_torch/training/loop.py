@@ -31,7 +31,15 @@ mesh of one, each reduction below is the identity:
   'model' needs no sum over it, and a replicated leaf's gradient is the
   same on every TP rank (the column-parallel backward sums dX), so
   neither is summed over 'model'. A leaf split over the data axes (FSDP,
-  ZeRO-3) was gathered per use, and its gradient summed over them there;
+  ZeRO-3) was gathered per use, and its gradient summed over them there.
+  The GEMM-Op weights and the embedding table
+  (``tensor_parallel.summed_in_use``) are summed inside their uses: the
+  step marks them (``engine.autodiff.mark_summed``), each GEMM's dW is
+  summed in fp32 before its one cast to the 16-bit gradient format, where
+  GSPMD puts the reference's all-reduce, and the embedding gather
+  scatters every rank's cotangent rows as one process would; the step
+  sums the other leaves (norms, biases, convolutions, RG-LRU's lambda,
+  the routers) as before;
 - the global norm counts every piece of a split leaf once (the squares
   summed over the leaf's axes) and every replicated leaf once;
 - ZeRO-1: each rank keeps the moments of its slice of each leaf (the
@@ -50,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.distrib import collectives, sharding, tensor_parallel
-from repro_torch.engine import Engine
+from repro_torch.engine import Engine, autodiff
 from repro_torch.optim import global_norm
 
 AUX_LOSS_WEIGHT = 0.01
@@ -160,8 +168,27 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
             return g
         return collectives.all_reduce(g.float(), mesh, axes, tag="dp_grad_all_reduce").to(g.dtype)
 
+    def plan(params) -> None:
+        """Each leaf's sum over the data axes: the step's own (``axes``),
+        or inside its uses (``summed``), or none."""
+        paths = [p for p, _ in sharding.leaf_paths(params)]
+        specs = sharding.spec_leaves(leaf_specs(params, model.cfg, mc))
+        split = [_axes_of(sp, mesh) for sp in specs]
+        # Sum over the data axes unless the per-use gather did (FSDP, ZeRO-3).
+        axes = [() if set(dp) & set(ax) else router_axes if _is_router(p) else dp
+                for p, ax in zip(paths, split)]
+        cache["summed"] = [n_dp > 1 and a == dp and tensor_parallel.summed_in_use(p)
+                           for p, a in zip(paths, axes)]
+        cache["axes"] = [() if sm else a for a, sm in zip(axes, cache["summed"])]
+        cache["split"] = split
+        cache["dims"] = zero1_dims(params, model.cfg, mc)
+
     def grad_fn(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        how = tensor_parallel.DataSum(mesh, dp)
+        for t, sm in zip(leaves(live), cache["summed"]):
+            if sm:
+                autodiff.mark_summed(t, how)
         total, denom, aux = _loss_terms(model, live, batch, eng)
         count = collectives.all_reduce(denom, mesh, dp, tag="scalars").clamp(min=1.0)
         loss = total / count + AUX_LOSS_WEIGHT * aux / n_dp
@@ -172,6 +199,8 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
 
     def train_step(state: TrainState, batch):
         batch = _on_device(batch, model.device)
+        if not cache:
+            plan(state.params)
         if grad_accum > 1:
             loss, grads = 0.0, [torch.zeros_like(p) for p in leaves(state.params)]
             for mb in _micro(batch, grad_accum):
@@ -182,15 +211,6 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
             grads = [g / grad_accum for g in grads]
         else:
             loss, metrics, grads = grad_fn(state.params, batch)
-        if not cache:
-            paths = [p for p, _ in sharding.leaf_paths(state.params)]
-            specs = sharding.spec_leaves(leaf_specs(state.params, model.cfg, mc))
-            split = [_axes_of(sp, mesh) for sp in specs]
-            # Sum over the data axes unless the per-use gather did (FSDP, ZeRO-3).
-            cache["axes"] = [() if set(dp) & set(ax) else router_axes if _is_router(p) else dp
-                             for p, ax in zip(paths, split)]
-            cache["split"] = split
-            cache["dims"] = zero1_dims(state.params, model.cfg, mc)
         grads = [reduce(g, axes) for g, axes in zip(grads, cache["axes"])]
         gnorm = _split_norm(grads, cache["split"], mesh)
         if not bool(torch.isfinite(gnorm) & torch.isfinite(loss)):

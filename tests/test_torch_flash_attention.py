@@ -118,12 +118,53 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
 def test_plan_flash_routes(dtype, hd):
-    """fp16 and bf16 at hd 64 and 128 take the tensor-core kernel; fp32 and
-    hd 256 (gemma2) stay on the SIMT kernel."""
+    """fp16 and bf16 at hd 64, 128 and 256 (gemma2, recurrentgemma) take the
+    tensor-core kernel; fp32 takes the register-tiled CUDA-core kernel."""
     q = torch.zeros(1, 8, 4, hd, dtype=dtype)
     k = torch.zeros(1, 8, 2, hd, dtype=dtype)
-    want = "tc" if dtype != torch.float32 and hd != 256 else "simt"
+    want = "tc" if dtype != torch.float32 else "simt"
     assert tfa.plan_flash(q, k, k) == want
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_tensor_core_instances_fit_a_block(hd):
+    """Each tensor-core instance's Q tile and K/V stages within the 227 KB
+    of shared memory a block may have: 128-key tiles at hd 64 (4 stages)
+    and 128 (2), 64-key tiles at hd 256 (2 stages, 193 KB)."""
+    t = tfa.tc_tile(hd)
+    keys, stages = {64: (128, 4), 128: (128, 2), 256: (64, 2)}[hd]
+    assert (t["rows"], t["keys"], t["stages"]) == (128, keys, stages)
+    tiles = (hd // 64) * 128 * (128 + 2 * stages * keys)
+    assert t["smem_bytes"] == 1024 + tiles + (1 + 4 * stages) * 8
+    assert t["smem_bytes"] <= 227 * 1024
+    if hd == 256:
+        assert t["smem_bytes"] > 192 * 1024  # a 64 KB Q tile and two 64 KB stages
+    with pytest.raises(ValueError):
+        tfa.tc_tile(96)
+
+
+@pytest.mark.parametrize("dtype, hd, width, loads", [
+    (torch.float32, 32, 32, "cp.async"),
+    (torch.float32, 64, 64, "cp.async"),
+    (torch.float32, 128, 128, "cp.async"),
+    (torch.float32, 256, 256, "cp.async"),
+    (torch.float32, 80, 128, "widening"),
+    (torch.float32, 8, 32, "widening"),
+    (torch.float16, 96, 128, "widening"),
+    (torch.bfloat16, 200, 256, "widening"),
+])
+def test_simt_instance_by_width(dtype, hd, width, loads):
+    """The register-tiled kernel's instance: the smallest width that holds
+    hd, 128 query rows a block (64 at width 256, so O stays in registers),
+    64 keys a tile; fp32 at exactly its width loads by cp.async, every
+    other case widens each element. Every instance fits a block."""
+    t = tfa.simt_tile(dtype, hd)
+    assert (t["width"], t["loads"], t["keys"]) == (width, loads, 64)
+    assert t["rows"] == (64 if width == 256 else 128)
+    assert t["smem_bytes"] <= 227 * 1024
+    if dtype != torch.float32:
+        q = torch.zeros(1, 4, 2, hd, dtype=dtype)
+        assert tfa.plan_flash(q, q, q) == "simt"
 
 
 def test_tensor_core_route_refuses_cpu_tensors():
@@ -139,3 +180,29 @@ def test_tensor_core_route_refuses_cpu_tensors():
     out = tops.flash_attention(q, k, k)
     assert out.shape == q.shape and out.dtype == torch.float16
     assert (tfa.dense_tc_launches.n, tfa.dense_launches.n) == before
+
+
+@pytest.mark.parametrize("dtype, hd, route", [(torch.float16, 256, "tc"), (torch.bfloat16, 256, "tc"),
+                                              (torch.float32, 128, "simt"),
+                                              (torch.float16, 80, "simt")])
+def test_each_route_refuses_cpu_tensors(dtype, hd, route):
+    """The new routes' inputs on the CPU (hd 256 on the tensor cores, fp32
+    on the register-tiled kernel's cp.async instance, fp16 on its widening
+    one): the CUDA wrapper raises before any launch; the entry point takes
+    the plain version, which matches the oracle."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 24, 4, hd)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((1, 24, 2, hd)).astype(np.float32)).to(dtype)
+    assert tfa.plan_flash(q, k, k) == route
+    before = (tfa.dense_tc_launches.n, tfa.dense_launches.n)
+    with pytest.raises(ValueError, match="on one card"):
+        tfa.flash_attention(q, k, k)
+    out = tops.flash_attention(q, k, k)
+    assert (tfa.dense_tc_launches.n, tfa.dense_launches.n) == before
+    def heads(t):  # (1, S, H, hd) -> (H, S, hd), the KV heads repeated for their groups
+        t = t.float().repeat_interleave(4 // t.shape[2], dim=2)
+        return t[0].transpose(0, 1)
+    want = tref.flash_attention_ref(heads(q), heads(k), heads(k), causal=True)
+    want = want.transpose(0, 1)[None]
+    tol = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 2e-2}[dtype]
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=tol, atol=tol)

@@ -325,6 +325,64 @@ def _replicated_grads(model, ctx, state, batch) -> dict:
             if all(s is None for s in sp) and not loop._is_router(p)}
 
 
+class _FirstGrads:
+    """An optimizer that keeps the gradients of its first update (this
+    rank's ZeRO-1 slices or FSDP pieces, after the train step's sums over
+    the data axes) and leaves the update to ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, params, grads, state, step, gnorm):
+        if self.grads is None:
+            self.grads = grads
+        return self.opt.update(params, grads, state, step, gnorm)
+
+
+def rank_dp_grads(rank, world, jobs, lr):
+    """The mesh train step from given parameters, for each job (name ->
+    (arch, mode "dp" | "fsdp" | "zero3", mesh shape, policy, the port's
+    full parameters, global batches)): AdamW steps at ``lr`` on this rank's
+    rows. Returns each job's metrics a step, the first step's summed
+    gradients gathered whole in their own formats, and the final state
+    gathered whole."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.distrib import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW
+    from repro_torch.training import init_train_state, make_train_step, state_specs
+
+    out = {}
+    for name, (arch, mode, shape, policy, params, batches) in jobs.items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), policy=policy)
+        ctx = _tp_ctx("tp" if mode == "dp" else mode, shape)
+        model = build(cfg, ctx, device="cpu")
+        opt = _FirstGrads(AdamW(lr=lr))
+        state = init_train_state(model, opt, shd.local_params(params, cfg, ctx), mesh_ctx=ctx)
+        step = make_train_step(model, opt, mesh_ctx=ctx)
+        n, i = ctx.mesh.axis_size(ctx.dp_axes), ctx.mesh.axis_index(ctx.dp_axes)
+        metrics = []
+        for b in batches:
+            rows = {k: v[i * len(v) // n:(i + 1) * len(v) // n] for k, v in b.items()}
+            state, m = step(state, rows)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "skipped")})
+        specs = state_specs(state, cfg, ctx)
+        grads = [shd.gather_full(g, s, ctx.mesh) if s is not None else g
+                 for g, s in zip(leaves(opt.grads), shd.spec_leaves(specs.opt_state["mu"]))]
+        full = [shd.gather_full(t, s, ctx.mesh) if s is not None else t
+                for t, s in zip(leaves(state), shd.spec_leaves(specs))]
+        out[name] = {"metrics": metrics, "grads": [g.numpy() for g in grads],
+                     "full": [t.float().numpy() if isinstance(t, torch.Tensor) else t
+                              for t in full]}
+    return out
+
+
 def rank_tp_train(rank, world, jobs, lr, runs=None, ckpt_dir=None):
     """The mesh train step from given parameters, for each job (name ->
     (arch, mode "tp" | "fsdp" | "zero3", mesh shape, MoE impl, policy, the
