@@ -28,7 +28,8 @@ the train step sums it over the data axes alone.
   each use a part of it, as GQA's replicated K/V heads).
 - :func:`vocab_embed` and :func:`vocab_xent`: the vocab-parallel
   embedding and cross-entropy (Megatron's), over the table's rows and the
-  logits' columns; only (B, c) values cross the wire, never logits.
+  logits' columns; only (B, c) values and the (B, c, V / 32) window sums
+  of exp cross the wire, never logits.
 - :func:`use_param`: FSDP's and ZeRO-3's per-use gather of a parameter
   split over the data axes. Forward ``gather_full``; backward the fp32
   sum of the gradient over those axes (gloo has no reduce-scatter: an
@@ -320,22 +321,36 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, tp: TP,
     return _psum(x, tp, "tp_embed_all_reduce").to(dtype)
 
 
+XENT_WINDOW = 32  # XLA's CPU reduce window
+
+
 def vocab_xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-               tp: TP) -> torch.Tensor:
+               tp: TP, width: int = 0) -> torch.Tensor:
     """sum over masked positions of logsumexp(z) - z[label], for logits
     (B, c, V / tp) fp32 holding this rank's block of the vocab: the max
     over the axis (its gradient stops, as ``logsumexp``'s), the sum of
-    exp over it, and the label's logit from the one rank that holds it."""
+    exp over it, and the label's logit from the one rank that holds it.
+    The exp, log and sums are ``common``'s XLA-rounded ones (``width``: the
+    chunk length the positions' sum is taken at, as ``chunked_xent``'s).
+    The sum of exp gathers each rank's sums of 32-wide windows and sums
+    them: on the CPU, where a rank holds whole windows (V / tp a multiple
+    of 32: every split vocabulary of the configs at 2 ranks, all but
+    phi3.5-moe's at 4), XLA's reduce sums the whole vocabulary in that
+    order, so the loss is the one-process step's bit for bit."""
     v_local = logits.shape[-1]
     m = collectives.all_reduce(logits.detach().amax(-1), tp.mesh, tp.axis, op="max",
                                tag="tp_xent_all_reduce")
-    sum_exp = _psum(torch.exp(logits - m[..., None]).sum(-1), tp, "tp_xent_all_reduce")
-    logz = m + torch.log(sum_exp)
+    e = common.xla_exp(logits - m[..., None])
+    pad = -v_local % XENT_WINDOW  # split low and high, as XLA pads a reduce
+    e = torch.nn.functional.pad(e, (pad // 2, pad - pad // 2))
+    w = common.xla_sum(e.unflatten(-1, (-1, XENT_WINDOW)), -1)[..., 0]
+    sum_exp = common.xla_sum(gather_from(w, tp), -1)[..., 0]
+    logz = common.xla_log(sum_exp) + m
     local = labels - tp.index * v_local
     held = (local >= 0) & (local < v_local)
     ll = logits.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
     ll = _psum(torch.where(held, ll, 0.0), tp, "tp_xent_all_reduce")
-    return ((logz - ll) * mask).sum()
+    return common.xla_sum((logz - ll) * mask, None, width)
 
 
 # -- FSDP and ZeRO-3 --------------------------------------------------------------------

@@ -389,7 +389,9 @@ def layer_traffic(cfg, params, mesh_ctx, batch: int, seq: int) -> dict:
         linear("enc_proj/w", n_enc, d, d, grad_in=False, whole=True, times=1)
     if split("embed/table" if cfg.tie_embeddings else "head/w", 0 if cfg.tie_embeddings else 1):
         reduce("tp_grad_all_reduce", n_tok * d * 4, tp)
-        reduce("tp_xent_all_reduce", n_tok * 4, tp, 3 * 2)
+        reduce("tp_xent_all_reduce", n_tok * 4, tp, 2 * 2)
+        windows = -(-cfg.vocab_size // tp // tpl.XENT_WINDOW) * tp
+        gather("tp_all_gather", n_tok * windows * 4, tp, 2)
     # The blocks.
     for j in range(cfg.n_encoder_layers):
         attention(f"encoder/{j}/attn", n_enc, n_enc)

@@ -122,7 +122,10 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
     (batch, KV head) the G*Sq query rows share one key matrix, so the
     kernel sees (B, Hkv, G*Sq, hd) @ (B, Hkv, hd, C) with no repeated keys.
     Every output element is the same dot product the reference's
-    (B, Hkv, G, Sq, hd) layout computes.
+    (B, Hkv, G, Sq, hd) layout computes. On the CPU the softmax's exp, sum
+    and rescales are XLA's compiled ones (``common.xla_*``; the last chunk's
+    sum as the reference's zero-padded chunk), so the output is the
+    reference's bit for bit where the products are.
     """
     b, sq, hq, hd = q.shape
     sk = k.shape[1]
@@ -132,7 +135,15 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
     q_pos = q_pos.reshape(-1, sq)
     k_pos = k_pos.reshape(-1, sk)
 
-    qh = q.reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4).reshape(b, hkv, g * sq, hd)
+    qh = q.reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)  # (B, Hkv, G, Sq, hd)
+    # On the CPU under autograd, the reference's layout: each group's
+    # product apart and K and V broadcast over the groups, so that dK and
+    # dV are each group's gradient in the compute format summed over them,
+    # as the reference's. The forward bits are the same either way
+    # (tests/test_torch_xla_sites.py); serving keeps the card's layout.
+    grouped = g > 1 and common.xla_rounds(q, q.dtype) and torch.is_grad_enabled()
+    if not grouped:
+        qh = qh.reshape(b, hkv, g * sq, hd)
     kh = k.permute(0, 2, 1, 3)  # (B, Hkv, Sk, hd)
     vh = v.permute(0, 2, 1, 3)
     chunk = sk if sq == 1 else min(cfg.kv_chunk, sk)
@@ -144,7 +155,8 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
         kc, vc = kh[:, :, c0:c0 + chunk], vh[:, :, c0:c0 + chunk]
         kp = k_pos[:, c0:c0 + chunk]
         c = kc.shape[2]
-        s = engine.matmul(qh, kc.transpose(-1, -2))  # (B, Hkv, G*Sq, C)
+        kt = kc.transpose(-1, -2)
+        s = engine.matmul(qh, kt[:, :, None] if grouped else kt)  # (B, Hkv, G*Sq | G, Sq, C)
         s = common.softcap(s.float().reshape(b, hkv, g, sq, c) * scale, cfg.softcap)
         mask = kp[:, None, :] != POS_SENTINEL  # (B|1, 1, C)
         if causal:
@@ -153,11 +165,12 @@ def _online_attention(q, k, v, q_pos, k_pos, cfg: AttnConfig, engine: Engine,
             mask = mask & (kp[:, None, :] > q_pos[:, :, None] - cfg.window)
         s = torch.where(mask[:, None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l_sum = l_sum * alpha + p.sum(-1)
-        pv = engine.matmul(p.to(q.dtype).reshape(b, hkv, g * sq, c), vc)
-        acc = acc * alpha[..., None] + pv.float().reshape(b, hkv, g, sq, hd)
+        alpha = common.xla_exp(m - m_new)
+        p = common.xla_exp(s - m_new[..., None])
+        l_sum = common.xla_fma(l_sum, alpha, common.xla_sum(p, -1, chunk)[..., 0])
+        pv = (engine.matmul(p.to(q.dtype), vc[:, :, None]) if grouped
+              else engine.matmul(p.to(q.dtype).reshape(b, hkv, g * sq, c), vc))
+        acc = common.xla_fma(acc, alpha[..., None], pv.float().reshape(b, hkv, g, sq, hd))
         m = m_new
     out = acc / l_sum.clamp(min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)

@@ -105,17 +105,17 @@ def _router(params, x2: torch.Tensor, cfg: MoEConfig, engine: Engine, aux: bool 
     None). ``dp`` = (mesh, data axes): the aux loss's expert shares are the
     global batch's, as the reference's over its whole batch."""
     logits = engine.with_policy("fp32").matmul(x2.float(), params["router"]["w"])
-    probs = torch.softmax(logits, dim=-1)
+    probs = common.xla_softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True)
     if not aux:
         return top_p, top_i, None
     # Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e.
-    me = probs.mean(0)
-    fe = F.one_hot(top_i, cfg.n_experts).float().sum(1).mean(0)
+    me = common.xla_mean(probs, 0)
+    fe = common.xla_mean(F.one_hot(top_i, cfg.n_experts).float().sum(1), 0)
     if dp is not None:
         me, fe = _global_mean(me, dp), _global_mean(fe, dp)
-    return top_p, top_i, cfg.n_experts * (me * fe).sum()
+    return top_p, top_i, cfg.n_experts * common.xla_sum(me * fe, -1)[0]
 
 
 def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux: bool = True,

@@ -66,11 +66,6 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) as ``jax.nn.softplus`` writes it: logaddexp(x, 0)."""
-    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def associative_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t over dim 1 from h_0 = 0, by the odd/even
     recursion of ``jax.lax.associative_scan`` with the reference's combine
@@ -119,23 +114,67 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
         xp = torch.nn.functional.pad(x, (0, 0, _CONV_W - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
-    s = x.shape[1]
+    if w.dtype == torch.float16 and common.xla_rounds(x, torch.float16) and state is None:
+        return _Conv16.apply(x, w), xp[:, -(_CONV_W - 1):]
+    return _conv_values(xp, w, x.shape[1]), xp[:, -(_CONV_W - 1):]
+
+
+def _conv_values(xp: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
     taps = [xp[:, i:i + s] for i in range(_CONV_W)]
-    if x.dtype == w.dtype and x.dtype in (torch.float32, torch.float16):
+    if xp.dtype == w.dtype and xp.dtype in (torch.float32, torch.float16):
         # The reference's compiled sum of the four products: the second
         # product rounded, the first added to it as one fused multiply-add,
         # then one for each later tap (in fp16 an fp32 FMA rounded to fp16).
         def fused(a, b, c):
-            return fma(a.float(), b.float(), c.float()).to(x.dtype)
+            return fma(a.float(), b.float(), c.float()).to(xp.dtype)
 
         y = fused(taps[0], w[0], taps[1] * w[1])
         for i in range(2, _CONV_W):
             y = fused(taps[i], w[i], y)
-    else:
-        y = taps[0] * w[0]
-        for i in range(1, _CONV_W):
-            y = y + taps[i] * w[i]
-    return y, xp[:, -(_CONV_W - 1):]
+        return y
+    y = taps[0] * w[0]
+    for i in range(1, _CONV_W):
+        y = y + taps[i] * w[i]
+    return y
+
+
+def _sum16_bt(p: torch.Tensor) -> torch.Tensor:
+    """The fp16 sum over (batch, time) of exact fp32 products p (B, S, C) as
+    XLA compiles the reference's reduce (``common.xla_reduce``, each add
+    rounded to fp16): a windowed reduce (a dim past 32) reads the products
+    stored in fp16, a single fold has them fused into its adds."""
+    if max(p.shape[:2]) > 32:
+        p = p.half().float()
+    return common.xla_reduce(p, lambda acc, v: (acc + v).half().float())
+
+
+class _Conv16(torch.autograd.Function):
+    """The fp16 convolution over a zero-padded start on CPU tensors, with
+    the gradient XLA compiles for the reference's: dx sums each tap's
+    g w from the last tap to the first, each add rounded to fp16, the last
+    tap's and the second's products exact in it (fused) and the others
+    rounded first; dw is each tap's fp16 reduce of g x over (batch, time)
+    with the products fused into its adds."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv_values(torch.nn.functional.pad(x, (0, 0, _CONV_W - 1, 0)), w, x.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        s, k = x.shape[1], _CONV_W - 1
+        gp = torch.nn.functional.pad(g, (0, 0, k, k)).float()
+        wf = w.float()
+        p = [gp[:, 2 * k - i:2 * k - i + s] * wf[i] for i in range(_CONV_W)]  # exact
+        dx = (p[3] + p[2].half().float()).half().float()
+        dx = (dx + p[1]).half().float()
+        dx = (dx + p[0].half().float()).half()
+        xp = torch.nn.functional.pad(x, (0, 0, k, 0)).float()
+        gf = g.float()
+        dw = torch.stack([_sum16_bt(gf * xp[:, i:i + s]) for i in range(_CONV_W)]).half()
+        return dx, dw
 
 
 def _gates(params, xr: torch.Tensor, engine: Engine, tp=None):
@@ -143,12 +182,12 @@ def _gates(params, xr: torch.Tensor, engine: Engine, tp=None):
     ``tp`` xr holds this rank's channels and the gates take it whole."""
     xw = tpl.gather_from(xr, tp) if tp is not None else xr
     r = xw.shape[-1]
-    rgate = torch.sigmoid(tpl.linear(xw, params["gate_a"], engine, tp, r).float())
-    igate = torch.sigmoid(tpl.linear(xw, params["gate_x"], engine, tp, r).float())
-    log_a = -_C * softplus(params["lam"]) * rgate
-    a = torch.exp(log_a)
+    rgate = common.xla_sigmoid(tpl.linear(xw, params["gate_a"], engine, tp, r).float())
+    igate = common.xla_sigmoid(tpl.linear(xw, params["gate_x"], engine, tp, r).float())
+    log_a = -_C * common.xla_softplus(params["lam"]) * rgate
+    a = common.xla_exp(log_a)
     # The multiplier keeps the state's norm bounded: sqrt(1 - a^2).
-    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    mult = torch.sqrt(torch.clamp(1.0 - common.xla_exp(2.0 * log_a), min=1e-6))
     return a, mult * igate * xr.float()
 
 

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.distrib import collectives, sharding, tensor_parallel
 from repro_torch.engine import Engine, autodiff
+from repro_torch.models import common
 from repro_torch.optim import global_norm
 
 AUX_LOSS_WEIGHT = 0.01
@@ -84,10 +85,10 @@ def chunked_xent(model, params, h: torch.Tensor, labels: torch.Tensor, mask: tor
     def chunk_loss(h_c, y_c, m_c):
         logits = model.logits(params, h_c, engine)  # (B, c, V) fp32
         if logits.shape[-1] != model.cfg.vocab_size:  # this rank's block of the vocab
-            return tensor_parallel.vocab_xent(logits, y_c, m_c, model.tp)
-        logz = torch.logsumexp(logits, dim=-1)
+            return tensor_parallel.vocab_xent(logits, y_c, m_c, model.tp, c)
+        logz = common.xla_logsumexp(logits, dim=-1)
         ll = logits.gather(-1, y_c[..., None])[..., 0]
-        return ((logz - ll) * m_c).sum()
+        return common.xla_sum((logz - ll) * m_c, None, c)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, s, c):

@@ -17,11 +17,13 @@ Tolerances, and why:
   port's plain path evaluates XLA's compiled exp, log1p, tanh and logistic
   (``models/common.py``) and contracts the state update's multiply-adds as
   XLA's compiled scan does;
-- the mLSTM and RG-LRU cells' output and state, and the logits, under
-  fp32: 1e-5 of the max (read: up to 3.4e-6). The mLSTM's einsums (``q C``
-  through the engine's fp32 GEMM), its normaliser's sum and ``cumsum`` sum
-  in another order than XLA's, and the RG-LRU's gates keep torch's
-  transcendentals;
+- the RG-LRU cell's output and state, bit for bit under both policies:
+  its gates evaluate XLA's compiled logistic, exp and softplus
+  (``models/common.py``; read 1.1e-7 of the max with torch's before);
+- the mLSTM cell's output and state, and the logits, under fp32: 1e-5 of
+  the max (read: up to 3.4e-6). The mLSTM's einsums (``q C`` through the
+  engine's fp32 GEMM), its normaliser's sum and ``cumsum`` sum in another
+  order than XLA's;
 - under redmule_hfp8 (E4M3 pages): outputs and logits bit for bit (read:
   0 at every case here). Every engine product is exact and both sides
   round its fp32 sum once to fp16; the fp32 ulps of the gates and state
@@ -56,7 +58,7 @@ from repro_torch.convert import params_from_jax, tensor_from_numpy  # noqa: E402
 from repro_torch.core.tree import leaves  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.models import build as tbuild  # noqa: E402
-from repro_torch.models import rglru, xlstm  # noqa: E402
+from repro_torch.models import common, rglru, xlstm  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.serving import Server, ServerConfig, SpecConfig, generate_static  # noqa: E402
@@ -121,6 +123,21 @@ def test_cell_matches_reference(cell, policy):
     16 and 9 valid tokens (the pad steps must leave the state, and
     rglru's conv state is gathered at each row's boundary), then one
     decode step from the scan's state."""
+    tols = (0.0, 0.0) if cell in ("slstm", "rglru") else (TOL[policy], FP32_TOL)
+    _check_cell(cell, policy, *tols)
+
+
+@pytest.mark.parametrize("policy", ["fp32", "redmule_hfp8"])
+def test_rglru_cell_card_formulas_match_reference(policy):
+    """The RG-LRU cell as the card runs it (torch's logistic, exp and
+    softplus: ``common.torch_rounding``), at the bounds it was held to
+    before its gates took XLA's rounding: outputs within ``TOL``, the
+    state within 1e-5 of the max (read 1.1e-7 under fp32)."""
+    with common.torch_rounding():
+        _check_cell("rglru", policy, TOL[policy], FP32_TOL)
+
+
+def _check_cell(cell, policy, out_tol, state_tol):
     jinit, japply, jdecode, ccfg, apply, decode = _CELLS[cell]
     dt, ndt = (jnp.float32, np.float32) if policy == "fp32" else (jnp.float16, np.float16)
     je, te = JEngine(policy=policy, backend="xla"), Engine(policy=policy, backend="torch")
@@ -133,7 +150,6 @@ def test_cell_matches_reference(cell, policy):
     y, st = jax.jit(lambda p, x, s, n: japply(p, x, ccfg, je, state=s, lengths=n))(
         p, x, state0, lens)
     ty, tst = apply(tp, _t(x), ccfg, te, state=jax.tree.map(_t, state0), lengths=_t(lens))
-    out_tol, state_tol = (0.0, 0.0) if cell == "slstm" else (TOL[policy], FP32_TOL)
     assert _rel(y, ty) <= out_tol
     for k in st:
         assert _rel(st[k], tst[k]) <= state_tol, k

@@ -161,5 +161,5 @@ def test_the_last_names_match_the_reference():
     for name, fn in common.ACTIVATIONS.items():
         got = fn(torch.from_numpy(x)).numpy()
         want = np.asarray(jax.jit(jcommon.ACTIVATIONS[name])(jnp.asarray(x)))
-        # fp32: torch's sigmoid and tanh, not XLA's compiled ones (a few ulps).
-        np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-6)
+        # fp32: XLA's compiled logistic and tanh on CPU tensors, bit for bit.
+        np.testing.assert_array_equal(got, want)

@@ -9,30 +9,32 @@ the dry run's count. FSDP keeps that file's state bounds (parameters
 within 2e-5, moments within 2e-5 of the leaf's largest).
 
 The four families' own one-process step already differs from the
-reference by more than those state bounds (read: recurrentgemma's
-moments 1.7e-4 of the leaf's largest, internvl2's table 1.2e-2 of its
-largest): AdamW's first steps move a weight by about the learning rate
-whatever its gradient's size (``tests/test_torch_encdec.py``), so where a
-gradient element is near zero its fp32 ulps move the step by a share of
-lr; and recurrentgemma's RG-LRU gates differ from the reference's in
-fp32 (its one-process moments up to 1.7e-4 and 4.4e-4 of a leaf's
-largest). Their TP runs are held to the reference at parameters within
-2e-3 absolute (2 lr) and moments within 1e-3 of the leaf's largest
-(read: 8.0e-4 for recurrentgemma's second moment, 2.2e-6 at most for the
-others), and to the port's own one-process step on the same parameters
-and batches: the TP step differs from it only in the order of its fp32
-sums, so a fault of the tensor parallelism alone, on a leaf as small as
-xLSTM's ``ifg`` or the RG-LRU's ``lam``, cannot hide inside the family's
-gap to the reference. There both steps' metrics are held within 1e-5
-relative and the state after the first step, which carries the first
-gradients whole (mu = 0.1 g, nu = 0.001 g^2), within
-``test_torch_dp_train.py``'s 2e-5 of each moment leaf's largest (read:
-6.3e-6 at most, recurrentgemma's ``lam`` and ``gate_a``). Its parameters
-are held within 2e-4 (read: 8.0e-5 at most): Adam's first step moves a
-weight by lr g / (|g| + eps), so where an element's gradient is near
-eps (internvl2's table, mu 1.2e-10) fp32 noise in g moves the step by a
-share of lr; the second step's state inherits that and is held to the
-reference's bounds alone.
+reference by more than those state bounds: AdamW's first steps move a
+weight by about the learning rate whatever its gradient's size
+(``tests/test_torch_encdec.py``), so where a gradient element is near
+zero its fp32 ulps move the step by a share of lr; and the fp32 backward
+keeps torch's formulas and sum orders where XLA's are not matched
+(RMSNorm's rsqrt, the RG-LRU scan's and convolution's gradients; its
+gates' forward is XLA's bit for bit). Their TP runs are held to the
+reference at parameters within 1e-3 absolute (lr) and moments within
+8e-4 of the leaf's largest (read: 5.8e-4 for internvl2's table, 6.3e-4
+for recurrentgemma's second moment; with torch's transcendentals 8.1e-4
+and 8.0e-4, under bounds of 2e-3 and 1e-3), and to the port's own
+one-process step on the same parameters and batches: the TP step
+differs from it only in the order of its fp32 sums, so a fault of the
+tensor parallelism alone, on a leaf as small as xLSTM's ``ifg`` or the
+RG-LRU's ``lam``, cannot hide inside the family's gap to the reference.
+There both steps' metrics are held within 1e-5 relative and the state
+after the first step, which carries the first gradients whole (mu = 0.1
+g, nu = 0.001 g^2), within ``test_torch_dp_train.py``'s 2e-5 of each
+moment leaf's largest (read: 2.8e-6 at most, recurrentgemma's). Its
+parameters are held within 2e-4 (read: 1.85e-4, one element of
+internvl2's table whose gradient, 1e-8, is a cancellation at the fp32
+noise of its row: Adam's first step moves a weight by lr g / (|g| +
+eps), so where an element's gradient is near eps fp32 noise in g moves
+the step by a share of lr; 8.0e-5 with torch's transcendentals); the
+second step's state inherits that and is held to the reference's
+bounds alone.
 
 - recurrentgemma-2b: the RG-LRU's channels split (in_x, in_gate, the conv
   and ``lam`` a rank's channels; gate_a and gate_x on the gathered conv
@@ -92,7 +94,7 @@ def ranks(tmp_path_factory, reference):
 def test_mesh_steps_match_the_reference(name, ranks, reference):
     outs = [out[name] for out in ranks]
     arch, mode, shape = JOBS[name]
-    tol = {} if mode == "fsdp" else {"param_tol": 2e-3, "moment_tol": 1e-3}
+    tol = {} if mode == "fsdp" else {"param_tol": 1e-3, "moment_tol": 8e-4}
     check_job(outs, reference[name], name, **tol)
     check_replicated_and_traffic(outs, arch, mode, shape, "dense")
 
