@@ -18,9 +18,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    latter through the K-major copy), K not a multiple of 128, the E5M2
    pairs, the 16-bit forms; two exact-sum cases that must be bitwise
    equal, a planted dropped K tile per schedule that must fail, a decode
-   GEMM run twice that must give the same bits, and the two auxiliary
-   kernels (K-major copy, split-K combine) bitwise against their plain
-   versions;
+   GEMM run twice that must give the same bits; the clustered small-row
+   kernel against fp32 split partials folded as the split-K combine folds
+   them (``sr_two_launch_z``) bit for bit at every split from 1 to 16, with and without Y, out fp16,
+   bf16, E4M3 and fp32, with no auxiliary launch, and the card's room for
+   each cluster size; the K-major copy on each of its three kernels
+   (tile, rows, elements) at every width and widening, ragged K and rows,
+   the zeroed pad, batches and sources off 16 bytes, and the SIMT split-K
+   combine, bitwise against their plain versions;
 3c. the SIMT schedule's three forms (warp, f32, h2): every Table-1 pair
    under fp32 and redmule_hfp8 on operands with NaN, +-inf, +-0 and values
    past 464, at ragged shapes with K split across a boundary, transposed
@@ -59,9 +64,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    graph, with the kernels' launch counts read around every prefill and
    around the decode step's eager warm-up and its capture (a replay ticks
    no counter; the replays must equal the decode steps): each decode GEMM
-   on the small-row schedule, each prefill GEMM on the tensor cores but the
-   last token's logits, one paged-decode launch a layer a decode step (and
-   its split count);
+   on the small-row schedule with no auxiliary launch (its K splits fold
+   inside the launch), each prefill GEMM on the tensor cores but the last
+   token's logits, one paged-decode launch a layer a decode step (and its
+   split count);
 12. serving features, right after phase 8 on its model: (a) the decode
     graph against the eager decode step at dispatch depths 0, 1 and 2,
     tokens and every decode step's logits bitwise; (b) chunked prefill at
@@ -245,7 +251,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
     prefill included, with ``torch._scaled_mm`` beside
     ``torch.matmul`` where its shape rules allow, and its schedule; the
     SIMT forms at the router's two shapes, phase 3c's semiring paths and
-    phase 7's widest fp32 product, and the split-K combine with min; the
+    phase 7's widest fp32 product, and the SIMT split-K combine with add
+    and with min; the K-major copy at the train step's forward weight and
+    dW operands (the tile kernel) and its activations (the rows kernel); the
     paged decode at the serving and the long-context shape, as CUDA-graph
     replays with eager calls beside; the dense attention with its route;
     phase 14's and phase 15's shapes).
@@ -630,23 +638,158 @@ def phase_gemm_schedules() -> None:
             raise AssertionError(f"decode GEMM 4x4096x{n} gave different bits on two runs")
         log(f"gemm schedules: decode 4x4096x{n} (split {plan.split}) gives the same bits twice")
 
-    # The auxiliary kernels against their plain versions, bitwise.
-    for fmt in (E4M3, E5M2):
-        w = q(fmt, 300, 1000)
-        for widen in (False, True):
-            args = (w, 1, 1, 1000, 300, [0, 0, 1, 1000], widen)
-            got, want = rg.kmajor_copy(*args)[0], rg.kmajor_copy_plain(*args)
-            bits = torch.int16 if widen else torch.uint8
-            if not torch.equal(got.view(bits), want.view(bits)):
-                raise AssertionError(f"the K-major copy of {fmt} (widen {widen}) differs from "
-                                     "its plain version")
+    _check_small_row_fold(gen)
+    _check_copies(gen)
     ws = torch.randn(1, 16, 4, 1000, generator=gen, device=dev)
     y = torch.randn(4, 1000, generator=gen, device=dev)
     z = torch.empty(1, 4, 1000, dtype=FP16, device=dev)
     rg.splitk_combine(ws, z, y, 1, [0, 0, 1000, 1])
     if not torch.equal(z.view(torch.int16), rg.splitk_combine_plain(ws, y, FP16).view(torch.int16)):
-        raise AssertionError("the split-K combine differs from its plain version")
-    log("gemm schedules: K-major copy and split-K combine bitwise equal to their plain versions")
+        raise AssertionError("the SIMT split-K combine differs from its plain version")
+    log("gemm schedules: the SIMT split-K combine bitwise equal to its plain version")
+
+
+def sr_two_launch_z(x, w, y, out_dtype, split):
+    """The small-row GEMM as two launches compute it, fp32 partials and then
+    the split-K combine: each K split's fp32 partial (the kernel at split 1
+    on that split's K range, which sums the same products in the same
+    order as the split's block), folded in split order with Y by
+    ``splitk_combine_plain``. ``x`` (M, K) contiguous, ``w`` a K-major (K,
+    N)."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import FP32, get_policy
+    from repro_torch.kernels import redmule_gemm as rg
+    from repro_torch.kernels import tuning
+
+    kw = dict(gop=semiring.MATMUL, policy=get_policy("redmule_hfp8"))
+    k = x.shape[-1]
+    kps = rg.plan_call(x, w, y, request=tuning.GemmRequest("small_row", split=split),
+                       **kw).plan.k_per_split
+    one = tuning.GemmRequest("small_row", split=1)
+    parts = [rg.redmule_gemm(x[:, k0:k0 + kps], w[k0:k0 + kps], None, out_dtype=FP32,
+                             request=one, **kw) for k0 in range(0, k, kps)]
+    return rg.splitk_combine_plain(torch.stack(parts)[None], y, out_dtype)[0]
+
+
+def _check_small_row_fold(gen) -> None:
+    """The clustered small-row kernel against the two-launch arithmetic
+    (``sr_two_launch_z``) bit for bit, at every split from 1 to the cluster cap,
+    with and without Y, out fp16, bf16, E4M3 and fp32, at one and two
+    eight-row halves, N ragged and the last split short; and the card's
+    room for the largest cluster (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import BF16, E4M3, FP16, FP32, cast, get_policy
+    from repro_torch.kernels import _build, tuning
+    from repro_torch.kernels import redmule_gemm as rg
+
+    lib = _build.library()
+    fits = {}
+    for m in (4, 16):
+        for cluster in (1, 2, 4, 8, 16):
+            out = ctypes.c_int(0)
+            _build.check_launch(lib.redmule_gemm_sr_max_clusters(m, cluster, ctypes.byref(out)),
+                                "redmule_gemm_sr_max_clusters")
+            fits[(m, cluster)] = out.value
+    if min(fits.values()) < 1:
+        raise AssertionError(f"small rows: a cluster size does not fit the card: {fits}")
+    log("gemm schedules: small-row clusters resident at once (M, cluster size): "
+        + ", ".join(f"{k} {v}" for k, v in fits.items()))
+    hfp8 = get_policy("redmule_hfp8")
+
+    def q(*shape, scale=1.0):
+        return cast(cast(torch.randn(shape, generator=gen, device="cuda") * scale, FP16), E4M3)
+
+    n_cases = 0
+    for split in range(1, rg.SR_MAX_CLUSTER + 1):
+        k = split * 4 * rg.SR_STEP - 48  # four steps a split, the last one short
+        for m in (4, 13):
+            x, w = q(m, k), q(1000, k, scale=0.05).T
+            for y in (None, torch.randn(m, 1000, generator=gen, device="cuda").half()):
+                for out_dtype in (FP16, BF16, E4M3, FP32):
+                    req = tuning.GemmRequest("small_row", split=split)
+                    plan = rg.plan_call(x, w, y, gop=semiring.MATMUL, policy=hfp8,
+                                        request=req).plan
+                    if (plan.schedule, plan.split, plan.combines) != ("small_row", split, False):
+                        raise AssertionError(f"small rows: split {split} planned as {plan}")
+                    aux0 = rg.aux_launches.n
+                    got = rg.redmule_gemm(x, w, y, gop=semiring.MATMUL, policy=hfp8,
+                                          out_dtype=out_dtype, request=req)
+                    if rg.aux_launches.n != aux0:
+                        raise AssertionError("small rows: an auxiliary launch beside the kernel")
+                    want = sr_two_launch_z(x, w, y, out_dtype, split)
+                    torch.cuda.synchronize()
+                    if not same_bits(got, want):
+                        raise AssertionError(
+                            f"small rows M{m} K{k} split {split}, y {y is not None}, out "
+                            f"{out_dtype}: not the two-launch bits")
+                    n_cases += 1
+    log(f"gemm schedules: the clustered small-row fold equals fp32 partials plus the combine "
+        f"bit for bit in {n_cases} cases (splits 1-{rg.SR_MAX_CLUSTER}, with and without Y, "
+        "out fp16/bf16/E4M3/fp32, M 4 and 13), no auxiliary launch")
+
+
+def copy_cases(gen) -> list:
+    """(label, source, b1, b2, rows, k, strides, widen, route) for the K-major
+    copy: every route at every width and widening, ragged K and rows, the
+    zeroed pad, batch levels, and sources off 16 bytes."""
+    from repro_torch.core.precision import BF16, E4M3, E5M2, FP16, cast
+
+    def src(dtype, *shape):
+        t = torch.randn(shape, generator=gen, device="cuda") * 4
+        return cast(t, dtype) if dtype in (E4M3, E5M2) else t.to(dtype)
+
+    cases = []
+    for dtype in (E4M3, E5M2, FP16, BF16):
+        widens = (False, True) if dtype in (E4M3, E5M2) else (False,)
+        for widen in widens:
+            for k, r in ((1000, 1008), (64, 16), (1001, 4144), (1, 48), (130, 272)):
+                s = src(dtype, k, r)  # (K, rows): the rows' axis of unit stride
+                cases.append((f"{dtype} widen {widen} K{k} rows {r}", s, 1, 1, r, k,
+                              [0, 0, 1, r], widen, "tile"))
+            s = src(dtype, 2, 3, 200, 96)  # batched (b1, b2, K, rows)
+            cases.append((f"{dtype} widen {widen} batched 2x3 K200 rows 96", s, 2, 3, 96, 200,
+                          [3 * 200 * 96, 200 * 96, 1, 96], widen, "tile"))
+            s = src(dtype, 1000, 1000 + 16 // dtype.itemsize)[:, 1:1001]  # rows off 16 bytes
+            cases.append((f"{dtype} widen {widen} misaligned K1000 rows 1000", s, 1, 1, 1000,
+                          1000, [0, 0, 1, s.stride(0)], widen, "elements"))
+            s = src(dtype, 1000, 1000)  # K rows 1000 elements apart: off 16 bytes for 1-byte
+            route = "tile" if 1000 * dtype.itemsize % 16 == 0 else "elements"
+            cases.append((f"{dtype} widen {widen} K1000 rows 1000", s, 1, 1, 1000, 1000,
+                          [0, 0, 1, 1000], widen, route))
+        s = src(dtype, 300, 512)  # K-major already: rows of K
+        cases.append((f"{dtype} K-major widen {dtype in (E4M3, E5M2)} 300 x 512", s, 1, 1,
+                      300, 512, [0, 0, 512, 1], dtype in (E4M3, E5M2),
+                      "rows" if dtype in (E4M3, E5M2) else "elements"))
+        s = src(dtype, 300, 100)
+        cases.append((f"{dtype} K-major K100 (padded)", s, 1, 1, 300, 100, [0, 0, 100, 1],
+                      False, "elements"))
+    return cases
+
+
+def _check_copies(gen) -> None:
+    """Every K-major copy case (``copy_cases``) on its route, bit for bit
+    against the plain version, the route read on its counter."""
+    from repro_torch.kernels import redmule_gemm as rg
+
+    cases = copy_cases(gen)
+    for label, s, b1, b2, rows, k, strides, widen, route in cases:
+        args = (s, b1, b2, rows, k, strides, widen)
+        if rg.copy_route(*args) != route:
+            raise AssertionError(f"K-major copy {label}: route {rg.copy_route(*args)}, "
+                                 f"expected {route}")
+        before = rg.copy_launches[route].n
+        got = rg.kmajor_copy(*args)[0]
+        want = rg.kmajor_copy_plain(*args)
+        torch.cuda.synchronize()
+        bits = torch.int16 if got.element_size() == 2 else torch.uint8
+        if rg.copy_launches[route].n != before + 1 or not torch.equal(got.view(bits),
+                                                                     want.view(bits)):
+            raise AssertionError(f"K-major copy {label} ({route}) differs from its plain version")
+    log(f"gemm schedules: the K-major copy bitwise equal to its plain version in "
+        f"{len(cases)} cases (tile, rows and element routes; fp8 widened and as "
+        "they are, fp16, bf16; ragged K and rows, the zeroed pad, batches, sources off 16 bytes)")
 
 
 # -- phase 3c --------------------------------------------------------------------
@@ -711,15 +854,18 @@ def _closure_graph(gen, op: str):
 
 def _simt_path(label, run, readings: dict) -> object:
     """Run ``run`` with the GEMM's counters set to 0 and record, after it,
-    the launches of each SIMT form and the auxiliary (combine) launches."""
+    the launches of each SIMT form, the auxiliary launches and, among
+    them, the split-K combine's."""
     from repro_torch.kernels import redmule_gemm as rg
 
     _reset_launch_counts()
+    rg.combine_launches.reset()
     for c in rg.simt_form_launches.values():
         c.reset()
     out = run()
     torch.cuda.synchronize()
     readings[label] = {"gemm": rg.launches.n, "aux": rg.aux_launches.n,
+                       "combine": rg.combine_launches.n,
                        **{f: c.n for f, c in rg.simt_form_launches.items()}}
     return out
 
@@ -873,7 +1019,7 @@ def phase_simt() -> dict:
         raise AssertionError("Engine.gemm_op apsp 64x4096x12800 redmule_hfp8 differs from the "
                              "plain engine")
     r = readings["gemm_op apsp"]
-    if r["h2"] != 1 or r["aux"] != 1:
+    if r["h2"] != 1 or r["aux"] != 1 or r["combine"] != 1:
         raise AssertionError(f"Engine.gemm_op apsp 64x4096x12800: launches {r}, expected one "
                              "h2 launch and one combine")
     log(f"simt: Engine.gemm_op apsp 64x4096x12800 under redmule_hfp8 ({plan.form} form, split "
@@ -1377,7 +1523,7 @@ SLICE_PARITY = (("fp32", "fp32", False, 1e-4), ("redmule_hfp8", "e4m3", True, 0.
 
 
 def _kernels_against_plain(arch, pol, kv, fp8_params, bound, calls, label,
-                           gathered=False) -> None:
+                           gathered=False) -> int:
     """``arch`` at full width, 2 layers, under ``pol``: the kernels' path
     against the plain path on the card, fed the same tokens, over
     whole-prompt prefill and 4 decode steps and over chunked and batched
@@ -1387,9 +1533,10 @@ def _kernels_against_plain(arch, pol, kv, fp8_params, bound, calls, label,
     probabilities to E4M3 in its engine GEMMs under an fp8 policy, is
     printed beside it (and bound under fp32). ``calls`` records the
     kernels' GEMM calls of the whole-prompt run by (M, K, N, schedule,
-    form)."""
+    form). Returns the split-K combine's launches in that run."""
     from repro_torch.configs import get_config
     from repro_torch.engine import Engine
+    from repro_torch.kernels import redmule_gemm as rg
     from repro_torch.models import build
     from repro_torch.models.transformer import Transformer
 
@@ -1406,8 +1553,10 @@ def _kernels_against_plain(arch, pol, kv, fp8_params, bound, calls, label,
     paths = {"plain": Transformer(cfg, engine=plain, device="cuda", fused_decode=True)}
     if gathered:
         paths["plain, gathered decode"] = Transformer(cfg, engine=plain, device="cuda")
+    rg.combine_launches.reset()
     with _recording_plans(calls):
         got, chosen = _slice_run(cuda_model, params, prompts, page_table)
+    combines = rg.combine_launches.n
     forced = chosen[:-1]  # decode step i was fed chosen[i]
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"{label} {pol}: non-finite logits on the kernels' path")
@@ -1438,6 +1587,7 @@ def _kernels_against_plain(arch, pol, kv, fp8_params, bound, calls, label,
     log(f"{label} {pol}: {worst:.3g} within {bound:g}")
     del cuda_model, paths, params
     torch.cuda.empty_cache()
+    return combines
 
 
 def phase_slice_parity() -> dict:
@@ -1447,15 +1597,19 @@ def phase_slice_parity() -> dict:
     way; tests/test_torch_model.py holds each of the port's two paths
     against the reference's path of the same semantics). Returns the fp32
     run's SIMT calls of its widest product (the 64-row prefill's 64 x 4096
-    x 12800), for the kernel line."""
+    x 12800) and its split-K combine launches, for the kernel line."""
     fp32_calls = collections.Counter()
+    combines = {}
     for pol, kv, fp8p, bound in SLICE_PARITY:
-        _kernels_against_plain("granite-3-8b", pol, kv, fp8p, bound,
-                               fp32_calls if pol == "fp32" else collections.Counter(),
-                               "slice parity", gathered=True)
+        combines[pol] = _kernels_against_plain(
+            "granite-3-8b", pol, kv, fp8p, bound,
+            fp32_calls if pol == "fp32" else collections.Counter(), "slice parity",
+            gathered=True)
     log("slice parity fp32: the kernels' GEMMs by (M, K, N, schedule, form): "
-        + ", ".join(f"{k} x{v}" for k, v in sorted(fp32_calls.items())))
-    return {"fp32_wide": fp32_calls[(64, 4096, 12800, "simt", "f32")]}
+        + ", ".join(f"{k} x{v}" for k, v in sorted(fp32_calls.items()))
+        + f"; split-K combine launches {combines['fp32']}")
+    return {"fp32_wide": fp32_calls[(64, 4096, 12800, "simt", "f32")],
+            "fp32_combines": combines["fp32"]}
 
 
 # -- phase 8 ---------------------------------------------------------------------
@@ -1539,28 +1693,40 @@ def _serve_prompts(cfg) -> list:
     return [list(rng.integers(0, cfg.vocab_size, size=n)) for n in mixed_prompt_lens(64, 8)]
 
 
-def phase_serve(cfg, model, params) -> dict:
-    from repro_torch.kernels import flash_attention, redmule_gemm
-    from repro_torch.obs import JsonTracer, write_trace
+def serve_run(cfg, model, params) -> tuple:
+    """Phase 8's timed run: the serve prompts through a fresh traced Server
+    (its decode graph captured at the first decode step, so the capture is
+    in the decode seconds), the launch counters zeroed before it and read
+    around each prefill and eager decode run. Returns the server, its
+    results, the wall seconds and the readings."""
+    from repro_torch.obs import JsonTracer
     from repro_torch.serving import SamplingParams, Server, ServerConfig
 
     prompts = _serve_prompts(cfg)
-    max_new = MAX_NEW
-    torch.cuda.reset_peak_memory_stats()
     server = Server(model, params, ServerConfig(
-        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + max_new), seed=0,
+        **SERVE_CONFIG, max_seq_len=max(map(len, prompts)) + MAX_NEW), seed=0,
         tracer=JsonTracer())
     for i, p in enumerate(prompts):
         sampling = SamplingParams(temperature=0.8) if i == 5 else SamplingParams()
-        server.submit(p, max_new_tokens=max_new, sampling=sampling)
+        server.submit(p, max_new_tokens=MAX_NEW, sampling=sampling)
     readings = {"prefill": [], "decode": []}
-    eng = server.engine
-    _count_launches(eng, readings)
+    _count_launches(server.engine, readings)
     _reset_launch_counts()
     t0 = time.perf_counter()
     results = server.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return server, results, time.perf_counter() - t0, readings
+
+
+def phase_serve(cfg, model, params) -> dict:
+    from repro_torch.kernels import flash_attention, redmule_gemm
+    from repro_torch.obs import write_trace
+
+    prompts = _serve_prompts(cfg)
+    max_new = MAX_NEW
+    torch.cuda.reset_peak_memory_stats()
+    server, results, wall, readings = serve_run(cfg, model, params)
+    eng = server.engine
     gemm_n, decode_n = redmule_gemm.launches.n, flash_attention.launches.n
     s = server.stats
     if len(results) != len(prompts):
@@ -1599,6 +1765,9 @@ def phase_serve(cfg, model, params) -> dict:
         raise AssertionError(f"serve: launches gemm {gemm_n}, paged decode {decode_n} over the run "
                              "differ from the sum over its readings")
     aux = {kind: sorted({r[-1] for r in readings[kind]}) for kind in readings}
+    if aux["decode"] != [0]:
+        raise AssertionError(f"serve: auxiliary launches per decode step {aux['decode']}, "
+                             "expected none (the small-row splits fold inside their launch)")
     mem = torch.cuda.max_memory_allocated()
     log(f"serve: {len(results)} requests, {s.decode_tokens} decode tokens in {s.decode_steps} "
         f"steps, {s.prefill_calls} prefills; decode {s.decode_tok_s:.1f} tok/s, "
@@ -1611,7 +1780,7 @@ def phase_serve(cfg, model, params) -> dict:
         f"paged decode {per_prefill[1]}")
     log(f"serve: gemm schedules (simt, tensor-core, small-row) at each decode step "
         f"{per_decode[2:]}, at each prefill {per_prefill[2:]}; auxiliary launches per decode "
-        f"step {aux['decode']} (split-K combines), per prefill {aux['prefill']} (K-major copies)")
+        f"step {aux['decode']}, per prefill {aux['prefill']} (K-major copies)")
     slots, pages = server.engine.cache.page_table.shape
     g = cfg.n_heads // cfg.n_kv_heads
     splits = flash_attention.decode_splits(slots, cfg.n_kv_heads, pages, groups=-(-g // 4))
@@ -1630,8 +1799,7 @@ def phase_serve(cfg, model, params) -> dict:
     return {"gemm": gemm_n, "decode": decode_n, "graph_replays": eng.graph_replays,
             "gemm_per_decode_step": per_decode[0], "gemm_per_prefill": per_prefill[0],
             "decode_per_decode_step": per_decode[1], "decode_per_prefill": per_prefill[1],
-            "serve_tc": totals[3], "serve_small_row": totals[4],
-            "serve_combines": sum(r[-1] for r in readings["decode"])}
+            "serve_tc": totals[3], "serve_small_row": totals[4]}
 
 
 # -- phase 12 --------------------------------------------------------------------
@@ -1709,7 +1877,8 @@ def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup
             raise AssertionError(f"{label}: {server.engine.graph_replays - replays0} replays for "
                                  f"{s.decode_steps} decode steps")
         dev_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
-        busy = f", decode graph busy {dev_s / s.decode_s:.1%} of the decode steps"
+        busy = (f", decode graph busy {dev_s / s.decode_s:.1%} of the decode steps, decode "
+                f"replay {dev_s * 1e3 / max(len(spans), 1):.3f} ms")
     log(f"{label}: decode {s.decode_tok_s:.1f} tok/s, prefill {s.prefill_s:.3f} s, "
         f"wall {wall:.3f} s, max memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
         f"{s.decode_steps} decode steps, {s.prefill_calls} prefill steps{busy}")
@@ -3813,8 +3982,12 @@ def phase_train() -> dict:
         f"{tok_s:.1f} tokens/s); max memory {mem / 1e9:.2f} GB; launches per step: gemm "
         f"{per_step[0]}, dense attention 0 (total gemm {gemm_n}); by schedule (simt, "
         f"tensor-core, small-row) {schedules[0]}; K-major copies {aux}")
+    copies = {route: sum(h[f"gemm_copy_{route}_launches"] for h in hist)
+              for route in ("tile", "rows", "elements")}
+    log(f"train: K-major copies by route over the run {copies}")
     return {"gemm": gemm_n, "gemm_per_step": per_step[0], "ms_per_step": ms,
-            "copies": sum(h["gemm_aux_launches"] for h in hist)}
+            "copies": sum(h["gemm_aux_launches"] for h in hist),
+            **{f"copy_{route}": n for route, n in copies.items()}}
 
 
 # -- phase 18 --------------------------------------------------------------------
@@ -4196,7 +4369,7 @@ TABLE_PLANS = [
     ("moe decode up/gate 4x1024x16384", (4, 1024), (1024, 16384, "kmajor"), "hfp8", "matmul",
      ("small_row", 2, "", False)),
     ("moe decode down 4x16384x1024", (4, 16384), (16384, 1024, "kmajor"), "hfp8", "matmul",
-     ("small_row", 32, "", False)),
+     ("small_row", 16, "", False)),
     ("moe router 4x1024x32 fp32", (4, 1024), (1024, 32, "rows"), "fp32", "matmul",
      ("simt", 1, "warp", False)),
     ("gemma2 decode 4x2304x9216", (4, 2304), (2304, 9216, "kmajor"), "hfp8", "matmul",
@@ -4210,7 +4383,7 @@ TABLE_PLANS = [
     ("seamless ffn up 4x1024x8192", (4, 1024), (1024, 8192, "kmajor"), "hfp8", "matmul",
      ("small_row", 4, "", False)),
     ("seamless ffn down 4x8192x1024", (4, 8192), (8192, 1024, "kmajor"), "hfp8", "matmul",
-     ("small_row", 32, "", False)),
+     ("small_row", 16, "", False)),
     ("internvl2 gate/up 4x8192x28672", (4, 8192), (8192, 28672, "kmajor"), "hfp8", "matmul",
      ("small_row", 1, "", False)),
     ("internvl2 down 4x28672x8192", (4, 28672), (28672, 8192, "kmajor"), "hfp8", "matmul",
@@ -4520,6 +4693,13 @@ def _gemm_row(label, x, w, out_dtype, launches, policy="redmule_hfp8", op="matmu
                              f"{GEMM_TOL[got.dtype]}")
     if not gop.is_gemm and not same_bits(got, want):
         raise AssertionError(f"redmule_gemm[{label}]: not bitwise against the plain version")
+    if plan.schedule == "small_row":
+        # No combine beside its K-major copies, and the two-launch bits.
+        if aux != plan.copy_x + plan.copy_w or (
+                x.dim() == 2 and not same_bits(got, sr_two_launch_z(x, w, y, out_dtype,
+                                                                plan.split))):
+            raise AssertionError(f"redmule_gemm[{label}]: {aux} auxiliary launches, or not the "
+                                 "two-launch bits")
     big = x.numel() * w.shape[-1] > 1 << 32
     ms = time_ms(lambda: rg.redmule_gemm(x, w, y, **kw), iters=5 if big else 20, graph=True)
     # Eager calls, timed the same way: where this exceeds ``ms`` the wrapper's
@@ -4599,7 +4779,7 @@ def _gemm_entries(counts) -> list:
         entries.append(_gemm_row(f"backward {label}", a, b, FP16, train, **per_step))
     entries += _spec_gemm_entries(counts, q, table)
     del table
-    entries += [_copy_entry(counts), _combine_entry(counts)]
+    entries += [*_copy_entries(counts), _combine_entry(counts)]
     return entries
 
 
@@ -4653,62 +4833,93 @@ def _spec_gemm_entries(counts, q, table) -> list:
     return rows
 
 
-def _copy_entry(counts):
-    """The K-major copy at the train run's forward weight (4096 x 12800
-    E4M3, N contiguous), widened to a (12800, 4096) fp16 buffer as the
-    tensor-core schedule takes it above one row tile; bound by its bytes
-    read and written once, beside ``t().contiguous()`` after ``half()``."""
-    from repro_torch.core.precision import E4M3
+# The K-major copy's rows: (label, source shape (K, rows) or (rows, K), its
+# format, widen, route, the train run's launch count key). The train run's
+# forward weight (4096 x 12800 E4M3, N contiguous) and its two dW operands
+# at 2 x 1024 tokens, the activations X^T (2048 tokens x 4096) and dZ^T
+# (2048 x 12800 E5M2), all transposed and widened on the tile kernel; and
+# the activations X (2048 x 4096, K-major already) widened on the rows
+# kernel.
+COPY_ROWS = (
+    ("4096x12800 e4m3 -> K-major fp16 (forward weight)", (4096, 12800), "e4m3", "tile"),
+    ("dW X^T 2048x4096 e4m3 -> K-major fp16", (2048, 4096), "e4m3", "tile"),
+    ("dW dZ^T 2048x12800 e5m2 -> K-major fp16", (2048, 12800), "e5m2", "tile"),
+    ("rows 2048x4096 e4m3 -> fp16 (K-major X widened)", (2048, 4096), "e4m3", "rows"),
+)
+
+
+def _copy_entries(counts) -> list:
+    """The K-major copy at the train run's shapes (``COPY_ROWS``), each
+    bitwise against its plain version on its route, bound by its bytes read
+    and written once, beside ``half().t().contiguous()`` (the tile route)
+    or ``half()`` (the rows route); after every copy case of phase 3 again."""
+    from repro_torch.core.precision import E4M3, E5M2
     from repro_torch.kernels import redmule_gemm as rg
     from repro_torch.roofline import cost
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    w = torch.randn((4096, 12800), generator=gen, device="cuda").to(E4M3)
-    args = (w, 1, 1, 12800, 4096, [0, 0, 1, 12800], True)
-    got = rg.kmajor_copy(*args)[0]
-    want = rg.kmajor_copy_plain(*args)
-    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-        raise AssertionError("the K-major copy differs from its plain version at the train shape")
-    ms = time_ms(lambda: rg.kmajor_copy(*args), graph=True)
-    plain_ms = time_ms(lambda: rg.kmajor_copy_plain(*args), iters=5)
-    library_ms = time_ms(lambda: w.half().t().contiguous(), graph=True)
-    bound = cost.transfer_cost([w], [got])
-    return {
-        "name": "kmajor_copy[4096x12800 e4m3 -> K-major fp16]", "route": "cuda",
-        "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
-        "replaces": "src/repro/kernels/redmule_gemm.py:110",
-        "launches": counts["train_copies"], "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
-        "library_ms": library_ms,
-    }
+    _check_copies(gen)
+    rows = []
+    for label, (a, b), fmt, route in COPY_ROWS:
+        src = torch.randn((a, b), generator=gen, device="cuda").to(E4M3 if fmt == "e4m3" else E5M2)
+        if route == "tile":  # (K, rows): rows b of K a, the rows' axis unit-stride
+            args = (src, 1, 1, b, a, [0, 0, 1, b], True)
+            library = lambda s=src: s.half().t().contiguous()  # noqa: E731
+        else:  # (rows, K): rows a of K b
+            args = (src, 1, 1, a, b, [0, 0, b, 1], True)
+            library = lambda s=src: s.half()  # noqa: E731
+        if rg.copy_route(*args) != route:
+            raise AssertionError(f"kmajor_copy[{label}]: route {rg.copy_route(*args)}")
+        got = rg.kmajor_copy(*args)[0]
+        if not torch.equal(got.view(torch.int16), rg.kmajor_copy_plain(*args).view(torch.int16)):
+            raise AssertionError(f"kmajor_copy[{label}] differs from its plain version")
+        bound = cost.transfer_cost([src], [got])
+        rows.append({
+            "name": f"kmajor_copy[{route}: {label}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
+            "replaces": "src/repro/kernels/redmule_gemm.py:110",
+            "launches": counts[f"train_copy_{route}"], "max_abs_err": 0.0,
+            "ms": time_ms(lambda: rg.kmajor_copy(*args), graph=True),
+            "plain_ms": time_ms(lambda: rg.kmajor_copy_plain(*args), iters=5),
+            "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
+            "library_ms": time_ms(library, graph=True),
+        })
+    return rows
 
 
 def _combine_entry(counts):
-    """The split-K combine at the decode step's q projection (4 x 4096, 8
-    splits of fp32 partials, fp16 out), bound by its bytes, beside
-    ``sum`` over the split axis."""
-    from repro_torch.core.precision import FP16
+    """The SIMT schedule's split-K combine at phase 7's widest fp32 product
+    (64 x 4096 x 12800 on the f32 form, 5 splits of fp32 partials, fp32
+    out), bound by its bytes, beside ``sum`` over the split axis. The
+    small-row schedule folds its splits inside its own launch. Launches:
+    the combine's own counter over phase 7's fp32 run of the kernels."""
+    from repro_torch.core import semiring
+    from repro_torch.core.precision import FP32, get_policy
     from repro_torch.kernels import redmule_gemm as rg
     from repro_torch.roofline import cost
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    ws = torch.randn((1, 8, 4, 4096), generator=gen, device="cuda")
-    out = torch.empty((1, 4, 4096), dtype=FP16, device="cuda")
+    x = torch.randn((64, 4096), generator=gen, device="cuda")
+    plan = rg.plan_call(x, x.new_empty((4096, 12800)), None, gop=semiring.MATMUL,
+                        policy=get_policy("fp32")).plan
+    if not plan.combines:
+        raise AssertionError(f"fp32 64x4096x12800 planned {plan}, which launches no combine")
+    ws = torch.randn((1, plan.split, 64, 12800), generator=gen, device="cuda")
+    out = torch.empty((1, 64, 12800), dtype=FP32, device="cuda")
     rg.splitk_combine(ws, out)
-    want = rg.splitk_combine_plain(ws, None, FP16)
-    if not torch.equal(out.view(torch.int16), want.view(torch.int16)):
+    want = rg.splitk_combine_plain(ws, None, FP32)
+    if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
         raise AssertionError("the split-K combine differs from its plain version")
-    ms = time_ms(lambda: rg.splitk_combine(ws, out), graph=True)
-    plain_ms = time_ms(lambda: rg.splitk_combine_plain(ws, None, FP16))
-    library_ms = time_ms(lambda: ws.sum(1), graph=True)
     bound = cost.transfer_cost([ws], [out])
     return {
-        "name": "splitk_combine[8 x 4x4096 fp32 -> fp16]", "route": "cuda",
+        "name": f"splitk_combine[{plan.split} x 64x12800 fp32 -> fp32]", "route": "cuda",
         "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
         "replaces": "src/repro/kernels/redmule_gemm.py:110",
-        "launches": counts["serve_combines"], "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
-        "library_ms": library_ms,
+        "launches": counts["fp32_combines"], "max_abs_err": 0.0,
+        "ms": time_ms(lambda: rg.splitk_combine(ws, out), graph=True),
+        "plain_ms": time_ms(lambda: rg.splitk_combine_plain(ws, None, FP32)),
+        "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
+        "library_ms": time_ms(lambda: ws.sum(1), graph=True),
     }
 
 
@@ -4752,7 +4963,7 @@ def _simt_entries(counts) -> list:
         "name": "splitk_combine[min, 4 x 64x12800 fp32 -> fp16]", "route": "cuda",
         "source": "src/repro_torch/csrc/redmule_gemm_sr.cu",
         "replaces": "src/repro/kernels/redmule_gemm.py:110",
-        "launches": paths["gemm_op apsp"]["aux"], "max_abs_err": 0.0,
+        "launches": paths["gemm_op apsp"]["combine"], "max_abs_err": 0.0,
         "ms": time_ms(lambda: rg.splitk_combine(ws, out, star=semiring.Op.MIN), graph=True),
         "plain_ms": time_ms(lambda: rg.splitk_combine_plain(ws, None, FP16, semiring.Op.MIN)),
         "bound_ms": bound.bound_ms, "bound_by": bound.bound_by,
@@ -5856,7 +6067,8 @@ def main() -> int:
     counts |= _timed("phase 21", phase_ep)
     counts |= _timed("phase 22", phase_tp)
     counts |= {"train_gemm": train["gemm"], "train_gemm_per_step": train["gemm_per_step"],
-               "train_copies": train["copies"]}
+               "train_copies": train["copies"], "train_copy_tile": train["copy_tile"],
+               "train_copy_rows": train["copy_rows"]}
     with torch.inference_mode():
         entries = phase_kernel_line(counts, paper_rows)
     log(f"card: {card}; the whole run {time.perf_counter() - t0:.1f} s")

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """One train-step loss and gradient per (arch, policy) on the card, hashed,
 so that two checkouts can be compared bit for bit (SMOKE configs, seed 0
-parameters, 2 x 64 tokens from a fixed generator; fp32 and redmule_hfp8).
-Equal lines mean the two checkouts' card paths compute the same function.
+parameters, 2 x 64 tokens from a fixed generator; fp32, redmule_hfp8 and
+the two bf16-compute policies tpu_bf16 and tpu_hfp8, or the policies
+named as arguments). Equal lines mean the two checkouts' card paths
+compute the same function.
 
-    PYTHONPATH=src python scripts/card_same_bits.py
-    PYTHONPATH=<older checkout>/src python scripts/card_same_bits.py
+    PYTHONPATH=src python scripts/card_same_bits.py [POLICY ...]
+    PYTHONPATH=<older checkout>/src python scripts/card_same_bits.py [POLICY ...]
 
 Needs a card; prints "arch policy loss hash" a line.
 """
@@ -22,8 +24,9 @@ from repro_torch.training import make_loss_fn
 
 ARCHS = ("granite-3-8b", "gemma2-2b", "recurrentgemma-2b", "granite-moe-1b-a400m",
          "chatglm3-6b", "xlstm-125m")
+POLICIES = tuple(sys.argv[1:]) or ("fp32", "redmule_hfp8", "tpu_bf16", "tpu_hfp8")
 for arch in ARCHS:
-    for policy in ("fp32", "redmule_hfp8"):
+    for policy in POLICIES:
         cfg = dataclasses.replace(get_config(arch, smoke=True), policy=policy)
         model = build(cfg, device="cuda")
         params = model.init(0)

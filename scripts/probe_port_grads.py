@@ -21,7 +21,12 @@ package in both).
 share of 2^20 N(0, 64) draws (rows of 1024 for softmax and logsumexp)
 whose value and whose gradient (``jax.vjp`` against autograd, cotangents
 N(0, 1)) differ in bits from the reference's under ``jax.jit``: torch's
-own function against the port's.
+own function against the port's. Then the same for the bf16 silu and gelu
+(the draws rounded to bf16, the tails to +-100 among them), with torch's
+autograd of the port's forward expansion in place of torch's function,
+the draws whose gradient the reference keeps finite and autograd does
+not, and what XLA compiles for the gradient: its arithmetic steps, how
+many of them round to bf16, and its fused multiply-adds.
 """
 from __future__ import annotations
 
@@ -161,6 +166,49 @@ def sites() -> None:
               "port {:.2%}".format(row[0], row[1], row[3], row[2], row[4]))
 
 
+def bf16_sites() -> None:
+    import re
+
+    import jax.numpy as jnp
+
+    from repro.models import common as jc
+    from repro_torch.models import common as tc
+
+    rng = np.random.default_rng(1)
+    draws = rng.standard_normal(1 << 20) * 8
+    draws[:12] = [-100, -90, -89, -88.5, -88, -87.5, -87, 100, 90, 89, 88, 87]
+    x = np.array(jnp.asarray(draws, jnp.bfloat16))
+    g = np.array(jnp.asarray(rng.standard_normal(1 << 20), jnp.bfloat16))
+
+    def bf16(a):
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+
+    autograd = {"silu": tc._silu16_values, "gelu": lambda t: tc._gelu16_values(t)[0]}
+    for name, jfn in (("silu", jax.nn.silu), ("gelu", jc.gelu)):
+        vjp = jax.jit(lambda a, b: jax.vjp(jfn, a)[1](b)[0])
+        hlo = vjp.lower(x, g).compile().as_text()
+        ops = "multiply|add|subtract|divide|negate|exponential|tanh"
+        steps = re.findall(rf"= f32\[\d+\]\{{0\}} ({ops})\(", hlo)
+        rounded = len(re.findall(r"= bf16\[\d+\]\{0\} convert\(", hlo))
+        fmas = len(re.findall(r"fma|fused-multiply-add", hlo))
+        want = np.asarray(jax.jit(jfn)(x)).view(np.int16)
+        gwant = np.asarray(vjp(x, g))
+        finite = np.isfinite(gwant.astype(np.float32))
+        row = []
+        for fn in (autograd[name], tc.ACTIVATIONS[name]):
+            t = bf16(x).requires_grad_(True)
+            y = fn(t)
+            y.backward(bf16(g))
+            got = t.grad.view(torch.int16).numpy()
+            row += [float(np.mean(y.detach().view(torch.int16).numpy() != want)),
+                    float(np.mean(got != gwant.view(np.int16))),
+                    int(np.sum(finite & ~np.isfinite(t.grad.float().numpy())))]
+        print(f"site bf16 {name}: XLA's gradient has {len(steps)} fp32 steps, {rounded} "
+              f"rounded to bf16, {fmas} fused multiply-adds; value off: autograd {row[0]:.2%}, "
+              f"port {row[3]:.2%}; gradient off: autograd {row[1]:.2%}, port {row[4]:.2%}; "
+              f"non-finite where the reference is finite: autograd {row[2]}, port {row[5]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", action="append")
@@ -173,6 +221,7 @@ def main() -> int:
     torch.manual_seed(0)
     if args.sites:
         sites()
+        bf16_sites()
     out = {a: probe(a, args.seq, args.batch, args.policy, args.leaves)
            for a in (args.arch or ARCHS)}
     print(json.dumps(out))

@@ -18,8 +18,13 @@ choose plans, so this module checks, without running a kernel:
   splits in multiples of each kernel's step that leave no split empty,
   grids within 65535 in y and z, and splits that never shrink as M (or the
   decode's slots) thins;
+- every small-row plan within the kernel's largest cluster
+  (``SR_MAX_CLUSTER``); the K-major copy's tile (its stages within the
+  48 KB of static shared memory, eight 16-byte chunks a K row for its
+  swizzle, K rows in whole groups of 16);
 - the Python mirrors of the ``csrc/`` constants (``TC_TILE_M/N`` against
-  ``BM/BN``, ``SR_BLOCK_N``, ``SR_STEP``, ``SR_MAX_M``, the SIMT tiles,
+  ``BM/BN``, ``SR_BLOCK_N``, ``SR_STEP``, ``SR_MAX_M``, ``SR_MAX_CLUSTER``,
+  ``COPY_TILE_K/BYTES``, the SIMT tiles,
   ``_DECODE_GROUP`` against ``GB``, the dense attention's query and key
   tiles and padding) equal to the values read from the sources, and each
   dense attention instance's shared memory (tensor cores at hd 64, 128
@@ -42,6 +47,7 @@ from repro_torch.kernels import flash_attention, redmule_gemm, tuning
 from repro_torch.kernels._build import CSRC
 
 SMEM_PER_BLOCK = 227 * 1024  # the most shared memory an H100 block can opt into
+STATIC_SMEM = 48 * 1024  # the most static shared memory a block declares
 MAX_GRID_YZ = 65535
 THREADS_PER_SM = 2048
 # Band seams of M, and the shapes swept across them.
@@ -65,6 +71,9 @@ MIRRORS = {
     ("redmule_gemm", "SR_BLOCK_N"): ("redmule_gemm_sr.cu", "SR_BLOCK_N"),
     ("redmule_gemm", "SR_STEP"): ("redmule_gemm_sr.cu", "SR_STEP"),
     ("redmule_gemm", "SR_MAX_M"): ("redmule_gemm_sr.cu", "SR_MAX_M"),
+    ("redmule_gemm", "SR_MAX_CLUSTER"): ("redmule_gemm_sr.cu", "SR_MAX_CLUSTER"),
+    ("redmule_gemm", "COPY_TILE_K"): ("redmule_gemm_sr.cu", "COPY_TILE_K"),
+    ("redmule_gemm", "COPY_TILE_BYTES"): ("redmule_gemm_sr.cu", "COPY_TILE_BYTES"),
     ("redmule_gemm", "SIMT_TILE_M"): ("redmule_simt.cuh", "BM"),
     ("redmule_gemm", "SIMT_TILE_N"): ("redmule_simt.cuh", "BN"),
     ("redmule_gemm", "SIMT_BK"): ("redmule_simt.cuh", "BK"),
@@ -142,6 +151,12 @@ def tc_smem_bytes(c: dict, fp8: bool) -> int:
 def sr_smem_bytes(c: dict) -> int:
     """The small-row kernel's staged X: two eight-row halves of SR_XS bytes."""
     return -(-c["SR_MAX_M"] // 8) * 8 * c["SR_XS"]
+
+
+def copy_smem_bytes(c: dict) -> int:
+    """The K-major copy's tile kernel: COPY_STAGES tiles in flight, in
+    static shared memory (at most 48 KB a block)."""
+    return c["COPY_STAGES"] * c["COPY_TILE_K"] * c["COPY_TILE_BYTES"]
 
 
 def simt_smem_bytes(c: dict, form: str) -> int:
@@ -222,6 +237,17 @@ def validate_tuning_tables(module=tuning, csrc: Path = CSRC) -> list[TileFinding
                                 f"kernel's 1..{redmule_gemm.SR_MAX_M} rows")
     if module.SIMT_WARP_MAX_OUTPUTS < 1:
         bad("SIMT_WARP_MAX_OUTPUTS", "*", "no output takes the warp form")
+    sr = consts["redmule_gemm_sr.cu"]
+    # Each block's fp32 partial tile lies over its staged X, one eight-row half.
+    if 8 * sr["SR_BLOCK_N"] * 4 > 8 * sr["SR_XS"]:
+        bad("smem", "small_row", "the partial tile of eight rows exceeds one staged half")
+    if copy_smem_bytes(sr) > STATIC_SMEM:
+        bad("smem", "kmajor tile", f"{copy_smem_bytes(sr)} bytes of static shared memory > "
+                                   f"{STATIC_SMEM}")
+    if sr["COPY_TILE_BYTES"] != 8 * 16 or sr["COPY_TILE_K"] % 16:
+        bad("csrc", "COPY_TILE", f"a copy tile of {sr['COPY_TILE_K']} K rows x "
+                                 f"{sr['COPY_TILE_BYTES']} bytes: the swizzle wants 8 chunks "
+                                 "of 16 bytes a K row and whole groups of 16 K rows")
 
     # -- shared memory per block ---------------------------------------------------
     tc = consts["redmule_gemm_tc.cu"]
@@ -295,6 +321,9 @@ def _check_plan(module, bad, entry, plan, m, n, k, batch, dtype, gop) -> None:
             bad("plan_gemm", entry, f"widen {plan.widen} against the tile rule")
     if plan.schedule == "small_row" and m > rg.SR_MAX_M:
         bad("plan_gemm", entry, f"small rows for {m} > SR_MAX_M rows")
+    if plan.schedule == "small_row" and plan.split > rg.SR_MAX_CLUSTER:
+        bad("plan_gemm", entry, f"small-row split {plan.split} over the kernel's cluster "
+                                f"cap {rg.SR_MAX_CLUSTER}")
     step = {"small_row": rg.SR_STEP, "simt": rg.SIMT_BK}.get(plan.schedule)
     if plan.split > 1 or plan.schedule != "tc":
         if plan.form == "warp":

@@ -53,11 +53,12 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_P],
     "redmule_gemm_tc_launch": [_I, _I, _P, _P, _P, _I, _P, _I,
                                _I, _I, _I, _I, _I] + [_L] * 10 + [_P],
-    "redmule_gemm_sr_launch": [_I, _I, _P, _P, _P, _I, _P, _I, _P,
+    "redmule_gemm_sr_launch": [_I, _I, _P, _P, _P, _I, _P, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 11 + [_P],
+    "redmule_gemm_sr_max_clusters": [_I, _I, ctypes.POINTER(_I)],
     "redmule_splitk_combine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I]
                                      + [_L] * 4 + [_P],
-    "kmajor_copy_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 4 + [_P],
+    "kmajor_copy_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 4 + [_P],
     "paged_decode_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],

@@ -14,18 +14,24 @@ schedules from the shapes, formats and strides, by the tables of
   with more than ``tuning.SMALL_M_MAX`` rows;
 - ``"small_row"`` (``csrc/redmule_gemm_sr.cu``): weight streaming with
   split K, for the same pair on fp8 operands with at most
-  ``tuning.SMALL_M_MAX`` rows (the decode step);
+  ``tuning.SMALL_M_MAX`` rows (the decode step); the split blocks of an
+  output tile form one thread-block cluster and fold their partials in
+  split order through distributed shared memory, so a call is one launch;
 - ``"simt"`` (``csrc/redmule_gemm.cu``): every other case, the six semiring
   pairs and the fp32 compute format among them, in one of three forms
   (:data:`SIMT_FORMS`): ``"h2"``, packed 16-bit tiles for the semiring pairs
   under a 16-bit compute format; ``"f32"``, fp32 tiles; ``"warp"``, warps
   that split K for fp32 products with few outputs (the MoE router). The tiled
   forms split K across blocks where their tiles are too few to fill the
-  card, and the split-K combine folds the partials with the pair's star.
+  card, and the split-K combine, a second launch, folds the partials with
+  the pair's star.
 
 The two tensor-core schedules read K-major operands; the plan names the
 operands whose views are not, and the wrapper copies those with the K-major
-copy kernel first. With more than one tensor-core tile in both directions,
+copy first, on one of three kernels (:func:`copy_route`): the tile kernel
+for sources whose rows are the unit-stride axis, the row widening for fp8
+sources that are K-major already, and the element-wise kernel for the
+rest. With more than one tensor-core tile in both directions,
 fp8 operands are copied widened to fp16 (exact), so that each is widened
 once, not once per tile. The source note in ``redmule_gemm.cu`` says what bounds
 each schedule and how its numerics meet the reference's.
@@ -55,8 +61,13 @@ launches = _build.LaunchCount()
 simt_launches = _build.LaunchCount()
 tc_launches = _build.LaunchCount()
 small_row_launches = _build.LaunchCount()
-# Launches around a schedule: K-major copies and split-K combines.
+# Launches around a schedule: K-major copies and the SIMT schedule's
+# split-K combines.
 aux_launches = _build.LaunchCount()
+# One per split-K combine launch (beside aux_launches).
+combine_launches = _build.LaunchCount()
+# One per K-major copy launch of each route (beside aux_launches).
+copy_launches = {route: _build.LaunchCount() for route in ("tile", "rows", "elements")}
 
 SCHEDULE_COUNTERS = {"simt": simt_launches, "tc": tc_launches, "small_row": small_row_launches}
 # One per SIMT launch of each form (beside simt_launches).
@@ -72,6 +83,15 @@ TC_TILE_M = TC_TILE_N = 128
 SR_BLOCK_N = 64  # weight rows a small-row block streams
 SR_STEP = 64  # K bytes a small-row warp covers per step; splits are multiples of it
 SR_MAX_M = 16  # the most rows the small-row kernel takes
+# The most K splits of a small-row output tile: its blocks form one
+# thread-block cluster, and 16 is the largest a Hopper card launches (with
+# the non-portable cluster size allowed).
+SR_MAX_CLUSTER = 16
+# The K-major copy's tile kernel: COPY_TILE_K rows of K by COPY_TILE_BYTES
+# bytes of the unit-stride rows' axis (csrc/redmule_gemm_sr.cu).
+COPY_TILE_K, COPY_TILE_BYTES = 128, 128
+# The copy's routes, as csrc/redmule_gemm_sr.cu's enum CopyRoute numbers them.
+COPY_ROUTES = {route: code for code, route in enumerate(copy_launches)}
 # Operand kinds of the tensor-core schedules (enum Kind in the .cu files).
 MMA_KIND = {E4M3: 0, E5M2: 1, FP16: 2, BF16: 3}
 # The SIMT schedule's forms (enum Form in redmule_gemm.cu). Its tiled forms
@@ -122,6 +142,13 @@ class GemmPlan:
     split: int = 1  # K splits of the small-row and SIMT schedules
     k_per_split: int = 0
     form: str = ""  # the SIMT schedule's form (a key of SIMT_FORMS)
+
+    @property
+    def combines(self) -> bool:
+        """Whether the call launches the split-K combine after its kernel:
+        the SIMT schedule's splits; the small-row schedule folds its splits
+        inside its own launch."""
+        return self.schedule == "simt" and self.split > 1
 
 
 def fp8_pair(x: Operand, w: Operand) -> bool:
@@ -181,8 +208,10 @@ def plan_gemm(m: int, n: int, k: int, batch: int, x: Operand, w: Operand, gop: G
         if split is None:  # double it while the grid has fewer blocks than the rule asks
             rule = tuning.SMALL_ROW_SPLIT
             blocks, split = -(-n // SR_BLOCK_N) * batch, 1
-            while blocks * split < rule.blocks and k // (2 * split) >= rule.min_k:
+            while (blocks * split < rule.blocks and k // (2 * split) >= rule.min_k
+                   and 2 * split <= SR_MAX_CLUSTER):
                 split *= 2
+        split = min(split, SR_MAX_CLUSTER)  # a cluster's blocks at most
         k_per_split = -(-k // (split * SR_STEP)) * SR_STEP
         return GemmPlan("small_row", copy_w=not w.kmajor(), split=-(-k // k_per_split),
                         k_per_split=k_per_split)
@@ -347,22 +376,46 @@ def plan_call(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *, gop: 
     return call
 
 
+def copy_route(t: torch.Tensor, b1: int, b2: int, rows: int, k: int, strides: list[int],
+               widen: bool = False) -> str:
+    """The K-major copy kernel that takes one operand (what
+    :func:`kmajor_copy` takes): ``"tile"`` where the rows are the
+    unit-stride axis and every K row starts 16-byte aligned (the forward
+    weight, the dW operands); ``"rows"`` for an fp8 operand that is K-major
+    already with rows of whole 16-byte groups and only widens; else
+    ``"elements"``, element by element (K rows off 16 bytes, or no
+    unit-stride axis)."""
+    es = t.element_size()
+    s1, s2, sr, sk = strides
+    batch_aligned = (all(s * es % 16 == 0 for s, b in ((s1, b1), (s2, b2)) if b > 1 and s)
+                     and t.data_ptr() % 16 == 0)
+    if sr == 1 and (k <= 1 or sk * es % 16 == 0) and batch_aligned:
+        return "tile"
+    if (widen and (k <= 1 or sk == 1) and k % 16 == 0 and (rows <= 1 or sr % 16 == 0)
+            and batch_aligned):
+        return "rows"
+    return "elements"
+
+
 def kmajor_copy(t: torch.Tensor, b1: int, b2: int, rows: int, k: int, strides: list[int],
                 widen: bool = False) -> tuple[torch.Tensor, list[int]]:
-    """Launch the K-major copy kernel: one operand, given as rows of K
-    through ``strides`` (b1, b2, row, k), into a fresh K-major buffer with
-    rows padded to 16 bytes (the pad zeroed); with ``widen`` an fp8 operand
-    becomes fp16 on the way (exact). A broadcast batch level stays
-    broadcast. Returns the buffer and its (b1, b2, row, k) strides."""
+    """Launch the K-major copy: one operand, given as rows of K through
+    ``strides`` (b1, b2, row, k), into a fresh K-major buffer with rows
+    padded to 16 bytes (the pad zeroed), on the kernel :func:`copy_route`
+    names; with ``widen`` an fp8 operand becomes fp16 on the way (exact). A
+    broadcast batch level stays broadcast. Returns the buffer and its (b1,
+    b2, row, k) strides."""
     dtype = FP16 if widen else t.dtype
     kp = -(-k * dtype.itemsize // 16) * 16 // dtype.itemsize
     c1, c2 = (b1 if strides[0] else 1), (b2 if strides[1] else 1)
     buf = torch.empty((c1, c2, rows, kp), dtype=dtype, device=t.device)
+    route = copy_route(t, c1, c2, rows, k, strides, widen)
     err = _build.library().kmajor_copy_launch(
         t.data_ptr(), buf.data_ptr(), t.element_size(), MMA_KIND[t.dtype] if widen else -1,
-        c1, c2, rows, k, kp, strides[0], strides[1], strides[2], strides[3],
+        COPY_ROUTES[route], c1, c2, rows, k, kp, strides[0], strides[1], strides[2], strides[3],
         _build.stream_handle(t))
-    _counted(err, "kmajor_copy", aux_launches)
+    _counted(err, f"kmajor_copy[{route}]", aux_launches)
+    copy_launches[route].n += 1
     return buf, [buf.stride(0) if c1 > 1 else 0, buf.stride(1) if c2 > 1 else 0, kp, 1]
 
 
@@ -385,22 +438,25 @@ def kmajor_copy_plain(t: torch.Tensor, b1: int, b2: int, rows: int, k: int,
 def splitk_combine(ws: torch.Tensor, out: torch.Tensor, y: torch.Tensor | None = None,
                    b2: int = 1, sy: list[int] = (0, 0, 0, 0),
                    star: semiring.Op = semiring.Op.ADD) -> None:
-    """Launch the split-K combine: ``out`` (contiguous, b1 * b2 batches of
-    M x N) = star(Y, the (b1 * b2, split, M, N) fp32 partials ``ws`` folded
-    with ``star`` in split order), through the output cast. Y is read
-    through its (b1, b2, row, column) strides ``sy``."""
+    """Launch the SIMT schedule's split-K combine: ``out`` (contiguous, b1
+    * b2 batches of M x N) = star(Y, the (b1 * b2, split, M, N) fp32
+    partials ``ws`` folded with ``star`` in split order), through the
+    output cast. Y is read through its (b1, b2, row, column) strides
+    ``sy``."""
     bz, split, m, n = ws.shape
     err = _build.library().redmule_splitk_combine_launch(
         ws.data_ptr(), None if y is None else y.data_ptr(),
         0 if y is None else _build.dtype_code(y), out.data_ptr(), _build.dtype_code(out),
         semiring.OP_CODE[star], bz // b2, b2, m, n, split, *sy, _build.stream_handle(ws))
     _counted(err, "redmule_splitk_combine", aux_launches)
+    combine_launches.n += 1
 
 
 def splitk_combine_plain(ws: torch.Tensor, y: torch.Tensor | None, out_dtype: torch.dtype,
                          star: semiring.Op = semiring.Op.ADD) -> torch.Tensor:
     """Z from (batch, split, M, N) fp32 partials with plain PyTorch ops:
-    folded with ``star`` in split order, then Y, then the cast."""
+    folded with ``star`` in split order, then Y, then the cast: the SIMT
+    combine's arithmetic, and the small-row kernel's cluster fold's."""
     fold = semiring.op_fn(star)
     acc = ws[:, 0]
     for s in range(1, ws.shape[1]):
@@ -437,8 +493,8 @@ def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
     y_dt = 0 if c.y is None else _build.dtype_code(c.y)
     z_args = (out.data_ptr(), _build.dtype_code(out))
     counter = SCHEDULE_COUNTERS[plan.schedule]
-    ws = None  # the K splits' fp32 partials, folded by the split-K combine
-    if plan.split > 1:
+    ws = None  # the SIMT K splits' fp32 partials, folded by the split-K combine
+    if plan.combines:
         ws = torch.empty((c.b1 * c.b2, plan.split, c.m, c.n), dtype=torch.float32,
                          device=x.device)
     if plan.schedule == "simt":
@@ -469,7 +525,7 @@ def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
         else:
             err = lib.redmule_gemm_sr_launch(
                 *kinds, xt.data_ptr(), wt.data_ptr(), y_ptr, y_dt, *z_args,
-                None if ws is None else ws.data_ptr(), *shape, plan.split, plan.k_per_split,
+                *shape, plan.split, plan.k_per_split,
                 int(c.x_operand().kmajor()), *sx, *sw[:3], *c.sy, stream)
             _counted(err, "redmule_gemm[small_row]", counter)
     if ws is not None:

@@ -76,7 +76,9 @@ SMALL_M_MAX = 16
 SIMT_WARP_MAX_OUTPUTS = 4096
 
 # -- Split rules ---------------------------------------------------------------------
-# Small-row split-K (fp8 only): two blocks for each SM.
+# Small-row split-K (fp8 only): two blocks for each SM. plan_gemm caps the
+# split at the kernel's largest cluster (redmule_gemm.SR_MAX_CLUSTER): the
+# splits of an output tile fold through a cluster's shared memory.
 SMALL_ROW_SPLIT = SplitRule(2 * SMS, 256)
 # SIMT split-K. Four tiled blocks are resident on an SM (launch bounds), so
 # K is split until the grid comes nearest one full wave: 100 tiles take 5
@@ -411,7 +413,7 @@ RESULT_TOL = {torch.float32: 1e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
 def autotune_gemm(x, w, y, call, *, gop, policy, out_dtype, path: str | None = None):
     """The fastest plan of one call, timed on its operands and cached. ``call``
     is ``plan_call``'s layout with the table's plan."""
-    from repro_torch.kernels.redmule_gemm import GemmPlan, redmule_gemm
+    from repro_torch.kernels.redmule_gemm import SR_MAX_CLUSTER, GemmPlan, redmule_gemm
 
     path = path or settings().cache_path
     memo = (path, call.x.device.index, gop.name, policy.name, call.x.dtype, call.w.dtype,
@@ -421,7 +423,10 @@ def autotune_gemm(x, w, y, call, *, gop, policy, out_dtype, path: str | None = N
         return _memo[memo]
     key = gemm_key(call, gop, policy)
     hit = lookup(key, path)
-    if hit is not None:
+    # A cached small-row split past the cluster cap (cached before the cap)
+    # is timed again.
+    if hit is not None and not (hit["plan"]["schedule"] == "small_row"
+                                and hit["plan"]["split"] > SR_MAX_CLUSTER):
         _memo[memo] = plan = GemmPlan(**hit["plan"])
         return plan
     if torch.cuda.is_current_stream_capturing():

@@ -181,14 +181,16 @@ def train(args) -> dict:
         prof = profile(activities=activities)
         prof.start()
     # Launches per step: GEMM-Op calls, each GEMM schedule's kernel, the
-    # GEMM's auxiliary launches (K-major copies, split-K combines) and the
-    # dense flash attention (SIMT and tensor-core kernels).
+    # GEMM's auxiliary launches (K-major copies, split-K combines), the
+    # copies by route, and the dense flash attention (SIMT and tensor-core
+    # kernels).
     counters = {
         "gemm_launches": redmule_gemm.launches,
         "gemm_tc_launches": redmule_gemm.tc_launches,
         "gemm_small_row_launches": redmule_gemm.small_row_launches,
         "gemm_simt_launches": redmule_gemm.simt_launches,
         "gemm_aux_launches": redmule_gemm.aux_launches,
+        **{f"gemm_copy_{route}_launches": c for route, c in redmule_gemm.copy_launches.items()},
         "dense_attention_launches": flash_attention.dense_launches,
         "dense_attention_tc_launches": flash_attention.dense_tc_launches,
     }

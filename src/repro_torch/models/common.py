@@ -78,16 +78,32 @@ def norm_apply(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
     return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
 
 
+def _logistic16(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), each step rounded to x's 16-bit format; in bf16 on
+    the CPU a subnormal result flushed to zero, as XLA's compiled code
+    flushes it (x in (-88.7, -87.3), where exp(-x) is still finite)."""
+    s = 1 / (1 + torch.exp(-x))
+    return _ftz(s) if xla_rounds(x, torch.bfloat16) else s
+
+
 def _silu16_values(x: torch.Tensor) -> torch.Tensor:
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * _logistic16(x)
 
 
 def _silu16_grad(g, x, y):
     """The gradient XLA compiles for the reference's 16-bit silu: g s + (x
     g) (s (1 - s)), every step rounded to the format but g s, which stays
     exact in fp32 for the add."""
-    s = 1 / (1 + torch.exp(-x))
+    s = _logistic16(x)
     return (g.float() * s.float() + ((x * g) * (s * (1 - s))).float()).to(x.dtype)
+
+
+def _silu_bf16_grad(g, x, y):
+    """The gradient XLA compiles for the reference's bf16 silu: g s + (x g)
+    (s (1 - s)), every step rounded to bf16 (no product stays in fp32 for
+    the add that follows, as in fp16)."""
+    s = _logistic16(x)
+    return g * s + (x * g) * (s * (1 - s))
 
 
 def _silu_values(x: torch.Tensor) -> torch.Tensor:
@@ -105,15 +121,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x), rounded as the reference's ``jax.nn.silu`` is: in a
     16-bit format XLA expands the logistic into 1 / (1 + exp(-x)) with each
     step rounded to that format, which ``torch.sigmoid`` (one rounding)
-    would miss in about a quarter of the elements. In fp16 the gradient is
-    the reference's too (:func:`_silu16_grad`), on every device: autograd
-    through the expansion gives NaN where exp(-x) overflows (x < -11.1).
-    In fp32 on the CPU the logistic is XLA's and the gradient the
+    would miss in about a quarter of the elements. In fp16 and bf16 the
+    gradient is the reference's too (:func:`_silu16_grad`,
+    :func:`_silu_bf16_grad`), on every device: autograd through the
+    expansion gives NaN where exp(-x) overflows (x < -11.1 in fp16, < -88.7
+    in bf16). In fp32 on the CPU the logistic is XLA's and the gradient the
     reference's."""
     if x.dtype in (torch.float16, torch.bfloat16):
-        if x.dtype == torch.float16:
-            return _XlaRounded.apply(x, _silu16_values, _silu16_grad)
-        return _silu16_values(x)
+        grad = _silu16_grad if x.dtype == torch.float16 else _silu_bf16_grad
+        return _XlaRounded.apply(x, _silu16_values, grad)
     if not xla_rounds(x):
         return x * torch.sigmoid(x)
     return _XlaRounded.apply(x, _silu_values, _silu_grad)
@@ -149,11 +165,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     step, except that in fp16 XLA keeps the product 0.044715 x^3 in fp32
     for the add that follows. Under fp32 the formula is evaluated in fp32
     as XLA compiles it: 0.044715 x^3 + x one fused multiply-add, and the
-    tanh :func:`xla_tanh`."""
+    tanh :func:`xla_tanh`. The gradient is the reference's in bf16 on every
+    device (:func:`_gelu_bf16_grad`), and in fp16 on the CPU."""
     if x.dtype not in (torch.float16, torch.bfloat16):
         if not xla_rounds(x):
             return x * (0.5 * (1.0 + torch.tanh(_GELU_C * (x + 0.044715 * (x * x * x)))))
         return _XlaRounded.apply(x, _gelu_values, _gelu_grad)
+    if x.dtype == torch.bfloat16:
+        return _XlaRounded.apply(x, lambda t: _gelu16_values(t)[0], _gelu_bf16_grad)
     if xla_rounds(x, torch.float16):
         return _XlaRounded.apply(x, lambda t: _gelu16_values(t)[0], _gelu16_grad)
     return _gelu16_values(x)[0]
@@ -188,6 +207,17 @@ def _gelu16_grad(g, x, y):
     m = (x * g) * 0.5 * (1 - t)
     du = fused(m, t, m)
     return fused(du * (c * k), x2 * 3, fused(g, (t + 1) * 0.5, du * c))
+
+
+def _gelu_bf16_grad(g, x, y):
+    """The gradient XLA compiles for the reference's bf16 gelu:
+    :func:`_gelu_grad`'s steps with every step rounded to bf16 and no
+    fused multiply-add (the constants rounded to bf16 first)."""
+    _, t, x2 = _gelu16_values(x)
+    c, k = (torch.tensor(v, dtype=x.dtype) for v in (_GELU_C, 0.044715))
+    m = ((x * g) * 0.5) * (1 - t)
+    duc = (m + m * t) * c
+    return (g * ((t + 1) * 0.5) + duc) + (duc * k) * (x2 * 3)
 
 
 # -- XLA's compiled fp32 transcendentals ---------------------------------------------

@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.analysis import cli, contracts, rules, tiles  # noqa: E402
+from repro_torch.kernels import redmule_gemm as rg  # noqa: E402
 from repro_torch.kernels import tuning  # noqa: E402
 from repro_torch.kernels._build import CSRC  # noqa: E402
 
@@ -123,6 +124,24 @@ def test_the_validator_catches_a_mismatched_csrc_constant(tmp_path):
     (csrc / "paged_decode.cu").write_text(src.replace("constexpr int GB = 4;", "constexpr int GB = 8;"))
     assert ("csrc", "flash_attention._DECODE_GROUP") in {
         (f.table, f.entry) for f in tiles.validate_tuning_tables(csrc=csrc)}
+
+
+def test_the_copy_tile_and_the_cluster_cap_mirror_the_sources(tmp_path):
+    """The K-major copy's tile and the small-row cluster cap against
+    ``csrc/``'s constants."""
+    sr = tiles.csrc_constants(CSRC / "redmule_gemm_sr.cu")
+    assert (sr["COPY_TILE_K"], sr["COPY_TILE_BYTES"], sr["SR_MAX_CLUSTER"]) == (
+        rg.COPY_TILE_K, rg.COPY_TILE_BYTES, rg.SR_MAX_CLUSTER) == (128, 128, 16)
+    assert tiles.copy_smem_bytes(sr) == 3 * 128 * 128 <= tiles.STATIC_SMEM
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    src = (csrc / "redmule_gemm_sr.cu").read_text()
+    (csrc / "redmule_gemm_sr.cu").write_text(
+        src.replace("constexpr int SR_MAX_CLUSTER = 16;", "constexpr int SR_MAX_CLUSTER = 8;")
+        .replace("constexpr int COPY_TILE_BYTES = 128;", "constexpr int COPY_TILE_BYTES = 64;"))
+    found = {(f.table, f.entry) for f in tiles.validate_tuning_tables(csrc=csrc)}
+    assert {("csrc", "redmule_gemm.SR_MAX_CLUSTER"), ("csrc", "redmule_gemm.COPY_TILE_BYTES"),
+            ("csrc", "COPY_TILE")} <= found
 
 
 def test_the_shared_memory_mirrors_read_the_sources():

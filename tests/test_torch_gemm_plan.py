@@ -133,6 +133,72 @@ def test_small_row_split_fills_the_card_at_the_decode_shapes(n, k, split):
     assert blocks >= rule.blocks or plan.k_per_split <= 2 * rule.min_k
 
 
+# The small-row rows of PERF.md's kernel table: (batch, M, K, N).
+KERNEL_TABLE_SMALL_ROWS = [
+    (1, 4, 4096, 12800), (1, 4, 4096, 1024), (1, 4, 4096, 4096), (1, 4, 12800, 4096),
+    (1, 4, 4096, 49155), (1, 4, 1024, 16384), (1, 4, 16384, 1024), (1, 4, 1024, 49155),
+    (1, 4, 7168, 32256), (1, 4, 4096, 65024), (1, 4, 4096, 32064), (1, 4, 2304, 256000),
+    (1, 4, 4096, 102400), (1, 4, 102400, 4096), (1, 4, 7168, 19200), (1, 4, 2304, 9216),
+    (1, 4, 2560, 2560), (1, 4, 2560, 7680), (1, 4, 7680, 2560), (1, 4, 2560, 256000),
+    (32, 8, 128, 336), (32, 8, 336, 128), (1, 4, 1024, 8192), (1, 4, 8192, 1024),
+    (1, 4, 1024, 256206), (1, 4, 8192, 28672), (1, 4, 28672, 8192), (1, 4, 8192, 128256),
+    (1, 16, 4096, 1024), (1, 1, 4096, 1024),
+]
+
+
+@pytest.mark.parametrize("batch,m,k,n", KERNEL_TABLE_SMALL_ROWS)
+def test_small_row_plans_split_at_most_a_cluster_and_name_no_combine(batch, m, k, n):
+    """Every small-row plan of the kernel table's shapes, by the table's rule
+    and by every split a caller may request, splits at most the cluster cap
+    (the split blocks of a tile fold through a cluster's shared memory) and
+    launches no split-K combine."""
+    x, w = rg.Operand(E4M3, m, k, k, 1), rg.Operand(E4M3, n, k, k, 1)
+    plans = [rg.plan_gemm(m, n, k, batch, x, w, MATMUL, HFP8)]
+    plans += [rg.plan_gemm(m, n, k, batch, x, w, MATMUL, HFP8,
+                           request=tuning.GemmRequest("small_row", split=s))
+              for s in tuning.SPLIT_CANDIDATES]
+    for plan in plans:
+        assert plan.schedule == "small_row" and not plan.combines
+        assert 1 <= plan.split <= rg.SR_MAX_CLUSTER == 16
+        assert plan.k_per_split % rg.SR_STEP == 0 and (plan.split - 1) * plan.k_per_split < k
+
+
+def test_the_simt_splits_keep_the_combine():
+    x = rg.Operand(torch.float32, 64, 4096, 4096, 1)
+    plan = rg.plan_gemm(64, 12800, 4096, 1, x, rg.Operand(torch.float32, 12800, 4096, 1, 12800),
+                        MATMUL, get_policy("fp32"))
+    assert (plan.schedule, plan.form, plan.split, plan.combines) == ("simt", "f32", 5, True)
+
+
+def _copy_args(t, rows, k, strides, widen=True):
+    return (t, 1, 1, rows, k, strides, widen)
+
+
+@pytest.mark.parametrize("case", ["forward weight", "dW X^T", "dW dZ^T", "K-major X",
+                                  "K-major fp16", "rows off 16 bytes", "base off 16 bytes",
+                                  "no unit stride", "batched"])
+def test_copy_route(case):
+    """The K-major copy's kernel for each source: the tile kernel where the
+    rows are the unit-stride axis and each K row is 16-byte aligned, the
+    row widening for K-major fp8, the element-wise kernel for the rest."""
+    w = _e4(64, 96)  # (K, N) row-major: N the unit-stride axis
+    x = _e4(32, 64)
+    t, rows, k, strides, widen, route = {
+        "forward weight": (w, 96, 64, [0, 0, 1, 96], True, "tile"),
+        "dW X^T": (x, 64, 32, [0, 0, 1, 64], True, "tile"),
+        "dW dZ^T": (cast(torch.randn(32, 96), E5M2), 96, 32, [0, 0, 1, 96], True, "tile"),
+        "K-major X": (x, 32, 64, [0, 0, 64, 1], True, "rows"),
+        "K-major fp16": (torch.randn(32, 64).half(), 32, 64, [0, 0, 64, 1], False, "elements"),
+        "rows off 16 bytes": (_e4(64, 100), 100, 64, [0, 0, 1, 100], True, "elements"),
+        "base off 16 bytes": (_e4(64, 112)[:, 1:97], 96, 64, [0, 0, 1, 112], True, "elements"),
+        "no unit stride": (_e4(64, 192)[:, ::2], 96, 64, [0, 0, 2, 192], True, "elements"),
+        "batched": (_e4(2, 64, 96), 96, 64, [64 * 96, 0, 1, 96], False, "tile"),
+    }[case]
+    b1 = 2 if case == "batched" else 1
+    assert rg.copy_route(t, b1, 1, rows, k, strides, widen) == route
+    assert list(rg.COPY_ROUTES) == ["tile", "rows", "elements"]  # enum CopyRoute's order
+
+
 @pytest.mark.parametrize("case", ["row stride not 16-byte", "K not 16-byte", "k stride 2",
                                   "batch stride not 16-byte", "address offset", "K-major"])
 def test_operand_kmajor_rule(case):

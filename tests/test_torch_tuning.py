@@ -56,7 +56,7 @@ PINNED_GEMMS = {
     "granite decode 4x4096x12800": ((4, 4096, 12800, E4M3, HFP8, "matmul", 1),
                                     ("small_row", 2, "", False)),
     "moe decode down 4x16384x1024": ((4, 16384, 1024, E4M3, HFP8, "matmul", 1),
-                                     ("small_row", 32, "", False)),
+                                     ("small_row", 16, "", False)),
     "gemma2 decode 4x2304x9216": ((4, 2304, 9216, E4M3, HFP8, "matmul", 1),
                                   ("small_row", 2, "", False)),
     "rglru 4x2560x2560": ((4, 2560, 2560, E4M3, HFP8, "matmul", 1), ("small_row", 8, "", False)),
@@ -67,7 +67,7 @@ PINNED_GEMMS = {
     "seamless ffn up 4x1024x8192": ((4, 1024, 8192, E4M3, HFP8, "matmul", 1),
                                     ("small_row", 4, "", False)),
     "seamless ffn down 4x8192x1024": ((4, 8192, 1024, E4M3, HFP8, "matmul", 1),
-                                      ("small_row", 32, "", False)),
+                                      ("small_row", 16, "", False)),
     "internvl2 gate/up 4x8192x28672": ((4, 8192, 28672, E4M3, HFP8, "matmul", 1),
                                        ("small_row", 1, "", False)),
     "internvl2 down 4x28672x8192": ((4, 28672, 8192, E4M3, HFP8, "matmul", 1),
