@@ -1770,7 +1770,7 @@ def phase_serve(cfg, model, params) -> dict:
                              "expected none (the small-row splits fold inside their launch)")
     mem = torch.cuda.max_memory_allocated()
     log(f"serve: {len(results)} requests, {s.decode_tokens} decode tokens in {s.decode_steps} "
-        f"steps, {s.prefill_calls} prefills; decode {s.decode_tok_s:.1f} tok/s, "
+        f"steps, {s.prefill_calls} prefills; decode {s.decode_tok_s:.1f} tok/s of stream seconds, "
         f"prefill {s.prefill_s:.3f} s, decode {s.decode_s:.3f} s (capture included), "
         f"wall {wall:.3f} s, utilization {s.utilization:.0%}, max memory {mem / 1e9:.2f} GB")
     log(f"serve: decode graph captured once, replayed {eng.graph_replays} times "
@@ -1879,7 +1879,8 @@ def _feature_run(label, model, params, prompts, *, graph=True, drive=None, setup
         dev_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
         busy = (f", decode graph busy {dev_s / s.decode_s:.1%} of the decode steps, decode "
                 f"replay {dev_s * 1e3 / max(len(spans), 1):.3f} ms")
-    log(f"{label}: decode {s.decode_tok_s:.1f} tok/s, prefill {s.prefill_s:.3f} s, "
+    log(f"{label}: decode {s.decode_tok_s:.1f} tok/s of stream seconds, prefill "
+        f"{s.prefill_s:.3f} s, "
         f"wall {wall:.3f} s, max memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
         f"{s.decode_steps} decode steps, {s.prefill_calls} prefill steps{busy}")
     return server, results, rows
@@ -2465,7 +2466,8 @@ def _spec_run(label, model, params, prompts, *, spec=None, drafter=None, samplin
     replays = {name: step.replays - replays0[name] for name, step in steps.items()}
     info = {"tok_s": s.decode_tok_s, "wall": wall, "replays": replays,
             "mem": torch.cuda.max_memory_allocated()}
-    line = (f"{label}: decode {s.decode_tok_s:.1f} tok/s, decode {s.decode_s:.3f} s over "
+    line = (f"{label}: decode {s.decode_tok_s:.1f} tok/s of stream seconds, decode "
+            f"{s.decode_s:.3f} s over "
             f"{s.decode_steps} steps, prefill {s.prefill_s:.3f} s, wall {wall:.3f} s, "
             f"max memory {info['mem'] / 1e9:.2f} GB")
     if spec is None:
@@ -2873,7 +2875,7 @@ def _family_serve(arch: str, serve_args=FAMILY_SERVE_ARGS, obs: bool = False) ->
         f"{cfg.param_count() / 1e9:.2f} B parameters in "
         f"{'E4M3' if cfg.fp8_params else server.model.dtype}; KV pools "
         f"{server.cache.kv_bytes() / 1e6:.1f} MB, state rows {server.cache.state_bytes() / 1e6:.1f} "
-        f"MB; decode {s.decode_tok_s:.1f} tok/s "
+        f"MB; decode {s.decode_tok_s:.1f} tok/s of stream seconds "
         f"({step_ms:.2f} ms a step, {s.decode_steps} steps), prefill {s.prefill_s:.3f} s, TTFT p50 "
         f"{ttft[0] * 1e3:.1f} ms, peak memory {mem / 1e9:.2f} GB; launcher wall {wall:.1f} s "
         f"(weights, warm-up and capture included); launches gemm {gemm_n}, paged decode "

@@ -112,7 +112,8 @@ def serve_runs(cs, n: int) -> None:
     for i in range(n):
         server, _, wall, _ = cs.serve_run(cfg, model, params)
         s = server.stats
-        cs.log(f"phase 8 run {i}: decode {s.decode_tok_s:.1f} tok/s, decode {s.decode_s:.3f} s "
+        cs.log(f"phase 8 run {i}: decode {s.decode_tok_s:.1f} tok/s of stream seconds, decode "
+               f"{s.decode_s:.3f} s "
                f"(capture included) over {s.decode_steps} steps, prefill {s.prefill_s:.3f} s, "
                f"wall {wall:.3f} s")
     prompts = cs._serve_prompts(cfg)

@@ -84,8 +84,8 @@ def main(argv=None):
         print(f"req {ev.rid} token[{ev.index}] = {ev.token}{tag}")
 
     s = server.stats
-    print(f"\n{len(server.results)} requests done: {s.decode_tok_s:.1f} tok/s steady-state "
-          f"decode (warm-up excluded), utilization {s.utilization:.0%}")
+    print(f"\n{len(server.results)} requests done: {s.decode_tok_s:.1f} tok/s of the decode "
+          f"steps' own seconds (warm-up excluded), utilization {s.utilization:.0%}")
     return server, dict(server.results)
 
 

@@ -41,6 +41,13 @@ ops. The CPU path and the tests use it, and ``chip_smoke.py`` holds the
 kernels against it on the card. It widens the compute-format operands to
 fp32; for the semiring pairs it scans K in chunks and never builds the
 (M, K, N) product.
+
+:func:`redmule_gemm`'s host work is named for ``torch.profiler``
+(:func:`repro_torch.obs.span`): ``gemm.plan`` (the plan, the settings and
+the autotune test), ``gemm.kmajor_copy`` (a K-major copy's launch) and
+``gemm.launch`` (a kernel's ctypes call and its check). The operands'
+casts to their storage formats lie outside them, in the engine's
+``_MpCore``.
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from repro_torch.core import semiring
 from repro_torch.core.precision import BF16, E4M3, E5M2, FP8_DTYPES, FP16, PrecisionPolicy, cast
 from repro_torch.core.semiring import GemmOp
 from repro_torch.kernels import _build, tuning
+from repro_torch.obs import span
 
 # One per GEMM-Op call on the card, whatever its schedule (chip_smoke.py
 # reads it per decode step, prefill and train step).
@@ -477,10 +485,12 @@ def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
     operands = [x, w] + ([y] if y is not None else [])
     if not all(t.is_cuda for t in operands) or len({t.device for t in operands}) != 1:
         raise ValueError("redmule_gemm launches the CUDA kernel: every operand must be on one card")
-    c = plan_call(x, w, y, gop=gop, policy=policy, request=request)
-    env = tuning.settings()
-    if request is None and env.autotune and env.gemm is tuning.NO_REQUEST:
-        c.plan = tuning.autotune_gemm(x, w, y, c, gop=gop, policy=policy, out_dtype=out_dtype)
+    with span("gemm.plan"):
+        c = plan_call(x, w, y, gop=gop, policy=policy, request=request)
+        env = tuning.settings()
+        if request is None and env.autotune and env.gemm is tuning.NO_REQUEST:
+            c.plan = tuning.autotune_gemm(x, w, y, c, gop=gop, policy=policy,
+                                          out_dtype=out_dtype)
     plan = c.plan
     out = torch.empty(c.out_shape, dtype=out_dtype, device=x.device)
     if out.numel() == 0:
@@ -498,38 +508,43 @@ def redmule_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor | None, *,
         ws = torch.empty((c.b1 * c.b2, plan.split, c.m, c.n), dtype=torch.float32,
                          device=x.device)
     if plan.schedule == "simt":
-        err = lib.redmule_gemm_launch(
-            semiring.OP_CODE[gop.circ], semiring.OP_CODE[gop.star],
-            _build.DTYPE_CODE[policy.compute], SIMT_FORMS[plan.form],
-            c.x.data_ptr(), _build.dtype_code(c.x), c.w.data_ptr(), _build.dtype_code(c.w),
-            y_ptr, y_dt, *z_args, None if ws is None else ws.data_ptr(),
-            c.b1, c.b2, c.m, c.n, c.k, plan.split, plan.k_per_split,
-            *c.sx, *c.sw, *c.sy, stream)
-        _counted(err, f"redmule_gemm[simt {plan.form}]", counter)
+        with span("gemm.launch"):
+            err = lib.redmule_gemm_launch(
+                semiring.OP_CODE[gop.circ], semiring.OP_CODE[gop.star],
+                _build.DTYPE_CODE[policy.compute], SIMT_FORMS[plan.form],
+                c.x.data_ptr(), _build.dtype_code(c.x), c.w.data_ptr(), _build.dtype_code(c.w),
+                y_ptr, y_dt, *z_args, None if ws is None else ws.data_ptr(),
+                c.b1, c.b2, c.m, c.n, c.k, plan.split, plan.k_per_split,
+                *c.sx, *c.sw, *c.sy, stream)
+            _counted(err, f"redmule_gemm[simt {plan.form}]", counter)
         simt_form_launches[plan.form].n += 1
     else:
         xt, sx = c.x, c.sx
         if plan.copy_x:
-            xt, sx = kmajor_copy(c.x, c.b1, c.b2, c.m, c.k, c.sx, plan.widen)
+            with span("gemm.kmajor_copy"):
+                xt, sx = kmajor_copy(c.x, c.b1, c.b2, c.m, c.k, c.sx, plan.widen)
         # W in K-major terms: rows n, strides (b1, b2, n, k).
         wt, sw = c.w, [c.sw[0], c.sw[1], c.sw[3], c.sw[2]]
         if plan.copy_w:
-            wt, sw = kmajor_copy(c.w, c.b1, c.b2, c.n, c.k, sw, plan.widen)
+            with span("gemm.kmajor_copy"):
+                wt, sw = kmajor_copy(c.w, c.b1, c.b2, c.n, c.k, sw, plan.widen)
         kinds = (MMA_KIND[xt.dtype], MMA_KIND[wt.dtype])
         shape = (c.b1, c.b2, c.m, c.n, c.k)
-        if plan.schedule == "tc":
-            err = lib.redmule_gemm_tc_launch(
-                *kinds, xt.data_ptr(), wt.data_ptr(), y_ptr, y_dt, *z_args, *shape,
-                *sx[:3], *sw[:3], *c.sy, stream)
-            _counted(err, "redmule_gemm[tc]", counter)
-        else:
-            err = lib.redmule_gemm_sr_launch(
-                *kinds, xt.data_ptr(), wt.data_ptr(), y_ptr, y_dt, *z_args,
-                *shape, plan.split, plan.k_per_split,
-                int(c.x_operand().kmajor()), *sx, *sw[:3], *c.sy, stream)
-            _counted(err, "redmule_gemm[small_row]", counter)
+        with span("gemm.launch"):
+            if plan.schedule == "tc":
+                err = lib.redmule_gemm_tc_launch(
+                    *kinds, xt.data_ptr(), wt.data_ptr(), y_ptr, y_dt, *z_args, *shape,
+                    *sx[:3], *sw[:3], *c.sy, stream)
+                _counted(err, "redmule_gemm[tc]", counter)
+            else:
+                err = lib.redmule_gemm_sr_launch(
+                    *kinds, xt.data_ptr(), wt.data_ptr(), y_ptr, y_dt, *z_args,
+                    *shape, plan.split, plan.k_per_split,
+                    int(c.x_operand().kmajor()), *sx, *sw[:3], *c.sy, stream)
+                _counted(err, "redmule_gemm[small_row]", counter)
     if ws is not None:
-        splitk_combine(ws, out, c.y, c.b2, c.sy, gop.star)
+        with span("gemm.launch"):
+            splitk_combine(ws, out, c.y, c.b2, c.sy, gop.star)
     launches.n += 1
     return out
 

@@ -39,11 +39,14 @@ the timed run's request-lifecycle trace (Chrome trace events, or JSONL for
 ``.jsonl``; ``scripts/validate_trace.py`` checks it), ``--metrics-out
 PATH`` the registry's snapshot with the step profile (JSON, or Prometheus
 text for ``.prom``/``.txt``), and ``--profile`` prints device time by
-kernel from ``torch.profiler``; ``--profile LOGDIR`` also writes that
-window's Chrome trace into LOGDIR. The three instrument the continuous
-server; under static mode they are inert. ``--backend torch`` runs the
-plain path on the card (the default is the device's: cuda on the card,
-torch on the CPU).
+kernel from ``torch.profiler`` and the program's spans (host time, calls
+and µs a call of each); ``--profile LOGDIR`` also writes that window's
+Chrome trace into LOGDIR. The Chrome trace's metadata holds the tracer's
+epoch in Unix nanoseconds (``epoch_unix_ns``): an event's Unix time is
+that plus 1000 times its ``ts``, the clock of the profiler's trace. The
+three instrument the continuous server; under static mode they are
+inert. ``--backend torch`` runs the plain path on the card (the default is
+the device's: cuda on the card, torch on the CPU).
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import POLICIES
 from repro_torch.kernels import _build
 from repro_torch.models import build
-from repro_torch.obs import JsonTracer, device_capture, write_metrics, write_trace
+from repro_torch.obs import JsonTracer, device_capture, is_span, write_metrics, write_trace
 from repro_torch.serving import SamplingParams, Server, ServerConfig, SpecConfig, generate_static
 from repro_torch.launch.spec_gate import record_rows, run_gate
 
@@ -204,6 +207,30 @@ def time_by_name(prof) -> tuple[list, list]:
         return sorted(((ns / 1e3, n, name) for name, (ns, n) in table.items() if ns > 0),
                       reverse=True)
     return rows(dev), rows(host)
+
+
+def time_by_span(prof) -> list:
+    """(inclusive host µs, count, name) of each of the program's spans
+    (``repro_torch.obs.SPAN_NAMES``) in a finished torch.profiler window,
+    in descending order: a span's time holds its children's."""
+    from torch.autograd import DeviceType
+
+    table: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and is_span(e.name()):
+            row = table.setdefault(e.name(), [0, 0])
+            row[0] += e.duration_ns()
+            row[1] += 1
+    return sorted(((ns / 1e3, n, name) for name, (ns, n) in table.items()), reverse=True)
+
+
+def print_spans(prof) -> None:
+    """The program's spans (:func:`time_by_span`): inclusive host time, the
+    count and µs a call of each."""
+    rows = time_by_span(prof)
+    print(f"profile: {len(rows)} program spans (inclusive host time, calls, us a call)")
+    for us, count, name in rows:
+        print(f"  {us / 1e3:10.2f} ms {count:7d}x {us / count:10.1f} us  {name}")
 
 
 def print_device_time(prof, wall_s: float, top: int = 8) -> None:
@@ -357,8 +384,10 @@ def main(argv=None):
     print(f"continuous: {len(results)} requests, {s.decode_tokens} decode tokens in "
           f"{s.decode_steps} steps over {args.num_slots} slots"
           + (f", prefill chunk {args.chunked_prefill}" if args.chunked_prefill else ""))
-    print(f"decode: {s.decode_tok_s:.1f} tok/s, prefill {s.prefill_s:.3f} s, "
-          f"decode {s.decode_s:.3f} s, wall {wall:.3f} s, utilization {s.utilization:.0%}")
+    clock = "the card's stream" if model.device.type == "cuda" else "the dispatches' wall"
+    print(f"decode: {s.decode_tok_s:.1f} tok/s of decode seconds, prefill {s.prefill_s:.3f} s, "
+          f"decode {s.decode_s:.3f} s (steps timed on {clock}), wall {wall:.3f} s, "
+          f"utilization {s.utilization:.0%}")
     ttft = server.ttft_percentiles()
     if ttft is not None:
         print(f"ttft: p50 {ttft[0] * 1e3:.1f} ms, p95 {ttft[1] * 1e3:.1f} ms")
@@ -387,6 +416,7 @@ def main(argv=None):
                 + " (warm-up included)")
     if prof is not None:
         print_device_time(prof, wall)
+        print_spans(prof)
         if args.profile:
             print(f"profile: device trace -> {args.profile}")
     for rid in sorted(results):
@@ -398,7 +428,8 @@ def main(argv=None):
     run_meta = {"arch": args.arch, "mode": args.mode, "requests": args.requests,
                 "seed": args.seed}
     if args.trace_out:
-        fmt = write_trace(server.tracer, args.trace_out, meta=run_meta)
+        fmt = write_trace(server.tracer, args.trace_out,
+                          meta=run_meta | {"epoch_unix_ns": server.tracer.epoch_unix_ns})
         print(f"trace: {len(server.tracer.events)} events -> {args.trace_out} "
               f"({fmt}; chrome format opens in ui.perfetto.dev)")
     if args.metrics_out:

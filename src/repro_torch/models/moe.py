@@ -60,6 +60,7 @@ from repro_torch.distrib import collectives, compat
 from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import common
+from repro_torch.obs import span
 
 
 class MoEConfig(NamedTuple):
@@ -132,20 +133,24 @@ def apply_dense(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, *, aux:
     b, s, d = x.shape
     e, f = cfg.n_experts, cfg.d_ff
     x2 = x.reshape(b * s, d)
-    top_p, top_i, aux = _router(params, x2, cfg, engine, aux, dp)
-    # Gate matrix (T, E): each chosen expert's probability, zeros elsewhere
-    # (one term per expert, so it is the reference's one-hot sum exactly).
-    # Out of place, so the gradient reaches the router in training.
-    gates = torch.zeros((b * s, e), dtype=torch.float32, device=x.device).scatter(1, top_i, top_p)
-    # (T, E*f), all experts at once (under TP this rank's block of them).
-    up_all = tpl.linear(x2, {"w": params["up"]}, engine, tp, e * f)
-    gate_all = tpl.linear(x2, {"w": params["gate"]}, engine, tp, e * f)
-    e_l = up_all.shape[1] // f
-    if e_l != e:
-        gates = tpl.split_to(gates, tp, dim=1)
-    h = common.silu(gate_all.float()).to(up_all.dtype) * up_all
-    h = (h.reshape(-1, e_l, f) * gates[..., None].to(h.dtype)).reshape(-1, e_l * f)
-    y = tpl.out_linear(h, {"w": params["down"]}, engine, tp, e * f)
+    with span("moe.router"):
+        top_p, top_i, aux = _router(params, x2, cfg, engine, aux, dp)
+        # Gate matrix (T, E): each chosen expert's probability, zeros
+        # elsewhere (one term per expert, so it is the reference's one-hot
+        # sum exactly). Out of place, so the gradient reaches the router in
+        # training.
+        gates = torch.zeros((b * s, e), dtype=torch.float32,
+                            device=x.device).scatter(1, top_i, top_p)
+    with span("moe.experts"):
+        # (T, E*f), all experts at once (under TP this rank's block of them).
+        up_all = tpl.linear(x2, {"w": params["up"]}, engine, tp, e * f)
+        gate_all = tpl.linear(x2, {"w": params["gate"]}, engine, tp, e * f)
+        e_l = up_all.shape[1] // f
+        if e_l != e:
+            gates = tpl.split_to(gates, tp, dim=1)
+        h = common.silu(gate_all.float()).to(up_all.dtype) * up_all
+        h = (h.reshape(-1, e_l, f) * gates[..., None].to(h.dtype)).reshape(-1, e_l * f)
+        y = tpl.out_linear(h, {"w": params["down"]}, engine, tp, e * f)
     return y.reshape(b, s, d), aux
 
 
@@ -188,7 +193,8 @@ def apply_ep(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, mesh, ep_a
         raise ValueError(f"{e_local} local experts on {n_shards} ranks, the config has "
                          f"{cfg.n_experts}")
     x2 = collectives.copy_to(x.reshape(t, d), mesh, ep_axis)
-    top_p, top_i, aux_loss = _router(params, x2, cfg, engine, aux)
+    with span("moe.router"):
+        top_p, top_i, aux_loss = _router(params, x2, cfg, engine, aux)
     # Flatten the assignments and sort them by expert, stably.
     flat_e = top_i.reshape(-1)
     flat_p = top_p.reshape(-1)
@@ -205,16 +211,18 @@ def apply_ep(params, x: torch.Tensor, cfg: MoEConfig, engine: Engine, mesh, ep_a
     st = torch.cat([st, st.new_zeros(cap)])
     window = torch.arange(cap, device=x.device)
     out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    for j in range(e_local):
-        eg = shard * e_local + j  # the global expert id
-        idx = starts[eg] + window
-        valid = window < counts[eg]
-        tok = torch.where(valid, st[idx], 0)
-        cols = slice(j * f, (j + 1) * f)
-        yj = _expert_ffn(params["up"][:, cols], params["gate"][:, cols], params["down"][cols],
-                         x2.index_select(0, tok), cfg, engine).float()
-        yj = yj * (sp[idx] * valid)[:, None]
-        out = out.index_add(0, tok, torch.where(valid[:, None], yj, 0.0))
+    with span("moe.experts"):
+        for j in range(e_local):
+            eg = shard * e_local + j  # the global expert id
+            idx = starts[eg] + window
+            valid = window < counts[eg]
+            tok = torch.where(valid, st[idx], 0)
+            cols = slice(j * f, (j + 1) * f)
+            yj = _expert_ffn(params["up"][:, cols], params["gate"][:, cols],
+                             params["down"][cols], x2.index_select(0, tok), cfg,
+                             engine).float()
+            yj = yj * (sp[idx] * valid)[:, None]
+            out = out.index_add(0, tok, torch.where(valid[:, None], yj, 0.0))
     # The sum over the expert ranks in the input's format (the reference
     # sums in bf16 to halve the wire bytes; each token's partial sums
     # were taken in fp32 locally).

@@ -59,6 +59,7 @@ from repro_torch.distrib import tensor_parallel as tpl
 from repro_torch.engine import Engine
 from repro_torch.models import attention, common, ffn, moe, rglru, xlstm
 from repro_torch.models.attention import AttnConfig, PagedInfo
+from repro_torch.obs import span
 
 Params = dict[str, Any]
 
@@ -256,9 +257,10 @@ class Transformer:
         h = self._norm(lp["norm1"], x)
         acfg = self.layer_cfgs[i]
         if acfg is not None:
-            h = attention.apply(lp["attn"], h, positions, acfg, engine,
-                                pool=store if paged is not None else None, paged=paged,
-                                cache=store if paged is None else None, tp=tp)
+            with span("attn"):
+                h = attention.apply(lp["attn"], h, positions, acfg, engine,
+                                    pool=store if paged is not None else None, paged=paged,
+                                    cache=store if paged is None else None, tp=tp)
         else:
             h = self._recurrent(self.cells[self.kinds[i]], lp["cell"], h, engine, store, paged,
                                 decode)
@@ -275,7 +277,9 @@ class Transformer:
                                          mesh=mc.mesh, ep_axis=mc.ep_axis, tp=tp,
                                          dp_axes=mc.dp_axes if store is None else None)
             else:
-                h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine, tp=tp, d_ff=self.cfg.d_ff)
+                with span("ffn"):
+                    h2 = ffn.apply(lp["ffn"], h2, self.cfg.act, engine, tp=tp,
+                                   d_ff=self.cfg.d_ff)
             x = x + h2
         return x, aux_loss
 
@@ -449,13 +453,14 @@ class Transformer:
         split, this rank's block of the vocab's logits (column-parallel)."""
         eng = engine or self.engine
         w = params["embed"]["table"].T if self.cfg.tie_embeddings else params["head"]["w"]
-        if self.tp is not None and w.shape[1] != self.cfg.vocab_size:
-            out = tpl.column_linear(h, {"w": w}, eng, self.tp)
-        elif self.cfg.tie_embeddings:
-            out = common.unembed_apply(params["embed"], h, eng)
-        else:
-            out = common.dense_apply(params["head"], h, eng)
-        return common.softcap(out.float(), self.cfg.final_softcap)
+        with span("head"):
+            if self.tp is not None and w.shape[1] != self.cfg.vocab_size:
+                out = tpl.column_linear(h, {"w": w}, eng, self.tp)
+            elif self.cfg.tie_embeddings:
+                out = common.unembed_apply(params["embed"], h, eng)
+            else:
+                out = common.dense_apply(params["head"], h, eng)
+            return common.softcap(out.float(), self.cfg.final_softcap)
 
     # -- training -------------------------------------------------------------
     def forward(self, params, batch, *, engine: Engine | None = None):

@@ -3,7 +3,8 @@ counterpart of ``repro.obs``, with the same names and formats).
 
 - ``trace``: request-lifecycle and device-step tracing, exported as
   Chrome trace events or JSONL (Perfetto-loadable; ``scripts/
-  validate_trace.py`` checks them);
+  validate_trace.py`` checks them), and ``span``, the named host ranges
+  that a ``torch.profiler`` profile records;
 - ``metrics``: the process-local registry (counters, gauges, log-bucket
   histograms) with JSON and Prometheus export, the single source of every
   serving figure (``ServerStats`` is a view over it);
@@ -37,9 +38,12 @@ from repro_torch.obs.trace import (
     DEVICE_TID,
     PID_DEVICE,
     PID_REQUESTS,
+    SPAN_NAMES,
     JsonTracer,
     NullTracer,
     Tracer,
+    is_span,
+    span,
 )
 
 __all__ = [
@@ -53,11 +57,14 @@ __all__ = [
     "NullTracer",
     "PID_DEVICE",
     "PID_REQUESTS",
+    "SPAN_NAMES",
     "StepProfiler",
     "Tracer",
     "device_capture",
+    "is_span",
     "log_bounds",
     "metrics_doc",
+    "span",
     "write_metrics",
     "write_trace",
 ]

@@ -49,6 +49,19 @@ Track layout:
   Perfetto renders the two tracks stacked so the overlap reads directly.
   Harvest order is FIFO in dispatch order, so this track stays
   timestamp-monotonic even though events are emitted at harvest time.
+
+The tracer's timestamps count from its epoch on ``time.perf_counter()``;
+``JsonTracer.epoch_unix_ns`` is ``time.time_ns()`` read beside it, so an
+event's Unix time is ``epoch_unix_ns + 1e3 * ts``: the clock of a
+``torch.profiler`` trace, whose events carry Unix nanoseconds.
+
+``span`` is the other kind of record, and no tracer sees it: a named
+range of host time that only a ``torch.profiler`` profile recording host
+activity keeps (and ``torch.autograd.profiler.emit_nvtx`` turns into NVTX
+ranges). The serving loop, the engine core, the model, the GEMM-Op's host
+wrapper and the train step open spans under the fixed names of
+:data:`SPAN_NAMES` (``PERF.md`` says what each covers); with no profiler
+running a span costs a fraction of a microsecond.
 """
 from __future__ import annotations
 
@@ -56,12 +69,38 @@ import json
 import time
 from typing import Optional, Protocol, runtime_checkable
 
+import torch
+
 PID_REQUESTS = 1
 PID_DEVICE = 2
 DEVICE_TID = 0
 DEVICE_INFLIGHT_TID = 1
 
 _PROCESS_NAMES = {PID_REQUESTS: "requests", PID_DEVICE: "device"}
+
+
+# The program's span names. ``engine.prefill[P=p,chunk=c]`` and
+# ``engine.prefill_chunk[n=n]`` carry their step's shape after the name.
+SPAN_NAMES = (
+    "server.schedule", "server.harvest",
+    "engine.stage", "engine.prefill", "engine.prefill_chunk", "engine.decode", "engine.sample",
+    "engine.wait",
+    "attn", "moe.router", "moe.experts", "ffn", "head",
+    "gemm.plan", "gemm.kmajor_copy", "gemm.launch",
+    "train.forward", "train.backward", "train.optimizer",
+)
+
+
+def is_span(name: str) -> bool:
+    """Whether a profiler event's name is one of the program's spans."""
+    return name.partition("[")[0] in SPAN_NAMES
+
+
+# ``span(name)``: a context manager that opens a profiler range called
+# ``name`` on this thread (``torch.profiler``'s fast record function, which
+# records no argument). Inside a CUDA graph's capture the range is the
+# host's alone; a replay opens none.
+span = torch._C._profiler._RecordFunctionFast
 
 
 @runtime_checkable
@@ -111,6 +150,7 @@ class JsonTracer:
 
     def __init__(self):
         self._t0 = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()
         self.events: list[dict] = []
         self._named_tracks: set[tuple[int, int]] = set()
 
@@ -182,6 +222,7 @@ class JsonTracer:
         self.events = []
         self._named_tracks = set()
         self._t0 = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()
 
     # -- export ------------------------------------------------------------
     def to_chrome(self, meta: Optional[dict] = None) -> dict:

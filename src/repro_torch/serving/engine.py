@@ -54,6 +54,21 @@ and emits a ``<kind>.complete`` event on the "in flight" track, backdated
 to the dispatch. Nothing here synchronises the card beyond the harvest's
 wait on its event, and with the default ``NullTracer`` no event argument
 is built.
+
+A step's seconds are its own span on the card's stream: a timing event
+recorded at its dispatch's entry, before its first operation, and its
+``done`` event, read at the harvest. Steps run in dispatch order on one
+stream, so the spans never overlap, whatever else is in flight; a step's
+span holds the time the stream waited on the host to enqueue it, not the
+time it queued behind the step ahead. The events come from a pool and
+return to it at the harvest. On the CPU a step runs inside its dispatch,
+and its charge is the dispatch's own wall time.
+
+The host's path is named for ``torch.profiler`` by :func:`repro_torch.obs.span`:
+``engine.stage`` (the pack and the pinned copy), ``engine.prefill[P=p,chunk=c]``
+and ``engine.prefill_chunk[n=n]`` (the model's prefill), ``engine.decode``
+(the graph's load and replay), ``engine.sample`` (sampling and the
+last-token merge) and ``engine.wait`` (the harvest's wait on the event).
 """
 from __future__ import annotations
 
@@ -72,6 +87,7 @@ from repro_torch.obs import (
     MetricsRegistry,
     NullTracer,
     StepProfiler,
+    span,
 )
 from repro_torch.serving.cache import StateStore, copy_kv_page
 from repro_torch.serving.sampling import GREEDY, sample_logits, stack_params
@@ -88,7 +104,9 @@ class InflightStep:
     kind: str  # prefill_full | prefill_chunk | prefill_batch | decode
     bucket: int  # profiler shape bucket (chunk size, P*chunk, or num_slots)
     t_dispatch: float
+    host_s: float  # the dispatch's wall seconds
     out: torch.Tensor  # host int32: the sampled tokens (if any), then the finite flag
+    start: Optional[torch.cuda.Event]  # recorded before the step's first operation (on the card)
     done: Optional[torch.cuda.Event]  # recorded after ``out``'s copy (on the card)
     staged: torch.Tensor  # the step's pinned inputs, held until its harvest
     n_tokens: int  # sampled tokens at the head of ``out``
@@ -201,6 +219,7 @@ class EngineCore:
         self._on_card = self.device.type == "cuda"
         self.cache: Optional[StateStore] = None
         self._inflight: collections.deque[InflightStep] = collections.deque()
+        self._events: list[torch.cuda.Event] = []  # timing events free for a step
         n = config.num_slots
         self.decode_step = GraphStep(self._decode_forward, self._decode_arrays(
             np.zeros((n, config.pages_per_slot), np.int32), np.zeros((n,), np.int32),
@@ -218,9 +237,12 @@ class EngineCore:
             help="host blocking wait per harvest (0 when the step already "
                  "finished — the overlap window covered it)")
         self._c_prefill_s = m.counter(
-            "serving_prefill_seconds_total", "wall seconds in prefill steps")
+            "serving_prefill_seconds_total",
+            "seconds of prefill steps on the card's stream (the dispatch's wall time on the CPU)")
         self._c_decode_s = m.counter(
-            "serving_decode_seconds_total", "wall seconds in decode rounds")
+            "serving_decode_seconds_total",
+            "seconds of decode rounds on the card's stream (the dispatch's wall time on the "
+            "CPU; a spec round's wall time)")
         self._h_chunk = m.histogram(
             "serving_prefill_chunk_seconds", help="one prefill step")
         self._h_decode_step = m.histogram(
@@ -264,7 +286,6 @@ class EngineCore:
         )
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._last_tok.zero_()
-        self._t_last_harvest = 0.0
         self._g_inflight.set(0)
 
     # -- pool sizing -------------------------------------------------------
@@ -314,6 +335,17 @@ class EngineCore:
         """:func:`stage` for a step, which holds the buffer until its harvest."""
         return stage(arrays, self._on_card)
 
+    def _event(self) -> torch.cuda.Event:
+        """A timing event recorded on the current stream now."""
+        ev = self._events.pop() if self._events else torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _start(self) -> Optional[torch.cuda.Event]:
+        """The step's start event, recorded before its first operation (on
+        the card; None on the CPU)."""
+        return self._event() if self._on_card else None
+
     @property
     def generator(self) -> torch.Generator:
         """The sampling generator (re-seeded by :meth:`fresh`)."""
@@ -331,25 +363,25 @@ class EngineCore:
         return sample_logits(logits, self._gen, temperature=dev["temperature"],
                              top_k=dev["top_k"], top_p=dev["top_p"])
 
-    def _record(self, kind: str, bucket: int, t0: float, toks, finite: torch.Tensor, staged,
-                payload, targs: Optional[dict]) -> None:
+    def _record(self, kind: str, bucket: int, t0: float, start, toks, finite: torch.Tensor,
+                staged, payload, targs: Optional[dict]) -> None:
         """Queue the step's results for the host: its tokens and finite
-        flag, copied to pinned memory behind the step, and an event; close
-        the dispatch span."""
+        flag, copied to pinned memory behind the step, and its done event;
+        close the dispatch span."""
         flag = finite.to(torch.int32)[None]
         out_dev = flag if toks is None else torch.cat([toks.to(torch.int32), flag])
         done = None
         if self._on_card:
             out = torch.empty(out_dev.shape, dtype=torch.int32, pin_memory=True)
             out.copy_(out_dev, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            done = self._event()
         else:
             out = out_dev
         if targs is not None:
             self.tracer.end(PID_DEVICE, DEVICE_TID, f"{kind}.dispatch")
-        self._inflight.append(InflightStep(kind, bucket, t0, out, done, staged,
-                                           0 if toks is None else toks.shape[0], payload, targs))
+        self._inflight.append(InflightStep(
+            kind, bucket, t0, time.perf_counter() - t0, out, start, done, staged,
+            0 if toks is None else toks.shape[0], payload, targs))
         self._g_inflight.set(len(self._inflight))
 
     # -- dispatch ----------------------------------------------------------
@@ -365,20 +397,24 @@ class EngineCore:
             targs = {"rid": rid, "slot": slot, "start": start, "tokens": n, "bucket": bucket}
             self.tracer.begin(PID_DEVICE, DEVICE_TID, f"{kind}.dispatch", **targs)
         t0 = time.perf_counter()
+        ev = self._start()
         arrays = {"tokens": tokens, "page_row": page_row}
         if sampling is not None:
             arrays |= stack_params([sampling])
-        staged, layout = self._stage(arrays)
-        dev = self._to_device(staged, layout)
-        logits = self.model.prefill_cb(
-            self.params, dev["tokens"], self.cache.pools, dev["page_row"], slot, start, n,
-            page_size=self.config.page_size, chunked=kind == "prefill_chunk",
-        )
+        with span("engine.stage"):
+            staged, layout = self._stage(arrays)
+            dev = self._to_device(staged, layout)
+        with span(f"engine.prefill_chunk[n={n}]"):
+            logits = self.model.prefill_cb(
+                self.params, dev["tokens"], self.cache.pools, dev["page_row"], slot, start, n,
+                page_size=self.config.page_size, chunked=kind == "prefill_chunk",
+            )
         toks = None
         if sampling is not None:
-            toks = self._sample(logits, dev)
-            self._last_tok[slot, 0] = toks[0]
-        self._record(kind, bucket, t0, toks, torch.isfinite(logits).all(), staged, payload,
+            with span("engine.sample"):
+                toks = self._sample(logits, dev)
+                self._last_tok[slot, 0] = toks[0]
+        self._record(kind, bucket, t0, ev, toks, torch.isfinite(logits).all(), staged, payload,
                      targs)
 
     def dispatch_prefill_batch(self, *, tokens: np.ndarray, page_rows: np.ndarray,
@@ -398,22 +434,27 @@ class EngineCore:
                 targs["rids"] = list(rids)
             self.tracer.begin(PID_DEVICE, DEVICE_TID, "prefill_batch.dispatch", **targs)
         t0 = time.perf_counter()
-        staged, layout = self._stage({
-            "tokens": tokens, "page_rows": page_rows, "slots": slots, "starts": starts,
-            "lengths": lengths, "active": active, "final": final_mask,
-            **stack_params(sampling_list)})
-        dev = self._to_device(staged, layout)
-        logits = self.model.prefill_cb(
-            self.params, dev["tokens"], self.cache.pools, dev["page_rows"], dev["slots"],
-            dev["starts"], dev["lengths"], page_size=self.config.page_size, chunked=True,
-            active=dev["active"],
-        )
-        toks = self._sample(logits, dev)
-        slots_dev = dev["slots"].long()
-        last = self._last_tok[:, 0]
-        last.scatter_(0, slots_dev, torch.where(dev["final"] != 0, toks.long(), last[slots_dev]))
+        ev = self._start()
+        with span("engine.stage"):
+            staged, layout = self._stage({
+                "tokens": tokens, "page_rows": page_rows, "slots": slots, "starts": starts,
+                "lengths": lengths, "active": active, "final": final_mask,
+                **stack_params(sampling_list)})
+            dev = self._to_device(staged, layout)
+        with span(f"engine.prefill[P={p},chunk={chunk}]"):
+            logits = self.model.prefill_cb(
+                self.params, dev["tokens"], self.cache.pools, dev["page_rows"], dev["slots"],
+                dev["starts"], dev["lengths"], page_size=self.config.page_size, chunked=True,
+                active=dev["active"],
+            )
+        with span("engine.sample"):
+            toks = self._sample(logits, dev)
+            slots_dev = dev["slots"].long()
+            last = self._last_tok[:, 0]
+            last.scatter_(0, slots_dev,
+                          torch.where(dev["final"] != 0, toks.long(), last[slots_dev]))
         finite = (torch.isfinite(logits).all(-1) | (dev["active"] == 0)).all()
-        self._record("prefill_batch", bucket, t0, toks, finite, staged, payload, targs)
+        self._record("prefill_batch", bucket, t0, ev, toks, finite, staged, payload, targs)
 
     def _decode_forward(self, d: dict, pools) -> torch.Tensor:
         """``decode_cb`` on the static decode inputs: the body of the decode
@@ -433,16 +474,20 @@ class EngineCore:
             targs = {"slots": n, "decoding": int(active.sum())}
             self.tracer.begin(PID_DEVICE, DEVICE_TID, "decode.dispatch", **targs)
         t0 = time.perf_counter()
-        staged, _ = self._stage(self._decode_arrays(self.cache.page_table, self.cache.seq_lens,
-                                                    active, params_list))
-        self.decode_step.load(staged, self.cache.pools)
-        logits = self.decode_step.run()
+        ev = self._start()
+        with span("engine.stage"):
+            staged, _ = self._stage(self._decode_arrays(self.cache.page_table,
+                                                        self.cache.seq_lens, active, params_list))
+        with span("engine.decode"):
+            self.decode_step.load(staged, self.cache.pools)
+            logits = self.decode_step.run()
         d = self.decode_step.inputs
-        toks = self._sample(logits, d)
-        act = d["active"] != 0
-        self._last_tok.copy_(torch.where(act[:, None], toks[:, None].long(), self._last_tok))
+        with span("engine.sample"):
+            toks = self._sample(logits, d)
+            act = d["active"] != 0
+            self._last_tok.copy_(torch.where(act[:, None], toks[:, None].long(), self._last_tok))
         finite = (torch.isfinite(logits).all(-1) | ~act).all()
-        self._record("decode", n, t0, toks, finite, staged, payload, targs)
+        self._record("decode", n, t0, ev, toks, finite, staged, payload, targs)
 
     # -- harvest -----------------------------------------------------------
     def charge_decode(self, dt: float, finite: bool) -> None:
@@ -456,23 +501,25 @@ class EngineCore:
     def harvest_one(self):
         """Wait for the oldest dispatched step and return ``(step, tokens)``
         (tokens as numpy, None for a non-final prefill chunk); None when
-        nothing is in flight. Each step is charged the wall time from
-        max(its dispatch, the previous harvest) to the moment its results
-        reached the host, so the charges sum to the elapsed wall time when
-        the card is saturated. The wait on the step's event is the host's
-        only block, and ``engine_idle_seconds`` observes it."""
+        nothing is in flight. Each step is charged its own span on the
+        card's stream, from its start event to its done event (on the CPU
+        its dispatch's wall time). The wait on the step's event is the
+        host's only block, and ``engine_idle_seconds`` observes it."""
         if not self._inflight:
             return None
         rec = self._inflight.popleft()
         t_wait = time.perf_counter()
-        if rec.done is not None:
-            rec.done.synchronize()
-        out = rec.out.numpy()
-        toks = out[:rec.n_tokens].copy() if rec.n_tokens else None
+        with span("engine.wait"):
+            if rec.done is not None:
+                rec.done.synchronize()
+            out = rec.out.numpy()
+            toks = out[:rec.n_tokens].copy() if rec.n_tokens else None
         t_done = time.perf_counter()
         self._h_idle.observe(t_done - t_wait)
-        dt = t_done - max(rec.t_dispatch, self._t_last_harvest)
-        self._t_last_harvest = t_done
+        dt = rec.host_s
+        if rec.done is not None:
+            dt = rec.start.elapsed_time(rec.done) / 1e3
+            self._events += (rec.start, rec.done)
         if rec.kind.startswith("prefill"):
             self._c_nonfinite.inc(int(not out[-1]))
             self._c_prefill_s.inc(dt)

@@ -56,7 +56,10 @@ token to finish), with the instants ``admitted``, ``preempted`` and
 the device track with ``draft``, ``verify`` and ``commit`` inside it (the
 commit phase holds the state-row commit pass and the round's one copy to
 the host). Tracing is off by default (``NullTracer``), and off it builds
-no event argument.
+no event argument. For ``torch.profiler`` a step is two spans
+(:func:`repro_torch.obs.span`): ``server.schedule``, the dispatch half
+(admission, the gauges, the dispatch lists and the engine's dispatches,
+whose spans nest in it), and one ``server.harvest`` a step harvested.
 
 The static-batch path (:func:`generate_static`) lives here too: the
 ring-buffer baseline that ``launch/serve.py --mode static`` runs.
@@ -78,6 +81,7 @@ from repro_torch.obs import (
     MetricsRegistry,
     NullTracer,
     StepProfiler,
+    span,
 )
 from repro_torch.serving.engine import EngineCore
 from repro_torch.serving.sampling import GREEDY, SamplingParams, sample_logits, stack_params
@@ -252,11 +256,10 @@ class ServerStats:
 
     @property
     def decode_tok_s(self) -> float:
+        """Decode tokens over the decode seconds: the decode steps' own
+        spans on the card's stream (on the CPU their dispatches' wall time;
+        a speculative round's wall time)."""
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
-
-    @property
-    def total_s(self) -> float:
-        return self.prefill_s + self.decode_s
 
 
 @dataclasses.dataclass
@@ -459,6 +462,28 @@ class Server:
         tokens harvested (possibly none while work is in flight). Runs under
         ``torch.inference_mode``: serving records no autograd graph."""
         events: list[TokenEvent] = []
+        with span("server.schedule"):
+            dispatched = self._schedule()
+        if self.spec is not None:
+            # A speculative round is host-synchronous: harvest the prefill
+            # steps first (committing first tokens), so the round sees the
+            # state a synchronous server would.
+            self._drain(events)
+            if any(r.decoding for r in self.scheduler.running.values()):
+                self._spec_decode_once(events)
+            return events
+        while self.engine.num_inflight > self.config.async_depth:
+            self._harvest_one(events)
+        if not dispatched and self.engine.num_inflight:
+            # Everything admissible is in flight: consume one result so the
+            # loop always moves toward the drain.
+            self._harvest_one(events)
+        return events
+
+    def _schedule(self) -> int:
+        """The dispatch half of :meth:`step`: admission, the gauges, the
+        prefill dispatches and (without speculation) the decode dispatch.
+        Returns the steps dispatched."""
         for req in self.scheduler.admit(on_preempt=self._on_preempt):
             self._install(req)
         # The scheduler's counters are the authority; the gauges mirror them.
@@ -475,25 +500,12 @@ class Server:
                 for req in prefilling:
                     self._dispatch_prefill_serial(req)
                     dispatched += 1
-        if self.spec is not None:
-            # A speculative round is host-synchronous: harvest the prefill
-            # steps first (committing first tokens), so the round sees the
-            # state a synchronous server would.
-            self._drain(events)
-            if any(r.decoding for r in self.scheduler.running.values()):
-                self._spec_decode_once(events)
-            return events
-        decoding = self._decode_candidates()
-        if decoding:
-            self._dispatch_decode(decoding)
-            dispatched += 1
-        while self.engine.num_inflight > self.config.async_depth:
-            self._harvest_one(events)
-        if not dispatched and self.engine.num_inflight:
-            # Everything admissible is in flight: consume one result so the
-            # loop always moves toward the drain.
-            self._harvest_one(events)
-        return events
+        if self.spec is None:
+            decoding = self._decode_candidates()
+            if decoding:
+                self._dispatch_decode(decoding)
+                dispatched += 1
+        return dispatched
 
     def run(self) -> dict[int, Request]:
         """Drain the queue; returns {rid: finished Request}."""
@@ -829,35 +841,36 @@ class Server:
         state and emit TokenEvents. Rows whose request was preempted (old
         epoch) or already finished (EOS overshoot) are discarded. Returns
         False when nothing was in flight."""
-        res = self.engine.harvest_one()
-        if res is None:
-            return False
-        rec, toks = res
-        if rec.kind == "decode":
-            committed = 0
-            for slot, req, epoch in rec.payload:
-                if req.status != RUNNING or req.preemptions != epoch or req.slot != slot:
-                    continue
-                self._commit(req, int(toks[slot]), events)
-                committed += 1
-            self._c_decode_steps.inc()
-            self._c_slot_steps.inc(self.config.num_slots)
-            self._c_decode_tokens.inc(committed)
-        else:
-            t = self.tracer
-            for i, (req, epoch, start, n, final) in enumerate(rec.payload):
-                if req.status != RUNNING or req.preemptions != epoch:
-                    continue
-                if t.enabled:
-                    t.begin(PID_REQUESTS, req.rid, "prefill_chunk", start=start, tokens=n)
-                    t.end(PID_REQUESTS, req.rid, "prefill_chunk")
-                req.prefilled = start + n
-                self.scheduler.publish_prefix(req)
-                self._c_prefill_calls.inc()
-                self._c_prefill_tokens.inc(n)
-                if final:
-                    self._commit(req, int(toks[i]), events)
-        return True
+        with span("server.harvest"):
+            res = self.engine.harvest_one()
+            if res is None:
+                return False
+            rec, toks = res
+            if rec.kind == "decode":
+                committed = 0
+                for slot, req, epoch in rec.payload:
+                    if req.status != RUNNING or req.preemptions != epoch or req.slot != slot:
+                        continue
+                    self._commit(req, int(toks[slot]), events)
+                    committed += 1
+                self._c_decode_steps.inc()
+                self._c_slot_steps.inc(self.config.num_slots)
+                self._c_decode_tokens.inc(committed)
+            else:
+                t = self.tracer
+                for i, (req, epoch, start, n, final) in enumerate(rec.payload):
+                    if req.status != RUNNING or req.preemptions != epoch:
+                        continue
+                    if t.enabled:
+                        t.begin(PID_REQUESTS, req.rid, "prefill_chunk", start=start, tokens=n)
+                        t.end(PID_REQUESTS, req.rid, "prefill_chunk")
+                    req.prefilled = start + n
+                    self.scheduler.publish_prefix(req)
+                    self._c_prefill_calls.inc()
+                    self._c_prefill_tokens.inc(n)
+                    if final:
+                        self._commit(req, int(toks[i]), events)
+            return True
 
     def _commit(self, req: Request, token: int, events: list[TokenEvent]) -> None:
         """Commit one harvested token; latency marks are stamped here, where

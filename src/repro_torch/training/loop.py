@@ -47,6 +47,10 @@ mesh of one, each reduction below is the identity:
   updates that slice of the parameters and all-gathers the slices. AdamW
   is elementwise, so the parameters are the unsharded update's bit for
   bit.
+
+For ``torch.profiler`` a step is three spans (:func:`repro_torch.obs.span`):
+``train.forward`` (the loss), ``train.backward`` (the gradients) and
+``train.optimizer`` (the global norm and the update).
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.distrib import collectives, sharding, tensor_parallel
 from repro_torch.engine import Engine, autodiff
 from repro_torch.models import common
+from repro_torch.obs import span
 from repro_torch.optim import global_norm
 
 AUX_LOSS_WEIGHT = 0.01
@@ -190,10 +195,12 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
         for t, sm in zip(leaves(live), cache["summed"]):
             if sm:
                 autodiff.mark_summed(t, how)
-        total, denom, aux = _loss_terms(model, live, batch, eng)
-        count = collectives.all_reduce(denom, mesh, dp, tag="scalars").clamp(min=1.0)
-        loss = total / count + AUX_LOSS_WEIGHT * aux / n_dp
-        grads = torch.autograd.grad(loss, leaves(live))
+        with span("train.forward"):
+            total, denom, aux = _loss_terms(model, live, batch, eng)
+            count = collectives.all_reduce(denom, mesh, dp, tag="scalars").clamp(min=1.0)
+            loss = total / count + AUX_LOSS_WEIGHT * aux / n_dp
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves(live))
         xent = collectives.all_reduce(total.detach(), mesh, dp, tag="scalars") / count
         aux = collectives.all_reduce(aux.detach(), mesh, dp, tag="scalars") / n_dp
         return xent + AUX_LOSS_WEIGHT * aux, {"xent": xent, "aux": aux}, list(grads)
@@ -213,14 +220,16 @@ def make_train_step(model, optimizer, *, grad_accum: int = 1,
         else:
             loss, metrics, grads = grad_fn(state.params, batch)
         grads = [reduce(g, axes) for g, axes in zip(grads, cache["axes"])]
-        gnorm = _split_norm(grads, cache["split"], mesh)
-        if not bool(torch.isfinite(gnorm) & torch.isfinite(loss)):
-            new_params, new_opt, skipped = state.params, state.opt_state, state.skipped + 1
-        else:
-            new_params, new_opt = zero1_update(optimizer, state.params,
-                                               unflatten(state.params, grads), state.opt_state,
-                                               state.step, gnorm, cache["dims"], mesh, dp)
-            skipped = state.skipped
+        with span("train.optimizer"):
+            gnorm = _split_norm(grads, cache["split"], mesh)
+            if not bool(torch.isfinite(gnorm) & torch.isfinite(loss)):
+                new_params, new_opt, skipped = state.params, state.opt_state, state.skipped + 1
+            else:
+                new_params, new_opt = zero1_update(optimizer, state.params,
+                                                   unflatten(state.params, grads),
+                                                   state.opt_state, state.step, gnorm,
+                                                   cache["dims"], mesh, dp)
+                skipped = state.skipped
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, skipped=skipped)
         return TrainState(state.step + 1, new_params, new_opt, skipped), metrics
 
